@@ -1,0 +1,17 @@
+from gpscore_torch.fit.driver import eval_predictive_metrics, fit_and_eval
+from gpscore_torch.fit.objectives import OBJECTIVE_RULES, make_objective
+from gpscore_torch.fit.schedules import SCHEDULES, Schedule, get_schedule, rules_for
+from gpscore_torch.fit.train import FitResult, fit_gd
+
+__all__ = [
+    "eval_predictive_metrics",
+    "fit_and_eval",
+    "OBJECTIVE_RULES",
+    "make_objective",
+    "SCHEDULES",
+    "Schedule",
+    "get_schedule",
+    "rules_for",
+    "FitResult",
+    "fit_gd",
+]

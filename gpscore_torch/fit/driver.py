@@ -1,0 +1,59 @@
+"""One (rule, replicate) fit, then the test-set metrics (port of the FITC
+branch of `experiments/common.py::{fit_and_eval, eval_predictive_metrics}`)."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from gpscore_torch.fit.objectives import make_objective
+from gpscore_torch.fit.schedules import Schedule
+from gpscore_torch.fit.train import FitResult, fit_gd
+from gpscore_torch.metrics import EvalMetrics, evaluate_predictive
+from gpscore_torch.models.fitc import fitc_predictive
+from gpscore_torch.utils.params import GPParams
+
+
+def eval_predictive_metrics(
+    model: str, p: GPParams, train_x, train_y, test_x, test_y, kernel: str = "ard"
+) -> EvalMetrics:
+    """The six-metric suite of the test predictive at fitted params."""
+    if model != "fitc":
+        raise NotImplementedError(f"model {model!r} is not ported yet (FITC only)")
+    with torch.no_grad():
+        pred = fitc_predictive(train_x, train_y, test_x, p, kind=kernel)
+        var = torch.diagonal(pred.cov)
+        return evaluate_predictive(pred.mean, var, test_y, train_y)
+
+
+def fit_and_eval(
+    rule: str,
+    model: str,
+    schedule: Schedule,
+    params0: GPParams,
+    train_x,
+    train_y,
+    test_x,
+    test_y,
+    generator: Optional[torch.Generator] = None,
+    kernel: str = "ard",
+    fold_k: int = 4,
+    num_sim: int = 300,
+) -> tuple[EvalMetrics, FitResult]:
+    """Fit by GD on the schedule, then evaluate the test predictive."""
+    loss = make_objective(rule, model=model, kernel=kernel, fold_k=fold_k, num_sim=num_sim)
+    res = fit_gd(
+        loss,
+        params0,
+        train_x,
+        train_y,
+        iters=schedule.iters,
+        lr=schedule.lr,
+        lr_inducing=schedule.lr_inducing,
+        generator=generator,
+    )
+    metrics = eval_predictive_metrics(
+        model, res.params, train_x, train_y, test_x, test_y, kernel=kernel
+    )
+    return metrics, res

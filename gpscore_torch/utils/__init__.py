@@ -1,0 +1,23 @@
+from gpscore_torch.utils.params import (
+    GPParams,
+    init_unit_params,
+    params_from_numpy,
+    params_to_numpy,
+)
+from gpscore_torch.utils.precision import (
+    get_matmul_mode,
+    matmul,
+    matmul_crit,
+    set_matmul_mode,
+)
+
+__all__ = [
+    "GPParams",
+    "init_unit_params",
+    "params_from_numpy",
+    "params_to_numpy",
+    "get_matmul_mode",
+    "set_matmul_mode",
+    "matmul",
+    "matmul_crit",
+]

@@ -1,0 +1,197 @@
+"""The port's Gram (gpscore_torch.ops) against gpscore.ops, forward and backward.
+
+On the CPU the Gram kernel's wrapper runs its plain version; the CUDA kernels
+themselves are checked by the ``cuda``-marked test (and by chip_smoke.py).
+"""
+
+import shutil
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import oracle
+from gpscore.ops.gram_pallas import ard_gram_pallas
+from gpscore.ops.kernels import ard_gram as jax_ard_gram
+from gpscore.ops.kernels import rbf_gram as jax_rbf_gram
+from gpscore_torch.ops import _build, gram_cuda
+from gpscore_torch.ops.gram_cuda import ArdGram
+from gpscore_torch.ops.kernels import ard_gram, gram, kernel_diag, rbf_gram
+from torch_parity import close, t
+
+
+def _inputs(seed, n, m, d):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    xp = rng.standard_normal((m, d)).astype(np.float32)
+    ll = (0.2 * rng.standard_normal(d)).astype(np.float32)
+    g = rng.standard_normal((n, m)).astype(np.float32)
+    return x, xp, ll, g
+
+
+@pytest.mark.parametrize("n,m,d", [(40, 30, 3), (128, 8, 3), (17, 11, 1), (64, 6, 8)])
+def test_gram_fwd_matches_jax_and_pallas(n, m, d):
+    """gram() (ArdGram, plain on CPU) vs jnp ard_gram and the Pallas kernel in
+    interpret mode, atol 1e-5 as tests/test_kernels.py holds Pallas to jnp."""
+    x, xp, ll, _ = _inputs(n + m + d, n, m, d)
+    got = gram(t(x), t(xp), 0.3, t(ll))
+    close(got, jax_ard_gram(jnp.asarray(x), jnp.asarray(xp), 0.3, jnp.asarray(ll)), 0, 1e-5)
+    close(got, ard_gram_pallas(jnp.asarray(x), jnp.asarray(xp), 0.3, jnp.asarray(ll)), 0, 1e-5)
+    close(got, oracle.ard_gram(x, xp, 0.3, ll), 0, 1e-5)
+
+
+def test_plain_ard_and_rbf_grams_match_jax():
+    x, xp, ll, _ = _inputs(1, 37, 23, 2)
+    close(ard_gram(t(x), t(xp), 0.2, t(ll)),
+          jax_ard_gram(jnp.asarray(x), jnp.asarray(xp), 0.2, jnp.asarray(ll)), 0, 1e-5)
+    close(rbf_gram(t(x), t(xp), 0.2, -0.4),
+          jax_rbf_gram(jnp.asarray(x), jnp.asarray(xp), 0.2, -0.4), 0, 1e-5)
+
+
+def test_gram_rbf_rides_the_ard_kernel():
+    """kind="rbf" (log squared length b) equals ARD with b/2 in every dim."""
+    x, xp, _, _ = _inputs(2, 30, 9, 3)
+    got = gram(t(x), t(xp), 0.1, torch.tensor(-0.4), kind="rbf")
+    close(got, jax_rbf_gram(jnp.asarray(x), jnp.asarray(xp), 0.1, -0.4), 0, 1e-5)
+    close(got, oracle.rbf_gram(x, xp, 0.1, -0.4), 0, 1e-5)
+    with pytest.raises(ValueError):
+        gram(t(x), t(xp), 0.1, torch.tensor(-0.4), kind="matern")
+
+
+def test_kernel_diag():
+    x, _, _, _ = _inputs(3, 11, 1, 2)
+    close(kernel_diag(t(x), 0.7), np.full(11, np.exp(0.7), np.float32), 1e-6)
+
+
+@pytest.mark.parametrize("case", ["cross", "same", "scalar_length"])
+def test_ard_gram_grads_match_jax(case):
+    """ArdGram's four gradients vs jax.grad of jnp ard_gram, at the tolerance
+    of tests/test_kernels.py (rtol/atol 3e-4)."""
+    x, xp, ll, _ = _inputs(4, 17, 11, 3)
+    if case == "same":
+        xp = x
+    if case == "scalar_length":
+        x, xp = x[:, :1].copy(), xp[:, :1].copy()
+        ll = np.float32(0.25)
+    g = np.random.default_rng(5).standard_normal((x.shape[0], xp.shape[0])).astype(np.float32)
+
+    def loss_jax(x, xp, sig, ll):
+        return jnp.sum(jax_ard_gram(x, xp, sig, ll) * g)
+
+    want = jax.grad(loss_jax, argnums=(0, 1, 2, 3))(
+        jnp.asarray(x), jnp.asarray(xp), jnp.float32(0.4), jnp.asarray(ll))
+    args = [t(a).clone().requires_grad_() for a in (x, xp, np.float32(0.4), ll)]
+    got = torch.autograd.grad(torch.sum(ArdGram.apply(*args) * t(g)), args)
+    for a, b in zip(got, want):
+        close(a, b, 3e-4, 3e-4)
+
+
+def test_ard_gram_grads_same_tensor_sum_into_one():
+    """K(u, u) with one leaf: both input gradients land on u."""
+    x, _, ll, _ = _inputs(6, 9, 1, 3)
+    g = np.random.default_rng(7).standard_normal((9, 9)).astype(np.float32)
+
+    def loss_jax(u, ll):
+        return jnp.sum(jax_ard_gram(u, u, 0.2, ll) * g)
+
+    want = jax.grad(loss_jax, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(ll))
+    u, lt = t(x).requires_grad_(), t(ll).requires_grad_()
+    got = torch.autograd.grad(torch.sum(gram(u, u, 0.2, lt) * t(g)), [u, lt])
+    for a, b in zip(got, want):
+        close(a, b, 3e-4, 3e-4)
+
+
+def test_ard_gram_gradcheck_float64():
+    rng = np.random.default_rng(8)
+    args = [
+        torch.tensor(rng.standard_normal((7, 3)), dtype=torch.float64, requires_grad=True),
+        torch.tensor(rng.standard_normal((5, 3)), dtype=torch.float64, requires_grad=True),
+        torch.tensor(0.3, dtype=torch.float64, requires_grad=True),
+        torch.tensor(0.2 * rng.standard_normal(3), dtype=torch.float64, requires_grad=True),
+    ]
+    assert torch.autograd.gradcheck(ArdGram.apply, args)
+
+
+def test_transposed_cotangent_is_made_contiguous():
+    """The FITC terms hand the Gram a transposed cotangent (V = solve(L, K^T)^T);
+    the result equals the one from a contiguous copy."""
+    x, xp, ll, g = _inputs(9, 20, 6, 3)
+    gt = t(g.T.copy()).T  # non-contiguous view of the same values
+    assert not gt.is_contiguous()
+    xs = [t(x).requires_grad_(), t(xp).requires_grad_()]
+    a = torch.autograd.grad(torch.sum(gram(*xs, 0.1, t(ll)) * gt), xs)
+    b = torch.autograd.grad(torch.sum(gram(*xs, 0.1, t(ll)) * t(g)), xs)
+    for u, v in zip(a, b):
+        close(u, v.numpy(), 1e-6, 1e-7)
+
+
+def test_plain_bwd_matches_autograd_of_plain_fwd():
+    """gram_bwd_plain (the kernels' oracle) is the VJP of gram_fwd_plain."""
+    x, xp, _, g = _inputs(10, 13, 7, 4)
+    xs, xps = t(x).double().requires_grad_(), t(xp).double().requires_grad_()
+    sig = torch.tensor(1.3, dtype=torch.float64)
+    K = gram_cuda.gram_fwd_plain(xs, xps, sig)
+    want = torch.autograd.grad(torch.sum(K * t(g).double()), [xs, xps])
+    d_xs, d_xps, row = gram_cuda.gram_bwd_plain(xs.detach(), xps.detach(), sig, t(g).double())
+    close(d_xs, want[0], 1e-10, 1e-12)
+    close(d_xps, want[1], 1e-10, 1e-12)
+    close(row, (K.detach() * t(g).double()).sum(1), 1e-10, 1e-12)
+
+
+def test_cpu_path_launches_no_kernel():
+    before = dict(gram_cuda.LAUNCHES)
+    x, xp, ll, _ = _inputs(11, 8, 4, 2)
+    xs = t(x).requires_grad_()
+    gram(xs, t(xp), 0.0, t(ll)).sum().backward()
+    assert gram_cuda.LAUNCHES == before
+
+
+@pytest.mark.parametrize(
+    "bad",
+    ["dtype", "contiguity", "wide_d", "d_mismatch", "sig_shape", "cotangent_shape"],
+)
+def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    xs, xps, sig = torch.zeros(5, 3), torch.zeros(4, 3), torch.tensor(1.0)
+    g = torch.zeros(5, 4)
+    if bad == "dtype":
+        xs = xs.double()
+    elif bad == "contiguity":
+        xs = torch.zeros(3, 5).T
+    elif bad == "wide_d":
+        xs, xps = torch.zeros(5, gram_cuda.MAX_D + 1), torch.zeros(4, gram_cuda.MAX_D + 1)
+    elif bad == "d_mismatch":
+        xps = torch.zeros(4, 2)
+    elif bad == "sig_shape":
+        sig = torch.ones(2)
+    elif bad == "cotangent_shape":
+        g = torch.zeros(4, 5)
+    with pytest.raises((TypeError, ValueError)):
+        gram_cuda._check(xs, xps, sig, g)
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """The kernel entry points take CUDA tensors only; they never fall back."""
+    xs, xps, sig = torch.zeros(5, 3), torch.zeros(4, 3), torch.tensor(1.0)
+    with pytest.raises(ValueError):
+        gram_cuda.gram_fwd_cuda(xs, xps, sig)
+    with pytest.raises(ValueError):
+        gram_cuda.gram_bwd_cuda(xs, xps, sig, torch.zeros(5, 4))
+
+
+def test_build_raises_without_nvcc(monkeypatch):
+    """With no compiler the kernels cannot be built, and that raises."""
+    if shutil.which("nvcc"):
+        pytest.skip("nvcc is present: the build would run")
+    monkeypatch.setattr(_build, "_loaded", {})
+    monkeypatch.setattr(_build, "library_path", lambda: _build.BUILD_DIR / "absent.so")
+    monkeypatch.setattr("torch.utils.cpp_extension.CUDA_HOME", None)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.load_library()
+
+
+def test_build_key_covers_the_sources():
+    path = _build.library_path()
+    assert path.parent == _build.BUILD_DIR
+    assert [p.name for p in _build._sources()] == ["gram.cu"]
