@@ -9,7 +9,11 @@ Phases, none of whose failures is caught:
    compiler's register/spill report and the build time.
 3. Kernels against their plain PyTorch versions, on the card, at the main
    path's shapes (500x20x8, 20x20x8), the evaluation's (500x500x8), the full
-   pool's (9700x20x8) and ragged ones; then kernel and plain times (CUDA events).
+   pool's (9700x20x8), ragged and tall-skinny ones that exercise the column
+   kernel's row chunks, and d = 64; two calls of each kernel on the same
+   inputs must be bitwise equal. Then, at 500x20x8, 500x500x8 and 9700x20x8,
+   kernel and plain times per call (CUDA events, back to back) and device
+   time per call (torch.profiler's CUDA events, summed).
 4. The slice: the five-rule KIN40K FITC-20 fit (n = 500, d = 8, m = 20) from
    the committed initial parameters, 25 GD steps per rule through fit_gd on
    CUDA, then the test-set evaluation. The kernels' launch counters are zeroed
@@ -19,7 +23,9 @@ Phases, none of whose failures is caught:
 5. A real-size step: five crps steps on the full 9700-row pool.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit;
-before it, one JSON line describes every kernel. The last line is
+before it, one JSON line describes every kernel: ``ms`` and ``plain_ms`` at
+the main path's 500x20x8, and under ``shapes`` the per-call and device times
+at every timed shape. The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -45,7 +51,9 @@ REPLACES = {
     "gram_bwd_cols": "gpscore/ops/gram_pallas.py:116",  # _bwd
 }
 KERNEL_SHAPES = [(500, 20, 8), (20, 20, 8), (500, 500, 8), (9700, 20, 8),
-                 (4099, 1031, 8), (257, 33, 1)]
+                 (4099, 1031, 8), (257, 33, 1), (9700, 1, 8), (9701, 33, 8),
+                 (40000, 20, 8), (9700, 20, 64)]
+TIMED_SHAPES = [(500, 20, 8), (500, 500, 8), (9700, 20, 8)]
 # The plain forward uses the cross-term form, whose cancellation leaves
 # ~1e-7 * |xs|^2 in the exponent; K <= sig = e here.
 FWD_ATOL = 2e-5
@@ -85,6 +93,28 @@ def cuda_ms(fn, reps=200, warmup=20):
     return start.elapsed_time(stop) / reps
 
 
+def device_ms(fn, reps=50, warmup=5):
+    """Device time per call of ``fn``: torch.profiler's CUDA events (kernels,
+    copies, sets), summed over ``reps`` calls. A profiled window that records
+    no device event at all (it happens, rarely, on the card's machine) is
+    taken again, up to three times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if dev:
+            return sum(e.time_range.elapsed_us() for e in dev) / reps / 1e3
+    raise RuntimeError("three profiled windows saw no device work")
+
+
 def kernel_inputs(n, m, d, dev, seed):
     """Scaled inputs as the main path makes them: KIN40K-like x in [-1, 1],
     log lengths in [0, 1], sig = e; xps = xs for the square K(u, u) case."""
@@ -112,6 +142,11 @@ def phase_kernels(dev):
             assert torch.equal(torch.diagonal(K), sig.expand(n)), "diagonal != sig"
         d_xs, row = gram_cuda.gram_bwd_rows_cuda(xs, xps, sig, g)
         d_xps = gram_cuda.gram_bwd_cols_cuda(xs, xps, sig, g)
+        again = (gram_cuda.gram_fwd_cuda(xs, xps, sig),
+                 *gram_cuda.gram_bwd_rows_cuda(xs, xps, sig, g),
+                 gram_cuda.gram_bwd_cols_cuda(xs, xps, sig, g))
+        assert all(torch.equal(a, b) for a, b in zip((K, d_xs, row, d_xps), again)), \
+            (n, m, d, "two calls on the same inputs differ")
         d_xs_p, row_p = gram_cuda.gram_bwd_rows_plain(xs, xps, sig, g)
         d_xps_p = gram_cuda.gram_bwd_cols_plain(xs, xps, sig, g)
         errs = {}
@@ -127,9 +162,9 @@ def phase_kernels(dev):
         err["gram_bwd_cols"] = max(err["gram_bwd_cols"], errs["d_xps"])
         log(f"[kernels] {n}x{m}x{d}: fwd err {e_f:.3g} (tol {FWD_ATOL}); bwd err "
             + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
-            + f" (tol {BWD_ATOL} + {BWD_RTOL} * max|ref|)")
+            + f" (tol {BWD_ATOL} + {BWD_RTOL} * max|ref|); second call bitwise equal")
     times = {}
-    for n, m, d in [(500, 20, 8), (500, 500, 8), (9700, 20, 8)]:
+    for n, m, d in TIMED_SHAPES:
         xs, xps, sig, g = kernel_inputs(n, m, d, dev, seed=99)
         pairs = {
             "gram_fwd": (lambda: gram_cuda.gram_fwd_cuda(xs, xps, sig),
@@ -142,9 +177,12 @@ def phase_kernels(dev):
         for name, (kern, plain) in pairs.items():
             # Plain, kernel, kernel, plain: drift in clocks hits both alike.
             p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)
-            kms, pms = (k1 + k2) / 2, (p1 + p2) / 2
-            times[(name, n, m, d)] = (kms, pms)
-            log(f"[time] {name} {n}x{m}x{d}: kernel {kms:.5f} ms, plain {pms:.5f} ms")
+            t = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                 "device_ms": device_ms(kern), "plain_device_ms": device_ms(plain)}
+            times[(name, n, m, d)] = t
+            log(f"[time] {name} {n}x{m}x{d}: per call kernel {t['ms']:.5f} ms, plain "
+                f"{t['plain_ms']:.5f} ms; device time per call kernel {t['device_ms']:.5f} "
+                f"ms, plain {t['plain_device_ms']:.5f} ms")
     return err, times
 
 
@@ -262,10 +300,13 @@ def main():
     kernels = []
     for name, key in [("gram_fwd", "fwd"), ("gram_bwd_rows", "bwd_rows"),
                       ("gram_bwd_cols", "bwd_cols")]:
-        kms, pms = times[(name, 500, 20, 8)]
+        on_path = times[(name, *TIMED_SHAPES[0])]
         kernels.append({"name": name, "route": "cuda", "source": SOURCE,
                         "replaces": REPLACES[name], "launches": launches[key],
-                        "max_abs_err": err[name], "ms": kms, "plain_ms": pms})
+                        "max_abs_err": err[name], "ms": on_path["ms"],
+                        "plain_ms": on_path["plain_ms"],
+                        "shapes": {"x".join(map(str, s)): times[(name, *s)]
+                                   for s in TIMED_SHAPES}})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

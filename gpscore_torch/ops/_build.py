@@ -39,7 +39,7 @@ _I = ctypes.c_int
 SIGNATURES = {
     "gram_fwd": [_P, _P, _P, _P, _I, _I, _I, _P],
     "gram_bwd_rows": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "gram_bwd_cols": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "gram_bwd_cols": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _loaded = {}  # "lib" -> ctypes.CDLL, "path" -> Path

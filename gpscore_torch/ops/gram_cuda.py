@@ -28,6 +28,10 @@ counts kernel launches, so a run can show that it went through the kernels.
 
 from __future__ import annotations
 
+import functools
+import math
+from typing import NamedTuple, Optional, Tuple
+
 import torch
 
 from gpscore_torch.ops import _build
@@ -35,11 +39,47 @@ from gpscore_torch.ops import _build
 # Kernel launches by kernel; a launch adds one here and nothing else does.
 LAUNCHES = {"fwd": 0, "bwd_rows": 0, "bwd_cols": 0}
 MAX_D = 64  # the kernels' limit on the input dimension (csrc/gram.cu kMaxD)
+COLS_TILE = 32  # gram_bwd_cols: columns per block (csrc/gram.cu kColsTile)
+COLS_STAGE_ROWS = 64  # gram_bwd_cols: rows per shared-memory stage (kColsStageRows)
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+class BwdColsPlan(NamedTuple):
+    """How ``gram_bwd_cols`` splits K: column tiles x row chunks, one block each."""
+
+    chunk_rows: int  # rows of K per block, a multiple of COLS_STAGE_ROWS
+    n_chunks: int
+    col_tiles: int
+    blocks: int
+    scratch_shape: Optional[Tuple[int, int, int]]  # per-chunk partials; None for one chunk
+    launches: int  # kernel launches per call
+
+
+def bwd_cols_plan(n: int, m: int, d: int, sms: int) -> BwdColsPlan:
+    """The chunking of ``gram_bwd_cols`` on a card with ``sms`` multiprocessors.
+
+    A block reduces whole stages of COLS_STAGE_ROWS rows. It takes one stage
+    while the grid has fewer stage-tiles than twice ``sms`` (so a tall-skinny
+    call fills the card: 9700 x 20 gives 152 blocks on 132 SMs), and more,
+    double-buffered, when there is work for that many blocks several times
+    over. The chunks are summed inside the same launch, so a call is always
+    one launch."""
+    col_tiles = -(-m // COLS_TILE)
+    stages = max(1, -(-n // COLS_STAGE_ROWS))
+    per_chunk = max(1, stages * col_tiles // sms)
+    n_chunks = -(-stages // per_chunk)
+    return BwdColsPlan(
+        chunk_rows=per_chunk * COLS_STAGE_ROWS,
+        n_chunks=n_chunks,
+        col_tiles=col_tiles,
+        blocks=col_tiles * n_chunks,
+        scratch_shape=(n_chunks, m, d) if n_chunks > 1 else None,
+        launches=1,
+    )
 
 
 # ---- plain versions (CPU path, and the kernels' oracle on the card) ---------
@@ -149,18 +189,49 @@ def gram_bwd_rows_cuda(xs, xps, sig, g):
     return d_xs, row
 
 
+@functools.lru_cache(maxsize=256)
+def _device_plan(device, n, m, d):
+    """:func:`bwd_cols_plan` for the card ``device``, looked up once per shape."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return bwd_cols_plan(n, m, d, sms)
+
+
+# gram_bwd_cols' workspace by (device, stream): the tickets (one int per column
+# tile, 0 between launches, since the kernel's last block of a tile sets its
+# ticket back) and the scratch of per-chunk partials. Launches that share them
+# must run in order, which one stream guarantees. Both only grow.
+_WORKSPACES = {}
+
+
+def _workspace(device, stream, plan):
+    tiles = plan.col_tiles
+    floats = 0 if plan.scratch_shape is None else math.prod(plan.scratch_shape)
+    ws = _WORKSPACES.get((device, stream))
+    if ws is None or ws[0].numel() < tiles or ws[1].numel() < floats:
+        tiles = max(tiles, 1 if ws is None else ws[0].numel())
+        floats = max(floats, 1 if ws is None else ws[1].numel())
+        ws = (torch.zeros(tiles, dtype=torch.int32, device=device),
+              torch.empty(floats, dtype=torch.float32, device=device))
+        _WORKSPACES[(device, stream)] = ws
+    return ws
+
+
 def gram_bwd_cols_cuda(xs, xps, sig, g):
-    """d_xps from the column kernel of the backward."""
+    """d_xps from the column kernel of the backward: one launch, chunked by
+    :func:`bwd_cols_plan`."""
     _require_cuda(xs)
     _check(xs, xps, sig, g)
     lib = _build.load_library()
     n, d = xs.shape
     m = xps.shape[0]
+    plan = _device_plan(xs.device, n, m, d)
     d_xps = torch.empty_like(xps)
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.gram_bwd_cols(xs.data_ptr(), xps.data_ptr(), sig.data_ptr(),
-                               g.data_ptr(), d_xps.data_ptr(), n, m, d, stream)
+        ticket, scratch = _workspace(xs.device, stream, plan)
+        rc = lib.gram_bwd_cols(xs.data_ptr(), xps.data_ptr(), sig.data_ptr(), g.data_ptr(),
+                               d_xps.data_ptr(), scratch.data_ptr(), ticket.data_ptr(),
+                               n, m, d, plan.chunk_rows, stream)
     _raise_if_failed("gram_bwd_cols", rc)
     LAUNCHES["bwd_cols"] += 1
     return d_xps

@@ -34,7 +34,8 @@ def _scaled(seed, n, m, d, dev):
 
 
 @pytest.mark.parametrize("n,m,d", [(500, 20, 8), (20, 20, 8), (257, 33, 1), (1031, 70, 17),
-                                   (64, 9, 64)])
+                                   (64, 9, 64), (9700, 1, 8), (9701, 33, 8), (40000, 20, 8),
+                                   (9700, 20, 64)])
 def test_gram_kernels_match_plain(dev, n, m, d):
     """Forward (atol 2e-5: the plain cross-term form's cancellation) and
     backward (1e-5 + 1e-4 * max|ref|: fp32 sums in another order)."""
@@ -44,6 +45,18 @@ def test_gram_kernels_match_plain(dev, n, m, d):
     for a, b in zip(gram_cuda.gram_bwd_cuda(xs, xps, sig, g),
                     gram_cuda.gram_bwd_plain(xs, xps, sig, g)):
         assert (a - b).abs().max() <= 1e-5 + 1e-4 * b.abs().max()
+
+
+@pytest.mark.parametrize("n,m,d", [(20, 20, 8), (500, 20, 8), (9701, 33, 8), (40000, 20, 8)])
+def test_gram_bwd_cols_is_bitwise_deterministic_in_one_launch(dev, n, m, d):
+    """The chunk partials are summed in a fixed order: two calls are equal
+    bit for bit, and each call is one launch."""
+    xs, xps, sig, g = _scaled(n * m + d, n, m, d, dev)
+    gram_cuda.reset_launches()
+    a = gram_cuda.gram_bwd_cols_cuda(xs, xps, sig, g)
+    b = gram_cuda.gram_bwd_cols_cuda(xs, xps, sig, g)
+    assert torch.equal(a, b)
+    assert gram_cuda.LAUNCHES["bwd_cols"] == 2
 
 
 def test_gram_kernel_square_is_exactly_symmetric_with_exact_diagonal(dev):
@@ -106,3 +119,23 @@ def test_fit_steps_on_cuda_match_cpu_at_the_same_parameters(dev):
         at = {f: t[i].cpu() for f, t in res.param_history.leaves().items()}
         want = loss(p_cpu.replace(**at), cpu.train_x, cpu.train_y)
         assert abs(float(res.loss_history[i]) - float(want)) <= 1e-4 * abs(float(want))
+
+
+def test_fitc_inducing_gradient_on_cuda_matches_cpu_at_the_full_pool(dev):
+    """The crps loss's gradient on the 9700-row pool, where gram_bwd_cols
+    splits K_fu into 152 row chunks: CUDA against the CPU at the same
+    parameters, each leaf within 1e-3 of its largest entry (chip_smoke.py's
+    per-step tolerance), the inducing points' above all."""
+    data = load_kin40k()
+    loss = make_objective("crps", model="fitc")
+    grads = {}
+    for where in ("cpu", dev):
+        split = kin40k_replicate_split(data, 0, n_subsample=9700, device=where)
+        p = kin40k_fitc20_init(where)
+        leaves = {f: t.clone().requires_grad_() for f, t in p.leaves().items()}
+        value = loss(p.replace(**leaves), split.train_x, split.train_y)
+        grads[str(where)] = dict(zip(leaves, torch.autograd.grad(value, list(leaves.values()))))
+    assert set(grads["cpu"]) >= {"inducing"}
+    for f, want in grads["cpu"].items():
+        got = grads[str(dev)][f].cpu()
+        assert (got - want).abs().max() <= 1e-3 * want.abs().max(), f
