@@ -6,6 +6,7 @@ from gpscore_torch.data.kin40k import (
     load_kin40k,
     synthesize_kin40k_like,
 )
+from gpscore_torch.data.synthetic import SyntheticSplit, sample_synthetic_1d
 
 __all__ = [
     "Kin40k",
@@ -14,4 +15,6 @@ __all__ = [
     "load_kin40k",
     "synthesize_kin40k_like",
     "kin40k_fitc20_init",
+    "SyntheticSplit",
+    "sample_synthetic_1d",
 ]

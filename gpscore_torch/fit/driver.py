@@ -1,5 +1,5 @@
-"""One (rule, replicate) fit, then the test-set metrics (port of the FITC
-branch of `experiments/common.py::{fit_and_eval, eval_predictive_metrics}`)."""
+"""One (rule, replicate) fit, then the test-set metrics (port of
+`experiments/common.py::{fit_and_eval, eval_predictive_metrics}`)."""
 
 from __future__ import annotations
 
@@ -11,18 +11,29 @@ from gpscore_torch.fit.objectives import make_objective
 from gpscore_torch.fit.schedules import Schedule
 from gpscore_torch.fit.train import FitResult, fit_gd
 from gpscore_torch.metrics import EvalMetrics, evaluate_predictive
+from gpscore_torch.models.exact import exact_predictive
 from gpscore_torch.models.fitc import fitc_predictive
+from gpscore_torch.ops.kernels import gram
 from gpscore_torch.utils.params import GPParams
 
 
 def eval_predictive_metrics(
     model: str, p: GPParams, train_x, train_y, test_x, test_y, kernel: str = "ard"
 ) -> EvalMetrics:
-    """The six-metric suite of the test predictive at fitted params."""
-    if model != "fitc":
-        raise NotImplementedError(f"model {model!r} is not ported yet (FITC only)")
+    """The six-metric suite of the test predictive at fitted params. The exact
+    GP builds its three Grams (train x train, test x train, test x test)
+    through the Gram kernel."""
+    if model not in ("exact", "fitc"):
+        raise ValueError(f"unknown model {model!r}")
     with torch.no_grad():
-        pred = fitc_predictive(train_x, train_y, test_x, p, kind=kernel)
+        if model == "exact":
+            sig, ll = p.log_signal_sq, p.log_length
+            k_ff = gram(train_x, train_x, sig, ll, kind=kernel)
+            k_sf = gram(test_x, train_x, sig, ll, kind=kernel)
+            k_ss = gram(test_x, test_x, sig, ll, kind=kernel)
+            pred = exact_predictive(k_sf, k_ff, k_ss, train_y, p.noise_sq)
+        else:
+            pred = fitc_predictive(train_x, train_y, test_x, p, kind=kernel)
         var = torch.diagonal(pred.cov)
         return evaluate_predictive(pred.mean, var, test_y, train_y)
 

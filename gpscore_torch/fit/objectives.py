@@ -1,5 +1,5 @@
 """Differentiable training objectives: scoring rule ∘ predictive ∘ kernel
-(port of `gpscore/fit/objectives.py`, FITC model).
+(port of `gpscore/fit/objectives.py`: the exact GP at small n and FITC).
 
 Each objective is ``loss(params, x, y, generator=None, eps=None) -> scalar``.
 ``generator`` (a ``torch.Generator`` on the data's device) and ``eps`` feed
@@ -16,7 +16,12 @@ Rules:
 - ``kc``    sum of per-fold CRPS on block-conditional diagonals
 - ``interval`` mean interval score on the LOO predictive
 
-The exact-GP model (``model="exact"``) is a later slice and raises.
+The exact GP (``model="exact"``) runs the dense path: K_ff = gram(x, x) through
+the Gram kernel, then one Cholesky and the closed-form solve cores of
+:mod:`gpscore_torch.ops.linalg`. At n >= ``_FUSED_LOO_MIN_N`` the JAX package
+switches to its fused large-n cores, which are not ported yet: the exact
+objectives raise ``NotImplementedError`` there rather than run a path the
+reference does not take.
 """
 
 from __future__ import annotations
@@ -26,10 +31,17 @@ from typing import Callable
 
 import torch
 
+from gpscore_torch.models import exact as exact_mod
 from gpscore_torch.models import fitc as fitc_mod
+from gpscore_torch.ops import linalg
+from gpscore_torch.ops.kernels import gram
 from gpscore_torch.scoring import rules
 
 OBJECTIVE_RULES = ("crps", "logs", "nlml", "dss", "es", "kc", "interval")
+
+# From this n on, the JAX package's exact objectives take the fused large-n
+# cores (`gpscore/fit/objectives.py:40`), which the port does not have yet.
+_FUSED_LOO_MIN_N = 8192
 
 
 def make_objective(
@@ -43,24 +55,38 @@ def make_objective(
 ) -> Callable:
     """Build ``loss(params, x, y, generator=None, eps=None) -> scalar``.
 
-    For ``es``, ``eps = ((e1, e2), (e1p, e2p))`` fixes the standard normals of
-    the two sample sets (shapes as in
-    :func:`gpscore_torch.models.fitc.lowrank_fold_sample`); otherwise they are
-    drawn from ``generator``.
+    For ``es``, ``eps`` fixes the standard normals of the two sample sets;
+    otherwise they are drawn from ``generator``. FITC:
+    ``eps = ((e1, e2), (e1p, e2p))``, shapes as in
+    :func:`gpscore_torch.models.fitc.lowrank_fold_sample`. Exact:
+    ``eps = (e, e')``, each [fold_k, nb, num_sim], as in
+    :func:`gpscore_torch.scoring.rules.energy_score_precision`.
     """
     if rule not in OBJECTIVE_RULES:
         raise ValueError(f"unknown rule {rule!r}; expected one of {OBJECTIVE_RULES}")
-    if model == "exact":
-        raise NotImplementedError("the exact-GP objectives are not ported yet")
-    if model != "fitc":
+    if model not in ("exact", "fitc"):
         raise ValueError(f"unknown model {model!r}")
+    exact = model == "exact"
+
+    def _k_ff(params, x):
+        if x.shape[0] >= _FUSED_LOO_MIN_N:
+            raise NotImplementedError(
+                f"the exact GP at n = {x.shape[0]} >= {_FUSED_LOO_MIN_N} takes the JAX "
+                "package's fused large-n cores, which are not ported yet (ROADMAP.md, "
+                "queue 1, item 9)"
+            )
+        return gram(x, x, params.log_signal_sq, params.log_length, kind=kernel)
 
     def _loo(params, x, y):
+        if exact:
+            return exact_mod.loo_exact(_k_ff(params, x), y, params.noise_sq)
         return fitc_mod.loo_fitc(
             x, y, params, kind=kernel, variance_correction=(rule == "logs")
         )
 
     def _kfold(params, x, y):
+        if exact:
+            return exact_mod.kfold_exact_precision(_k_ff(params, x), y, params.noise_sq, fold_k)
         return fitc_mod.kfold_fitc_lowrank(x, y, params, fold_k, kind=kernel)
 
     if rule == "crps":
@@ -84,6 +110,8 @@ def make_objective(
     elif rule == "nlml":
 
         def loss(params, x, y, generator=None, eps=None):
+            if exact:
+                return exact_mod.nlml_exact(_k_ff(params, x), y, params.noise_sq)
             return fitc_mod.nlml_fitc(x, y, params, kind=kernel)
 
     elif rule == "dss":
@@ -91,6 +119,8 @@ def make_objective(
         def loss(params, x, y, generator=None, eps=None):
             p = _kfold(params, x, y)
             y_b = y.reshape(p.mean.shape)
+            if exact:
+                return torch.sum(rules.dss_precision(p.mean, p.chol_prec, y_b))
             nb = y_b.shape[1]
             r = y_b - p.mean
             per_fold = (
@@ -105,6 +135,9 @@ def make_objective(
         def loss(params, x, y, generator=None, eps=None):
             p = _kfold(params, x, y)
             y_b = y.reshape(p.mean.shape)
+            if exact:
+                return torch.sum(rules.energy_score_precision(
+                    p.mean, p.chol_prec, y_b, num_sim, es_beta, generator=generator, eps=eps))
             eps_z, eps_zp = (None, None) if eps is None else eps
             z = fitc_mod.lowrank_fold_sample(p, num_sim, generator=generator, eps=eps_z)
             zp = fitc_mod.lowrank_fold_sample(p, num_sim, generator=generator, eps=eps_zp)
@@ -116,7 +149,12 @@ def make_objective(
         def loss(params, x, y, generator=None, eps=None):
             p = _kfold(params, x, y)
             y_b = y.reshape(p.mean.shape)
-            return rules.crps_kfold(p.mean, fitc_mod.lowrank_fold_cov_diag(p), y_b)
+            if exact:
+                # var = diag(A^-1) straight from the factor, no inverse formed
+                var_b = linalg.inv_diag_from_chol(p.chol_prec)
+            else:
+                var_b = fitc_mod.lowrank_fold_cov_diag(p)
+            return rules.crps_kfold(p.mean, var_b, y_b)
 
     loss.__name__ = f"{rule}_{model}_objective"
     return loss

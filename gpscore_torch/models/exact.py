@@ -1,19 +1,135 @@
-"""Exact-GP predictive containers (port of `gpscore/models/exact.py`).
+"""Exact-GP predictive distributions: test-time, leave-one-out and k-fold
+(port of `gpscore/models/exact.py`, the dense path at small n).
 
-Only the :class:`Gaussian` container that the FITC model returns is ported so
-far; the exact-GP model itself is a later slice.
+Every quantity of one training step derives from one Cholesky factorization
+of K_hat = K_ff + sigma^2 I. Folds ride a leading [k, ...] dimension instead
+of ``vmap``. The fold blocks are factored with
+:func:`gpscore_torch.ops.linalg.chol_factor`, which gives NaN where JAX's
+``jnp.linalg.cholesky`` does (``torch.linalg.cholesky`` would raise, and wait
+on the host every step to find out), so ``fit_gd``'s masked update can skip a
+failed step.
+
+The fused large-n forms (``loo_exact_fused``, ``kfold_stats_fused``,
+``kfold_es_fused``, ``nlml_exact_fused``, ``exact_predictive_diag_large``) are
+not ported yet.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
+from gpscore_torch.ops import linalg
+from gpscore_torch.utils.precision import matmul
+
 
 class Gaussian(NamedTuple):
     """A (possibly diagonal) Gaussian predictive: mean [n] and cov, which is
-    [n] (diagonal variances) or [n, n] (full covariance)."""
+    [n] (diagonal variances) or [n, n] (full covariance). Leading dimensions,
+    where present, are folds."""
 
     mean: torch.Tensor
     cov: torch.Tensor
+
+
+class PrecisionGaussian(NamedTuple):
+    """Gaussian in precision form: cov = (chol_prec chol_prec^T)^-1, the k-fold
+    block conditionals' natural output (the block A_b = [K_hat^-1]_bb is
+    available; its inverse is never formed). Leading dimensions are folds."""
+
+    mean: torch.Tensor  # [..., nb]
+    chol_prec: torch.Tensor  # [..., nb, nb] lower
+
+
+def _k_hat(k_ff, noise_sq):
+    eye = torch.eye(k_ff.shape[-1], dtype=k_ff.dtype, device=k_ff.device)
+    return k_ff + noise_sq * eye
+
+
+def exact_predictive(k_star_f, k_ff, k_ss, y, noise_sq, *, L=None) -> Gaussian:
+    """Noise-inclusive exact GP predictive (reference ``cal_mean_and_cov``,
+    `SIMPLE-DATA FULL-comapre.py:106-111`):
+
+        mu*  = K*f (Kff + s^2 I)^-1 y
+        Cov* = s^2 I + K** - K*f (Kff + s^2 I)^-1 Kf*
+    """
+    n = k_ff.shape[0]
+    if L is None:
+        L = linalg.chol_factor(_k_hat(k_ff, noise_sq))
+    alpha = linalg.chol_solve_from_factor(L, y.reshape(n, 1))
+    mean = matmul(k_star_f, alpha)[:, 0]
+    V = linalg.tri_solve(L, k_star_f.T)  # [n, t]
+    eye_t = torch.eye(k_ss.shape[0], dtype=k_ss.dtype, device=k_ss.device)
+    cov = noise_sq * eye_t + k_ss - matmul(V.T, V)
+    return Gaussian(mean, cov)
+
+
+def loo_exact(k_ff, y, noise_sq) -> Gaussian:
+    """Leave-one-out predictive via the Rasmussen–Williams identities
+    (reference `SIMPLE-DATA FULL-comapre.py:207-211`):
+
+        mu_i      = y_i - [K_hat^-1 y]_i / [K_hat^-1]_ii
+        sigma_i^2 = 1 / [K_hat^-1]_ii
+
+    K_hat^-1 y and diag(K_hat^-1) come from
+    :func:`~gpscore_torch.ops.linalg.loo_solve_diag` and its closed-form
+    backward. A diagonal Gaussian over the n training points."""
+    n = k_ff.shape[0]
+    y = y.reshape(n)
+    kinv_y, kinv_diag = linalg.loo_solve_diag(_k_hat(k_ff, noise_sq), y)
+    return Gaussian(y - kinv_y / kinv_diag, 1.0 / kinv_diag)
+
+
+def _kfold_blocks(k_ff, y, noise_sq, fold_k: int):
+    """Shared k-fold preamble (reference `kin40k-FULL-compare.py:500-530`): the
+    diagonal blocks A_b = [K_hat^-1]_bb [k, nb, nb], the fold targets y_b
+    [k, nb] and [K_hat^-1 y]_b [k, nb, 1]. Raises ``ValueError`` unless fold_k
+    divides n (:class:`~gpscore_torch.ops.linalg.KfoldSolveBlocks` checks)."""
+    n = k_ff.shape[0]
+    nb = n // fold_k
+    y = y.reshape(n)
+    kinv_y, A = linalg.kfold_solve_blocks(_k_hat(k_ff, noise_sq), y, fold_k)
+    return A, y.reshape(fold_k, nb), kinv_y.reshape(fold_k, nb, 1)
+
+
+def kfold_exact(k_ff, y, noise_sq, fold_k: int, *, diag_only: bool = False) -> Gaussian:
+    """k-fold block conditionals in covariance form:
+
+        m_b   = y_b - A_b^-1 [K_hat^-1 y]_b
+        Cov_b = A_b^-1      (its diagonal with ``diag_only``, the "kc" variant)
+
+    mean [k, nb]; cov [k, nb, nb] or [k, nb]."""
+    A, y_b, kinv_y_b = _kfold_blocks(k_ff, y, noise_sq, fold_k)
+    Ainv = linalg.spd_inverse(L=linalg.chol_factor(A))
+    mean = y_b - matmul(Ainv, kinv_y_b)[..., 0]
+    if diag_only:
+        return Gaussian(mean, torch.diagonal(Ainv, dim1=-2, dim2=-1))
+    return Gaussian(mean, Ainv)
+
+
+def kfold_exact_precision(k_ff, y, noise_sq, fold_k: int) -> PrecisionGaussian:
+    """k-fold block conditionals in precision form (the math of
+    :func:`kfold_exact`, with the per-fold inverse never formed):
+
+        A_b = [K_hat^-1]_bb = La_b La_b^T
+        m_b = y_b - A_b^-1 [K_hat^-1 y]_b   (one solve with La_b)
+    """
+    A, y_b, kinv_y_b = _kfold_blocks(k_ff, y, noise_sq, fold_k)
+    La = linalg.chol_factor(A)
+    mean = y_b - linalg.chol_solve_from_factor(La, kinv_y_b)[..., 0]
+    return PrecisionGaussian(mean, La)
+
+
+def nlml_exact(k_ff, y, noise_sq):
+    """Negative log marginal likelihood (reference
+    `SIMPLE-DATA FULL-comapre.py:292-296`):
+
+        0.5 n log 2pi + sum log diag(chol(K_hat)) + 0.5 y^T K_hat^-1 y
+    """
+    n = k_ff.shape[0]
+    y = y.reshape(n, 1)
+    L = linalg.chol_factor(_k_hat(k_ff, noise_sq))
+    quad = 0.5 * torch.sum(y * linalg.chol_solve_from_factor(L, y))
+    return 0.5 * n * math.log(2.0 * math.pi) + linalg.half_logdet(L) + quad

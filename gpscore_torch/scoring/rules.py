@@ -5,12 +5,17 @@ All rules are negatively oriented (smaller is better) and differentiable:
 
 - CRPS        `SIMPLE-DATA FULL-comapre.py:76-84`
 - log score   `SIMPLE-DATA FULL-comapre.py:68-73`
-- energy score core `kin40k-FULL-compare.py:70-101` (samples drawn by the caller)
+- DSS         `SIMPLE-DATA FULL-comapre.py:87-92`, in covariance and in
+              precision form
+- energy score `kin40k-FULL-compare.py:70-101`, Monte-Carlo, in covariance
+              and in precision form, and its core on pre-drawn samples
 - k-fold CRPS `KIN40K-COMPARE-ALL-FITC-20.py:709-714`
 - interval score: Gneiting & Raftery (2007) eq. 43
 
-The block-covariance rules of the exact model (``dss``, ``dss_precision``,
-``energy_score``, ``energy_score_precision``) come with the exact-GP slice.
+The block rules take leading dimensions as folds and return one score per
+block. The energy-score samplers draw their standard normals from a
+``torch.Generator`` (on the data's device), or take them as ``eps``; the
+draws are not JAX's threefry draws, so the tests hand JAX's normals across.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import math
 
 import torch
 
+from gpscore_torch.ops import linalg
 from gpscore_torch.utils.precision import matmul
 
 _SQRT2 = math.sqrt(2.0)
@@ -79,6 +85,83 @@ def energy_score_core(z, zp, r, num_sim: int, beta: float):
     dz = z - r[..., None, :]
     z_minus_y = torch.mean(_safe_norm_pow(torch.sum(dz * dz, dim=-1), beta), dim=-1)
     return z_minus_y - 0.5 * z_minus_zp
+
+
+def dss(mean, cov, y):
+    """Dawid–Sebastiani score of a multivariate-Gaussian block, mean and y
+    [..., n], cov [..., n, n]:
+
+        0.5 n log 2pi + 0.5 log det C + 0.5 (y - m)^T C^-1 (y - m).
+    """
+    n = y.shape[-1]
+    r = (y - mean)[..., None]
+    L = linalg.chol_factor(cov)
+    quad = 0.5 * torch.sum(r * linalg.chol_solve_from_factor(L, r), dim=(-2, -1))
+    return 0.5 * n * math.log(2.0 * math.pi) + linalg.half_logdet(L) + quad
+
+
+def dss_precision(mean, chol_prec, y):
+    """DSS of a Gaussian given the lower Cholesky factor La of its precision
+    (the k-fold block A = [K_hat^-1]_bb = La La^T): log det C =
+    -2 sum log diag(La) and (y - m)^T C^-1 (y - m) = ||La^T (y - m)||^2, so
+    neither an inverse nor a second factor is needed."""
+    n = y.shape[-1]
+    w = matmul(chol_prec.mT, (y - mean)[..., None])
+    quad = 0.5 * torch.sum(w * w, dim=(-2, -1))
+    return 0.5 * n * math.log(2.0 * math.pi) - linalg.half_logdet(chol_prec) + quad
+
+
+def _normals(shape, like, generator, eps):
+    """Two standard-normal sets of ``shape``: ``eps`` as given, or drawn."""
+    if eps is not None:
+        return eps
+    opts = dict(dtype=like.dtype, device=like.device, generator=generator)
+    return torch.randn(shape, **opts), torch.randn(shape, **opts)
+
+
+def energy_score(
+    mean, cov, y, num_sim: int = 300, beta: float = 1.0, sqrt_method: str = "chol",
+    *, generator=None, eps=None,
+):
+    """Monte-Carlo energy score of a multivariate-Gaussian block (mean, y
+    [..., n], cov [..., n, n]; reference ``ES``, `kin40k-FULL-compare.py:70-101`):
+
+        ES = mean_i ||z_i - (mu - y)||^beta - 0.5 sum_ij ||z_i - z'_j||^beta / (S (S - 1))
+
+    with z, z' ~ N(0, C) drawn as eps root(C)^T: through the Cholesky factor
+    with the jitter ladder of :func:`~gpscore_torch.ops.linalg.safe_cholesky`
+    (one rung for the whole batch), or, with ``sqrt_method="eigh"``, through
+    the reference's symmetric square root. ``eps = (e, e')``, each
+    [..., S, n], fixes the normals (JAX draws ``normal(k1, (S, n))``)."""
+    if sqrt_method not in ("chol", "eigh"):
+        raise ValueError(f"sqrt_method must be 'chol' or 'eigh', got {sqrt_method!r}")
+    n = y.shape[-1]
+    r = mean - y
+    if sqrt_method == "chol":
+        L, _ = linalg.safe_cholesky(cov)
+        root_cov = L.mT  # z = eps L^T  =>  cov(z) = L L^T = C
+    else:
+        root_cov = linalg.symmetric_sqrt(cov)
+    e, ep = _normals((*cov.shape[:-2], num_sim, n), cov, generator, eps)
+    z = matmul(e, root_cov)
+    zp = matmul(ep, root_cov)
+    return energy_score_core(z, zp, r, num_sim, beta)
+
+
+def energy_score_precision(
+    mean, chol_prec, y, num_sim: int = 300, beta: float = 1.0, *, generator=None, eps=None
+):
+    """Energy score of N(mean, C) with C = (La La^T)^-1 given the precision
+    factor La [..., nb, nb]: z = La^-T eps has covariance C, one triangular
+    solve per draw set. ``eps = (e, e')``, each [..., nb, S], fixes the
+    normals; JAX draws them per fold as ``split(key, k)``, then
+    ``split`` -> k1, k2, then ``normal(k1, (nb, S))``."""
+    nb = y.shape[-1]
+    r = mean - y
+    e, ep = _normals((*chol_prec.shape[:-2], nb, num_sim), chol_prec, generator, eps)
+    z = linalg.tri_solve(chol_prec, e, trans=True).mT  # [..., S, nb]
+    zp = linalg.tri_solve(chol_prec, ep, trans=True).mT
+    return energy_score_core(z, zp, r, num_sim, beta)
 
 
 def crps_kfold(mean_b, var_b, y_b):

@@ -1,8 +1,11 @@
 from gpscore_torch.utils.params import (
     GPParams,
+    init_rand_params,
     init_unit_params,
+    params_from_checkpoint,
     params_from_numpy,
     params_to_numpy,
+    save_params_checkpoint,
 )
 from gpscore_torch.utils.precision import (
     get_matmul_mode,
@@ -13,9 +16,12 @@ from gpscore_torch.utils.precision import (
 
 __all__ = [
     "GPParams",
+    "init_rand_params",
     "init_unit_params",
+    "params_from_checkpoint",
     "params_from_numpy",
     "params_to_numpy",
+    "save_params_checkpoint",
     "get_matmul_mode",
     "set_matmul_mode",
     "matmul",

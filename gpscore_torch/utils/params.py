@@ -12,6 +12,8 @@ All scalar hyperparameters are log-parameterized, as in the JAX package:
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Optional
 
 import numpy as np
@@ -55,6 +57,67 @@ def init_unit_params(
         log_noise_sq=torch.ones((), dtype=dtype, device=device),
         inducing=inducing,
     )
+
+
+def init_rand_params(
+    generator: torch.Generator,
+    d: int,
+    num_inducing: int = 0,
+    unit_scalars: bool = False,
+    inducing_init: str = "uniform",
+) -> GPParams:
+    """Random init of the KIN40K scripts (`kin40k-FULL-compare.py:226-233`):
+    log lengths ~ U(0, 1)^d; log signal and log noise ~ U(0, 1), or 1.0 with
+    ``unit_scalars`` (`:321-324`); ``num_inducing`` inducing points ~ U(0, 1),
+    or N(0, 1) with ``inducing_init="normal"``
+    (`KIN40K-COMPARE-ALL-FITC-20.py:215, 531`).
+
+    Drawn from ``generator``, on its device, in that order. The values are not
+    the JAX package's threefry draws of the same distributions."""
+    opts = dict(dtype=torch.float32, device=generator.device, generator=generator)
+    log_length = torch.rand((d,), **opts)
+    if unit_scalars:
+        log_signal = torch.ones((), dtype=torch.float32, device=generator.device)
+        log_noise = torch.ones((), dtype=torch.float32, device=generator.device)
+    else:
+        log_signal = torch.rand((), **opts)
+        log_noise = torch.rand((), **opts)
+    inducing = None
+    if num_inducing > 0:
+        draw = torch.randn if inducing_init == "normal" else torch.rand
+        inducing = draw((num_inducing, d), **opts)
+    return GPParams(log_signal, log_length, log_noise, inducing)
+
+
+def save_params_checkpoint(path: str, p: GPParams) -> None:
+    """Write ``p`` in the ``.npz`` layout of `gpscore/utils/checkpoint.py:26-41`
+    (JAX ``save_pytree`` of a GPParams): ``leaf_i`` for the present fields in
+    field order (no ``inducing`` leaf when it is None) and ``__meta__``, the
+    JSON leaf count as uint8 bytes. Leaves may carry a leading replicate
+    dimension. The file appears whole or not at all."""
+    leaves = [t.detach().cpu().numpy() for t in p.leaves().values()]
+    arrays = {f"leaf_{i}": a for i, a in enumerate(leaves)}
+    arrays["__meta__"] = np.frombuffer(
+        json.dumps({"num_leaves": len(leaves)}).encode(), dtype=np.uint8
+    )
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrays)
+    os.replace(tmp, path)
+
+
+def params_from_checkpoint(path: str) -> GPParams:
+    """Read a GPParams checkpoint written by JAX ``save_pytree`` (e.g. a
+    sweep's ``--save-params`` output) or by :func:`save_params_checkpoint`:
+    three leaves for the exact GP, four with the inducing points. The tensors
+    land on the CPU."""
+    with np.load(path) as z:
+        meta = json.loads(bytes(z["__meta__"].tobytes()).decode())
+        n = meta["num_leaves"]
+        if n not in (3, 4):
+            raise ValueError(f"a GPParams checkpoint has 3 or 4 leaves, {path} has {n}")
+        arrays = {FIELDS[i]: z[f"leaf_{i}"] for i in range(n)}
+    return params_from_numpy(arrays)
 
 
 def params_from_numpy(arrays: dict, device="cpu") -> GPParams:

@@ -12,8 +12,9 @@ import torch
 
 from gpscore_torch.data import kin40k_fitc20_init, kin40k_replicate_split, load_kin40k
 from gpscore_torch.fit import SCHEDULES, fit_gd, make_objective
-from gpscore_torch.ops import _build, gram_cuda
+from gpscore_torch.ops import _build, gram_cuda, linalg
 from gpscore_torch.ops.kernels import gram
+from gpscore_torch.utils.params import init_rand_params
 
 pytestmark = pytest.mark.cuda
 
@@ -139,3 +140,68 @@ def test_fitc_inducing_gradient_on_cuda_matches_cpu_at_the_full_pool(dev):
     for f, want in grads["cpu"].items():
         got = grads[str(dev)][f].cpu()
         assert (got - want).abs().max() <= 1e-3 * want.abs().max(), f
+
+
+# ---- the exact GP at small n --------------------------------------------------
+
+
+def _kin40k_exact(where, seed=0):
+    split = kin40k_replicate_split(load_kin40k(), 0, device=where)
+    p = init_rand_params(torch.Generator().manual_seed(seed), 8)
+    return split, p.replace(**{f: t.to(where) for f, t in p.leaves().items()})
+
+
+@pytest.mark.parametrize("core", ["loo", "kfold"])
+def test_solve_cores_on_cuda_match_cpu_at_n_500(dev, core):
+    """Values (1e-4 of the largest entry) and the gradient of a random linear
+    functional of both outputs (1e-3 of the largest entry), on K_hat of the
+    KIN40K replicate-0 rows, CUDA against the CPU."""
+    split, p = _kin40k_exact("cpu")
+    K = gram(split.train_x, split.train_x, p.log_signal_sq, p.log_length) + 0.1 * torch.eye(500)
+    rng = np.random.default_rng(1)
+    c1 = torch.tensor(rng.standard_normal(500).astype(np.float32))
+    c2 = torch.tensor(rng.standard_normal((4, 125, 125) if core == "kfold" else 500)
+                      .astype(np.float32))
+    got = {}
+    for where in ("cpu", dev):
+        Kw = K.to(where).requires_grad_()
+        yw = split.train_y.to(where).requires_grad_()
+        a, b = (linalg.kfold_solve_blocks(Kw, yw, 4) if core == "kfold"
+                else linalg.loo_solve_diag(Kw, yw))
+        value = torch.sum(c1.to(where) * a) + torch.sum(c2.to(where) * b)
+        got[str(where)] = [t.detach().cpu() for t in (a, b, *torch.autograd.grad(value, [Kw, yw]))]
+    for i, (g, w) in enumerate(zip(got[str(dev)], got["cpu"])):
+        tol = (1e-4 if i < 2 else 1e-3) * w.abs().max()
+        assert (g - w).abs().max() <= tol, i
+
+
+@pytest.mark.parametrize("rule", ["crps", "nlml", "logs", "dss", "es", "kc", "interval"])
+def test_exact_gd_step_on_cuda_matches_cpu(dev, rule):
+    """One exact GD step at the same parameters on the KIN40K rows (n = 500,
+    d = 8): loss rel 1e-4, the step's gradient within 1e-3 of each leaf's
+    largest entry; es at fixed normals on both sides."""
+    # kc has no kin40k_full schedule; it takes its FITC one's rate.
+    sched = SCHEDULES.get(("kin40k_full", rule)) or SCHEDULES[("kin40k_fitc", rule)]
+    eps = tuple(torch.tensor(np.random.default_rng(s).standard_normal((4, 125, 300))
+                             .astype(np.float32)) for s in (2, 3))
+    loss = make_objective(rule, model="exact")
+    out = {}
+    for where in ("cpu", dev):
+        split, p = _kin40k_exact(where)
+        e = tuple(a.to(where) for a in eps)
+        res = fit_gd(lambda q, x, y, g=None: loss(q, x, y, eps=e), p, split.train_x,
+                     split.train_y, 1, sched.lr)
+        step = {f: (p.leaves()[f] - t).cpu() / sched.lr for f, t in res.params.leaves().items()}
+        out[str(where)] = float(res.loss_history[0]), step
+    (lg, sg), (lc, sc) = out[str(dev)], out["cpu"]
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    for f, want in sc.items():
+        assert (sg[f] - want).abs().max() <= 1e-3 * want.abs().max(), f
+
+
+def test_driver_device_cuda_without_cuda_raises(dev, monkeypatch):
+    from gpscore_torch.experiments import kin40k_full
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        kin40k_full.main(["--replicates", "1", "--device", "cuda"])
