@@ -6,16 +6,21 @@ Phases, none of whose failures is caught:
 
 1. Device: exits non-zero without CUDA; prints the card's name and power limit.
 2. Build: compiles gpscore_torch/csrc/ with nvcc (first use) and prints the
-   compiler's register/spill report and the build time.
+   compiler's register/spill report and the build time; fails unless the
+   report shows 0 spill bytes for every instantiation of the three kernels.
 3. Kernels against their plain PyTorch versions, on the card, at the main
    path's shapes (500x20x8, 20x20x8), the evaluation's (500x500x8), the full
-   pool's (9700x20x8), ragged and tall-skinny ones that exercise the column
-   kernel's row chunks, and d = 64; two calls of each kernel on the same
+   pool's (9700x20x8), the size at which the exact GP hands over to the
+   large-n path (8192x8192x8), ragged, tall-skinny and short-wide ones that
+   exercise the backward kernels' chunks and stages, and d = 12, 16 and 64
+   (every DMAX build of the backward); two calls of each kernel on the same
    inputs must be bitwise equal; the synthetic studies' shapes (120x120x1,
    300x120x1, 300x300x1; 120x5x1, 5x5x1, 300x5x1). Then, at 500x20x8,
-   500x500x8, 9700x20x8 and 120x120x1, kernel and plain times per call (CUDA
-   events, back to back) and device time per call (torch.profiler's CUDA
-   events, summed).
+   20x20x8, 500x500x8, 9700x20x8, 120x120x1 and 8192x8192x8, kernel and plain
+   times per call (CUDA events, back to back) and device time per call
+   (torch.profiler's CUDA events, summed), beside the roofline bound
+   (gram_cuda.roofline) and the share of it the kernel's device time reaches
+   (gpscore_torch/bench_gram.py does the timing).
 4. The FITC slice: the five-rule KIN40K FITC-20 fit (n = 500, d = 8, m = 20)
    from the committed initial parameters, 25 GD steps per rule through fit_gd
    on CUDA, then the test-set evaluation. The kernels' launch counters are
@@ -36,10 +41,12 @@ Phases, none of whose failures is caught:
    --device cpu, their per-rule means held against it.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit;
-before it, one JSON line describes every kernel: ``ms`` and ``plain_ms`` at
-the FITC path's 500x20x8, ``launches`` summed over the FITC and exact paths
-(each path's count under ``launches_by_path``), and under ``shapes`` the
-per-call and device times at every timed shape. The last line is
+before it, one JSON line describes every kernel: ``ms``, ``plain_ms``,
+``bound_ms`` and ``bound_by`` at the FITC path's 500x20x8 (``library_ms`` is
+null: no single PyTorch call computes the ARD Gram or either half of its
+VJP), ``launches`` summed over the FITC and exact paths (each path's count
+under ``launches_by_path``), and under ``shapes`` the per-call and device
+times, the bound and the roofline share at every timed shape. The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -48,7 +55,7 @@ import importlib
 import io
 import json
 import linecache
-import subprocess
+import re
 import sys
 import time
 import warnings
@@ -57,6 +64,8 @@ import numpy as np
 import torch
 
 import gpscore_torch
+from gpscore_torch.bench_gram import (device_ms, kernel_inputs, nvidia_smi_line,
+                                     time_shapes)
 from gpscore_torch.data import kin40k_fitc20_init, kin40k_replicate_split, load_kin40k
 from gpscore_torch.fit import SCHEDULES, eval_predictive_metrics, fit_gd, make_objective
 from gpscore_torch.ops import _build, gram_cuda
@@ -71,14 +80,22 @@ REPLACES = {
 }
 KERNEL_SHAPES = [(500, 20, 8), (20, 20, 8), (500, 500, 8), (9700, 20, 8),
                  (4099, 1031, 8), (257, 33, 1), (9700, 1, 8), (9701, 33, 8),
-                 (40000, 20, 8), (9700, 20, 64), (120, 120, 1), (300, 120, 1),
-                 (300, 300, 1), (120, 5, 1), (5, 5, 1), (300, 5, 1)]
-# 500x20x8: the FITC K_fu; 500x500x8: the exact K_ff and the evaluation;
-# 9700x20x8: the full pool; 120x120x1, 300x120x1, 300x300x1: the synthetic
-# exact study's K_ff and evaluation; 120x5x1, 5x5x1, 300x5x1: the synthetic
-# FITC study's K_fu, K_uu and K_su (a ragged column tile of m = 5).
+                 (40000, 20, 8), (9700, 20, 64), (500, 500, 16), (20, 8192, 12),
+                 (8192, 8192, 8), (120, 120, 1), (300, 120, 1), (300, 300, 1),
+                 (120, 5, 1), (5, 5, 1), (300, 5, 1)]
+# 500x20x8: the FITC K_fu; 20x20x8: its K_uu; 500x500x8: the exact K_ff and
+# the evaluation; 9700x20x8: the full pool; 500x500x16 and 20x8192x12: the
+# backward's DMAX = 16 build (16-byte xps rows), the second with the row
+# kernel's column chunks (5, summed by the last block of a row tile);
+# 8192x8192x8: the exact K_ff where the large-n path takes over; 120x120x1,
+# 300x120x1, 300x300x1: the synthetic exact study's K_ff and evaluation;
+# 120x5x1, 5x5x1, 300x5x1: the synthetic FITC study's K_fu, K_uu and K_su (a
+# ragged column tile of m = 5).
 SQUARE = [(20, 20), (5, 5)]  # the K(u, u) shapes: xps = xs
-TIMED_SHAPES = [(500, 20, 8), (500, 500, 8), (9700, 20, 8), (120, 120, 1)]
+TIMED_SHAPES = [(500, 20, 8), (20, 20, 8), (500, 500, 8), (9700, 20, 8), (120, 120, 1),
+                (8192, 8192, 8)]
+KERNELS = [("gram_fwd", "fwd"), ("gram_bwd_rows", "bwd_rows"), ("gram_bwd_cols", "bwd_cols")]
+INSTANTIATIONS = 4  # per kernel: gram_fwd's rows per thread, the backward's DMAX buckets
 # The plain forward uses the cross-term form, whose cancellation leaves
 # ~1e-7 * |xs|^2 in the exponent; K <= sig = e here.
 FWD_ATOL = 2e-5
@@ -108,69 +125,36 @@ def log(*a):
     print(*a, flush=True)
 
 
-def nvidia_smi_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout
-    return out.strip().splitlines()[0]
+def spills(report):
+    """{kernel symbol: (spill store bytes, spill load bytes)} from nvcc's
+    ``-Xptxas -v`` report."""
+    found, current = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            current = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and current is not None:
+            found[current] = (int(m.group(1)), int(m.group(2)))
+            current = None
+    return found
 
 
-def cuda_ms(fn, reps=200, warmup=20):
-    """Mean milliseconds per call of ``fn`` on the current stream."""
-    for _ in range(warmup):
-        fn()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
-def device_ms(fn, reps=50, warmup=5):
-    """Device time per call of ``fn`` and the number of device events per
-    call: torch.profiler's CUDA events (kernels, copies, sets) over ``reps``
-    calls. A profiled window that records no device event at all (it happens,
-    rarely, on the card's machine) is taken again, up to three times."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(warmup):
-        fn()
-    for _ in range(3):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if dev:
-            busy = sum(e.time_range.elapsed_us() for e in dev) / reps / 1e3
-            return busy, len(dev) / reps
-    raise RuntimeError("three profiled windows saw no device work")
-
-
-def kernel_inputs(n, m, d, dev, seed):
-    """Scaled inputs as the main path makes them: KIN40K-like x in [-1, 1],
-    log lengths in [0, 1], sig = e; xps = xs for the K(u, u) shapes."""
-    rng = np.random.default_rng(seed)
-    ll = rng.uniform(0.0, 1.0, d).astype(np.float32)
-    x = rng.uniform(-1.0, 1.0, (n, d)).astype(np.float32)
-    xp = x if (n, m) in SQUARE else rng.uniform(-1.0, 1.0, (m, d)).astype(np.float32)
-    inv = np.exp(-ll)
-    xs = torch.tensor(x * inv, device=dev)
-    xps = torch.tensor(xp * inv, device=dev)
-    g = torch.tensor(rng.standard_normal((n, m)).astype(np.float32), device=dev)
-    return xs, xps, torch.tensor(np.e, dtype=torch.float32, device=dev), g
+def check_spills(report):
+    found = spills(report)
+    for name, _ in KERNELS:
+        mine = {sym: v for sym, v in found.items() if f"{name}_kernel" in sym}
+        assert len(mine) == INSTANTIATIONS, (name, sorted(mine))
+        assert all(v == (0, 0) for v in mine.values()), (name, mine)
+    log(f"[build] ptxas: 0 spill bytes in all {INSTANTIATIONS} instantiations of "
+        + ", ".join(name for name, _ in KERNELS))
 
 
 def phase_kernels(dev):
     err = {k: 0.0 for k in REPLACES}
     for s, (n, m, d) in enumerate(KERNEL_SHAPES):
-        xs, xps, sig, g = kernel_inputs(n, m, d, dev, seed=s)
+        xs, xps, sig, g = kernel_inputs(n, m, d, dev, seed=s, square=(n, m) in SQUARE)
         K = gram_cuda.gram_fwd_cuda(xs, xps, sig)
         Kp = gram_cuda.gram_fwd_plain(xs, xps, sig)
         e_f = float((K - Kp).abs().max())
@@ -201,26 +185,14 @@ def phase_kernels(dev):
         log(f"[kernels] {n}x{m}x{d}: fwd err {e_f:.3g} (tol {FWD_ATOL}); bwd err "
             + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
             + f" (tol {BWD_ATOL} + {BWD_RTOL} * max|ref|); second call bitwise equal")
-    times = {}
-    for n, m, d in TIMED_SHAPES:
-        xs, xps, sig, g = kernel_inputs(n, m, d, dev, seed=99)
-        pairs = {
-            "gram_fwd": (lambda: gram_cuda.gram_fwd_cuda(xs, xps, sig),
-                         lambda: gram_cuda.gram_fwd_plain(xs, xps, sig)),
-            "gram_bwd_rows": (lambda: gram_cuda.gram_bwd_rows_cuda(xs, xps, sig, g),
-                              lambda: gram_cuda.gram_bwd_rows_plain(xs, xps, sig, g)),
-            "gram_bwd_cols": (lambda: gram_cuda.gram_bwd_cols_cuda(xs, xps, sig, g),
-                              lambda: gram_cuda.gram_bwd_cols_plain(xs, xps, sig, g)),
-        }
-        for name, (kern, plain) in pairs.items():
-            # Plain, kernel, kernel, plain: drift in clocks hits both alike.
-            p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)
-            t = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-                 "device_ms": device_ms(kern)[0], "plain_device_ms": device_ms(plain)[0]}
-            times[(name, n, m, d)] = t
-            log(f"[time] {name} {n}x{m}x{d}: per call kernel {t['ms']:.5f} ms, plain "
-                f"{t['plain_ms']:.5f} ms; device time per call kernel {t['device_ms']:.5f} "
-                f"ms, plain {t['plain_device_ms']:.5f} ms")
+    times = time_shapes(TIMED_SHAPES, dev, log=log)
+    for (name, n, m, d), t in times.items():
+        bound = gram_cuda.roofline(name, n, m, d)
+        t.update(bound_ms=bound.bound_us / 1e3, bound_by=bound.bound_by,
+                 roofline_share=bound.bound_us / 1e3 / t["device_ms"])
+        log(f"[bound] {name} {n}x{m}x{d}: {bound.bytes} bytes, {bound.flops} FLOP: "
+            f"{bound.bound_us:.4f} us, by {bound.bound_by}; device time reaches "
+            f"{t['roofline_share']:.3f} of it")
     return err, times
 
 
@@ -504,22 +476,24 @@ def main():
     t0 = time.perf_counter()
     _build.load_library()
     log(f"[build] {_build.library_path().name} loaded in {time.perf_counter() - t0:.2f} s")
-    log(_build.build_report().rstrip())
+    report = _build.build_report()
+    log(report.rstrip())
+    check_spills(report)
     err, times = phase_kernels(dev)
     launches = {"fitc": phase_slice(dev)}
     phase_pool(dev)
     launches["exact"] = phase_exact(dev)
     phase_drivers(dev)
     kernels = []
-    for name, key in [("gram_fwd", "fwd"), ("gram_bwd_rows", "bwd_rows"),
-                      ("gram_bwd_cols", "bwd_cols")]:
+    for name, key in KERNELS:
         on_path = times[(name, *TIMED_SHAPES[0])]
         kernels.append({"name": name, "route": "cuda", "source": SOURCE,
                         "replaces": REPLACES[name],
                         "launches": sum(c[key] for c in launches.values()),
                         "launches_by_path": {p: c[key] for p, c in launches.items()},
                         "max_abs_err": err[name], "ms": on_path["ms"],
-                        "plain_ms": on_path["plain_ms"],
+                        "plain_ms": on_path["plain_ms"], "bound_ms": on_path["bound_ms"],
+                        "bound_by": on_path["bound_by"], "library_ms": None,
                         "shapes": {"x".join(map(str, s)): times[(name, *s)]
                                    for s in TIMED_SHAPES}})
     print(json.dumps({"kernels": kernels}))

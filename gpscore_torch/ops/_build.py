@@ -37,8 +37,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry point -> argument types (pointers and the stream as void*).
 SIGNATURES = {
-    "gram_fwd": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "gram_bwd_rows": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "gram_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gram_bwd_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "gram_bwd_cols": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 

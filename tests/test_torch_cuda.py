@@ -36,10 +36,14 @@ def _scaled(seed, n, m, d, dev):
 
 @pytest.mark.parametrize("n,m,d", [(500, 20, 8), (20, 20, 8), (257, 33, 1), (1031, 70, 17),
                                    (64, 9, 64), (9700, 1, 8), (9701, 33, 8), (40000, 20, 8),
-                                   (9700, 20, 64)])
+                                   (9700, 20, 64), (500, 500, 16), (1031, 70, 12),
+                                   (20, 8192, 12), (8, 3000, 8), (4099, 1031, 8)])
 def test_gram_kernels_match_plain(dev, n, m, d):
     """Forward (atol 2e-5: the plain cross-term form's cancellation) and
-    backward (1e-5 + 1e-4 * max|ref|: fp32 sums in another order)."""
+    backward (1e-5 + 1e-4 * max|ref|: fp32 sums in another order), at every
+    DMAX bucket of the backward (d = 12 and 16 with 16-byte xps rows in the
+    row kernel), and at row-kernel plans of several stages (500 x 500 x 16,
+    4099 x 1031) and several chunks (20 x 8192, 8 x 3000)."""
     xs, xps, sig, g = _scaled(n + m + d, n, m, d, dev)
     K = gram_cuda.gram_fwd_cuda(xs, xps, sig)
     assert (K - gram_cuda.gram_fwd_plain(xs, xps, sig)).abs().max() <= 2e-5
@@ -58,6 +62,69 @@ def test_gram_bwd_cols_is_bitwise_deterministic_in_one_launch(dev, n, m, d):
     b = gram_cuda.gram_bwd_cols_cuda(xs, xps, sig, g)
     assert torch.equal(a, b)
     assert gram_cuda.LAUNCHES["bwd_cols"] == 2
+
+
+@pytest.mark.parametrize("n,m,d", [(20, 20, 8), (500, 20, 8), (500, 500, 8), (9701, 33, 8),
+                                   (40000, 20, 8), (20, 8192, 12), (8, 3000, 8)])
+def test_gram_bwd_rows_is_bitwise_deterministic_in_one_launch(dev, n, m, d):
+    """A row's lanes, the column slices (8 slices of 16 lanes at 500 x 500)
+    and the column chunks (5 at 20 x 8192, summed by the last block of a row
+    tile) are summed in a fixed order: two calls are equal bit for bit, and
+    each is one launch."""
+    xs, xps, sig, g = _scaled(n * m + d + 1, n, m, d, dev)
+    gram_cuda.reset_launches()
+    a = gram_cuda.gram_bwd_rows_cuda(xs, xps, sig, g)
+    b = gram_cuda.gram_bwd_rows_cuda(xs, xps, sig, g)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    assert gram_cuda.LAUNCHES["bwd_rows"] == 2
+    plain = gram_cuda.gram_bwd_rows_plain(xs, xps, sig, g)
+    for u, v in zip(a, plain):
+        assert (u - v).abs().max() <= 1e-5 + 1e-4 * v.abs().max()
+
+
+@pytest.mark.parametrize("n,m,d,rows_per_thread,vector_stores", [
+    (500, 20, 8, 1, True), (500, 21, 8, 1, False), (2048, 512, 8, 2, True),
+    (2048, 510, 8, 2, False), (1500, 1000, 8, 4, True), (3000, 1000, 8, 8, True),
+    (4099, 1031, 8, 8, False), (3000, 1000, 64, 8, True), (700, 130, 5, 1, False),
+    (120, 120, 1, 1, True)])
+def test_gram_fwd_matches_plain_on_both_store_paths(dev, n, m, d, rows_per_thread,
+                                                    vector_stores):
+    """16-byte stores where m % 4 == 0 (the kernel's test, with an aligned
+    output), masked scalar ones otherwise, at every rows-per-thread
+    instantiation (and, at d = 64 with 8 rows a thread, more than 48 KB of
+    shared memory); atol 2e-5 as in test_gram_kernels_match_plain. One launch
+    a call."""
+    plan = gram_cuda.fwd_plan(n, m, d, torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert plan.rows_per_thread == rows_per_thread and (m % 4 == 0) == vector_stores
+    xs, xps, sig, _ = _scaled(n + 3 * m + d, n, m, d, dev)
+    gram_cuda.reset_launches()
+    K = gram_cuda.gram_fwd_cuda(xs, xps, sig)
+    assert gram_cuda.LAUNCHES["fwd"] == 1
+    assert (K - gram_cuda.gram_fwd_plain(xs, xps, sig)).abs().max() <= 2e-5
+
+
+@pytest.mark.parametrize("n,d", [(5, 1), (500, 8), (2048, 8), (3000, 3)])
+def test_gram_fwd_square_is_exactly_symmetric_with_exact_diagonal_at_every_tiling(dev, n, d):
+    """K(u, u) from the redesigned forward, at plans with 1, 2 and 8 rows a
+    thread and scalar and vector stores."""
+    xs, _, sig, _ = _scaled(n + d, n, n, d, dev)
+    K = gram_cuda.gram_fwd_cuda(xs, xs, sig)
+    assert torch.equal(K, K.T)
+    assert torch.equal(torch.diagonal(K), sig.expand(n))
+
+
+def test_gram_kernels_of_empty_grams_launch_nothing(dev):
+    xs, xps, sig, g = _scaled(3, 0, 20, 8, dev)
+    gram_cuda.reset_launches()
+    assert gram_cuda.gram_fwd_cuda(xs, xps, sig).shape == (0, 20)
+    assert gram_cuda.gram_bwd_rows_cuda(xs, xps, sig, g)[1].shape == (0,)
+    # No rows: the column kernel still writes zeros.
+    assert not gram_cuda.gram_bwd_cols_cuda(xs, xps, sig, g).any()
+    assert gram_cuda.LAUNCHES == {"fwd": 0, "bwd_rows": 0, "bwd_cols": 1}
+    # No columns: the row kernel still writes zeros.
+    xs, xps, sig, g = _scaled(4, 20, 0, 8, dev)
+    d_xs, row = gram_cuda.gram_bwd_rows_cuda(xs, xps, sig, g)
+    assert not d_xs.any() and not row.any()
 
 
 def test_gram_kernel_square_is_exactly_symmetric_with_exact_diagonal(dev):

@@ -1,12 +1,14 @@
-"""The chunk plan of the Gram backward's column kernel (``gram_bwd_cols``) and
-its two-level reduction, on the CPU.
+"""The plans of the Gram kernels (``fwd_plan``, ``bwd_rows_plan``,
+``bwd_cols_plan``), their roofline bounds, and the backward kernels' two-level
+reductions, on the CPU.
 
-The kernel itself runs only on a card (tests/test_torch_cuda.py,
-chip_smoke.py). What it computes is emulated here in plain PyTorch: each row
-chunk of the plan gives a partial d_xps, and the partials are summed in chunk
-order, as the kernel's last block of a column tile sums them. That emulation
-is held against the plain version (the kernel's oracle on the card) and
-against the JAX backward ``gram_pallas._bwd``.
+The kernels themselves run only on a card (tests/test_torch_cuda.py,
+chip_smoke.py). What they compute is emulated here in plain PyTorch: each
+chunk of a plan gives a partial, and the partials are summed in chunk order,
+as a kernel's last block of a tile sums them; the forward is computed in the
+kernel's direct-difference form. Those emulations are held against the plain versions
+(the kernels' oracles on the card) and against the JAX reference
+(``gram_pallas._bwd``, and the Pallas Gram in interpret mode).
 """
 
 import re
@@ -17,8 +19,13 @@ import pytest
 import torch
 
 from gpscore.ops.gram_pallas import _bwd as jax_gram_bwd
+from gpscore.ops.gram_pallas import _pallas_gram_scaled
 from gpscore_torch.ops import _build, gram_cuda
-from gpscore_torch.ops.gram_cuda import COLS_STAGE_ROWS, COLS_TILE, bwd_cols_plan
+from gpscore_torch.ops.gram_cuda import (COLS_STAGE_ROWS, COLS_TILE, FWD_COL_THREADS,
+                                         FWD_COLS_PER_THREAD, ROWS_CHUNK_MIN_COLS,
+                                         ROWS_MAX_STEP, ROWS_MIN_STEP, ROWS_STAGE_FLOATS,
+                                         THREADS, bwd_cols_plan, bwd_rows_plan, fwd_plan,
+                                         roofline)
 
 H100_SMS = 132
 
@@ -56,6 +63,21 @@ def test_bwd_cols_plan_constants_match_the_kernel_source():
     assert const("kColsTile") == COLS_TILE
     assert const("kColsStageRows") == COLS_STAGE_ROWS
     assert const("kMaxD") == gram_cuda.MAX_D
+    assert const("kFwdColsPerThread") == FWD_COLS_PER_THREAD
+    assert 32 * const("kWarpsPerBlock") == THREADS
+    # The column-thread counts and rows per thread the C entry point takes.
+    entry = src[src.index("int gram_fwd("):]
+    assert all(f"col_threads != {c}" in entry for c in FWD_COL_THREADS)
+    assert all(f"case {r}: launch = launch_fwd<{r}>;" in entry
+               for r in gram_cuda.FWD_ROWS_PER_THREAD)
+    # The row kernel's widest step is a warp's lanes times the block's warps.
+    assert ROWS_MAX_STEP == 32 * const("kWarpsPerBlock")
+    rows_entry = src[src.index("int gram_bwd_rows("):]
+    assert "lanes_per_row > 32 || slices > kWarpsPerBlock" in rows_entry
+    # The stage layout bwd_rows_plan sizes: xps rows at an odd number of
+    # float4s, g rows padded by the lanes of a row.
+    assert "return vec ? (((d + 3) / 4) | 1) * 4 : (d | 1);" in src
+    assert "s.g_pitch = stage_cols + (lanes < 32 ? lanes : 0);" in src
 
 
 def _two_level(xs, xps, sig, g, plan):
@@ -96,3 +118,224 @@ def test_two_level_reduction_matches_plain_and_jax(n, m, d, sms):
     for ref in (plain, d_xp):
         tol = 1e-5 + 1e-4 * np.abs(ref).max()
         assert np.abs(got - ref).max() <= tol
+
+
+# ---- gram_bwd_rows: row tiles x column chunks ---------------------------------
+
+
+@pytest.mark.parametrize("n,m,d,lanes,slices,n_chunks,blocks", [
+    (500, 20, 8, 4, 8, 1, 63),          # the FITC K_fu: one chunk, one stage
+    (20, 20, 8, 4, 8, 1, 3),            # the FITC K_uu
+    (500, 500, 8, 16, 8, 1, 250),       # the exact K_ff: fills the 132 SMs with row tiles
+    (9700, 20, 8, 4, 1, 1, 152),        # the 9700-row pool: 64 rows a block
+    (9701, 33, 8, 4, 1, 1, 152),        # ragged rows and columns
+    (40000, 20, 8, 4, 1, 1, 625),       # more rows than two blocks an SM
+    (8192, 8192, 8, 4, 2, 1, 256),      # the large-n handover: 32 rows a block, 52 stages
+    (9700, 20, 64, 4, 1, 1, 152),       # d > 16
+    (120, 120, 1, 16, 8, 1, 60),        # the synthetic exact K_ff
+    (300, 5, 1, 4, 2, 1, 10),           # the synthetic FITC K_su
+    (20, 8192, 12, 32, 8, 5, 100),      # few rows, many columns: five chunks, summed in the launch
+    (0, 20, 8, 4, 8, 1, 0),             # no rows: no launch
+    (20, 0, 8, 1, 1, 1, 1),             # no columns: the block writes zeros
+])
+def test_bwd_rows_plan(n, m, d, lanes, slices, n_chunks, blocks):
+    plan = bwd_rows_plan(n, m, d, H100_SMS)
+    step = lanes * slices
+    rows_tile = THREADS // step
+    assert (plan.lanes_per_row, plan.slices, plan.n_chunks) == (lanes, slices, n_chunks)
+    assert plan.row_tiles * plan.n_chunks == blocks
+    assert plan.launches == (1 if n > 0 else 0)
+    # Powers of two the kernel takes; a block is THREADS threads.
+    assert step & (step - 1) == 0 and lanes <= 32 and slices <= THREADS // 32
+    assert plan.row_tiles == -(-n // rows_tile)
+    assert step <= ROWS_MAX_STEP and (m == 0 or step < 2 * max(m, ROWS_MIN_STEP))
+    # The chunks cover the columns, and none of them is empty.
+    assert plan.chunk_cols * (plan.n_chunks - 1) < max(m, 1) <= plan.chunk_cols * plan.n_chunks
+    assert plan.chunk_cols % plan.stage_cols == 0 and plan.stage_cols % 32 == 0
+    assert plan.scratch_shape == (None if n_chunks == 1 else (n_chunks, n, d + 1))
+    # A stage fits its budget (a 32-column stage is the least there is).
+    pad = lanes if lanes < 32 else 0
+    stage_floats = plan.stage_cols * ((d + 3) // 4 | 1) * 4 + rows_tile * (plan.stage_cols + pad)
+    assert stage_floats <= ROWS_STAGE_FLOATS or plan.stage_cols == 32
+    # Several chunks only where the row tiles leave SMs idle.
+    assert n_chunks == 1 or (plan.row_tiles < H100_SMS and plan.chunk_cols >= ROWS_CHUNK_MIN_COLS)
+
+
+@pytest.mark.parametrize("n,m,d", [(500, 20, 8), (20, 20, 8), (500, 500, 8), (9700, 20, 8),
+                                   (120, 120, 1)])
+def test_bwd_rows_plan_gives_the_main_path_one_chunk_of_one_stage(n, m, d):
+    plan = bwd_rows_plan(n, m, d, H100_SMS)
+    assert plan.n_chunks == 1 and plan.chunk_cols == plan.stage_cols >= m
+    assert plan.scratch_shape is None
+
+
+def test_bwd_rows_plan_fills_the_card_at_the_exact_gram():
+    plan = bwd_rows_plan(500, 500, 8, H100_SMS)
+    assert plan.row_tiles * plan.n_chunks >= H100_SMS
+
+
+def _chunked_rows(xs, xps, sig, g, plan):
+    """The row kernel's reduction in plain PyTorch. In chunk c, slice q takes
+    the columns whose offset in their stage, modulo lanes * slices, falls in
+    the q-th group of lanes; a chunk's slices are added in slice order, and
+    the chunks' partials in chunk order, as the last block of a row tile
+    adds them."""
+    m = xps.shape[0]
+    step = plan.lanes_per_row * plan.slices
+    total = None
+    for c in range(plan.n_chunks):
+        cols = torch.arange(c * plan.chunk_cols, min(m, (c + 1) * plan.chunk_cols))
+        local = (cols - c * plan.chunk_cols) % plan.stage_cols
+        part = None
+        for q in range(plan.slices):
+            idx = cols[(local % step) // plan.lanes_per_row == q]
+            p = gram_cuda.gram_bwd_rows_plain(xs, xps[idx], sig, g[:, idx])
+            part = p if part is None else (part[0] + p[0], part[1] + p[1])
+        total = part if total is None else (total[0] + part[0], total[1] + part[1])
+    return total
+
+
+@pytest.mark.parametrize("n,m,d,sms", [
+    (500, 500, 8, H100_SMS),   # the exact K_ff: 8 slices of 16 lanes, one chunk
+    (500, 20, 8, H100_SMS),    # 8 slices of 4 lanes
+    (33, 257, 3, H100_SMS),    # ragged columns
+    (20, 8192, 12, H100_SMS),  # five chunks of three stages
+    (8, 3000, 8, H100_SMS),    # two chunks
+    (2000, 20, 8, 4),          # a small card: 4 lanes, one slice, 5 trips
+    (40, 300, 40, H100_SMS),   # d > 32
+])
+def test_sliced_row_reduction_matches_plain_and_jax(n, m, d, sms):
+    """Within 1e-5 + 1e-4 * max|ref|, as chip_smoke.py holds the kernel to
+    the plain version: d_xs against gram_bwd_rows_plain and against _bwd's
+    d_x, and the sum of rowsum against _bwd's d_log_sig (both at zero log
+    lengths, where _bwd's outputs are the scaled-input ones)."""
+    rng = np.random.default_rng(n + m + d)
+    xs = rng.uniform(-1, 1, (n, d)).astype(np.float32)
+    xps = rng.uniform(-1, 1, (m, d)).astype(np.float32)
+    g = rng.standard_normal((n, m)).astype(np.float32)
+    sig = np.float32(np.e)
+    plan = bwd_rows_plan(n, m, d, sms)
+    assert plan.n_chunks == -(-m // plan.chunk_cols)
+    t = [torch.tensor(a) for a in (xs, xps, sig, g)]
+    d_xs, row = (a.numpy() for a in _chunked_rows(*t, plan))
+    plain_d, plain_row = (a.numpy() for a in gram_cuda.gram_bwd_rows_plain(*t))
+    res = (jnp.asarray(xs), jnp.asarray(xps), jnp.float32(sig), jnp.zeros(d, jnp.float32))
+    jax_out = jax_gram_bwd(res, jnp.asarray(g))
+    for got, ref in [(d_xs, plain_d), (row, plain_row), (d_xs, np.asarray(jax_out[0])),
+                     (row.sum(), np.asarray(jax_out[2]))]:
+        tol = 1e-5 + 1e-4 * np.abs(ref).max()
+        assert np.abs(got - ref).max() <= tol
+
+
+# ---- gram_fwd: output tiles ------------------------------------------------------
+
+
+def _fwd_tiles(plan):
+    """(rows, columns) of K a block of the kernel takes under ``plan``."""
+    return (THREADS // plan.col_threads * plan.rows_per_thread,
+            FWD_COLS_PER_THREAD * plan.col_threads)
+
+
+@pytest.mark.parametrize("n,m,d,col_threads,rows_per_thread,blocks", [
+    (500, 20, 8, 8, 1, 16),          # the FITC K_fu: 5 of 8 column threads busy
+    (20, 20, 8, 8, 1, 1),            # the FITC K_uu
+    (500, 500, 8, 64, 1, 250),       # the exact K_ff
+    (9700, 20, 8, 8, 1, 304),        # the 9700-row pool
+    (120, 120, 1, 32, 1, 15),        # the synthetic exact K_ff
+    (8192, 8192, 8, 64, 8, 8192),    # the large-n handover: 32 KB a block
+    (9701, 33, 8, 16, 2, 304),       # ragged rows and columns
+])
+def test_fwd_plan(n, m, d, col_threads, rows_per_thread, blocks):
+    plan = fwd_plan(n, m, d, H100_SMS)
+    assert (plan.col_threads, plan.rows_per_thread) == (col_threads, rows_per_thread)
+    assert plan.launches == 1
+    rows_tile, col_tile = _fwd_tiles(plan)
+    # The tiles cover K, and the narrowest column tile that covers m is taken.
+    assert -(-n // rows_tile) * -(-m // col_tile) == blocks
+    assert col_tile >= m or col_threads == FWD_COL_THREADS[-1]
+    assert col_threads == FWD_COL_THREADS[0] or col_tile // 2 < m
+
+
+@pytest.mark.parametrize("n,m", [(0, 20), (20, 0)])
+def test_fwd_plan_of_an_empty_gram_launches_nothing(n, m):
+    assert fwd_plan(n, m, 8, H100_SMS).launches == 0
+
+
+def test_fwd_plan_gives_large_grams_big_blocks_and_small_ones_many():
+    rows_tile, col_tile = _fwd_tiles(fwd_plan(8192, 8192, 8, H100_SMS))
+    assert rows_tile * col_tile * 4 == 32 * 1024  # bytes written by a block
+    rows_tile, col_tile = _fwd_tiles(fwd_plan(500, 500, 8, H100_SMS))
+    assert -(-500 // rows_tile) * -(-500 // col_tile) >= H100_SMS
+
+
+def _direct_fwd(xs, xps, sig):
+    """K in the kernel's form: the direct differences, summed over k in
+    ascending order."""
+    d2 = torch.zeros(xs.shape[0], xps.shape[0])
+    for k in range(xs.shape[1]):
+        t = xs[:, k:k + 1] - xps[:, k][None, :]
+        d2 = d2 + t * t
+    return sig * torch.exp(-0.5 * d2)
+
+
+@pytest.mark.parametrize("n,m,d", [(500, 20, 8), (20, 20, 8), (70, 300, 3), (37, 5, 1)])
+def test_tiled_forward_matches_plain_and_pallas(n, m, d):
+    """The kernel's direct-difference form against the plain cross-term
+    version (atol 2e-5, chip_smoke.py's FWD_ATOL) and the Pallas Gram in
+    interpret mode; with xps = xs it is exactly symmetric with an exact
+    diagonal. How the plan tiles K does not change an element's value; the
+    tiles' coverage is test_fwd_plan's, the kernel's stores the card's."""
+    rng = np.random.default_rng(7 * n + m)
+    xs = rng.uniform(-1, 1, (n, d)).astype(np.float32)
+    xps = xs.copy() if n == m else rng.uniform(-1, 1, (m, d)).astype(np.float32)
+    sig = np.float32(np.e)
+    got = _direct_fwd(torch.tensor(xs), torch.tensor(xps), torch.tensor(sig))
+    plain = gram_cuda.gram_fwd_plain(torch.tensor(xs), torch.tensor(xps), torch.tensor(sig))
+    pallas = np.asarray(_pallas_gram_scaled(jnp.asarray(xs), jnp.asarray(xps), jnp.float32(sig),
+                                            interpret=True))
+    assert (got - plain).abs().max() <= 2e-5
+    assert np.abs(got.numpy() - pallas).max() <= 2e-5
+    if n == m:
+        assert torch.equal(got, got.T)
+        assert torch.equal(torch.diagonal(got), torch.full((n,), float(sig)))
+
+
+# ---- roofline bounds -------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kernel,n,m,d,floats,flops", [
+    # Forward: xs, xps and sig read once, K written once; 3d + 3 FLOP an element.
+    ("gram_fwd", 500, 500, 8, 4000 + 4000 + 1 + 250000, 27 * 250000),
+    ("gram_fwd", 500, 20, 8, 4000 + 160 + 1 + 10000, 27 * 10000),
+    # Rows: also g read, d_xs and rowsum written; 6d + 6 FLOP an element.
+    ("gram_bwd_rows", 500, 500, 8, 4000 + 4000 + 1 + 250000 + 4000 + 500, 54 * 250000),
+    ("gram_bwd_rows", 9700, 20, 8, 77600 + 160 + 1 + 194000 + 77600 + 9700, 54 * 194000),
+    # Columns: g read, d_xps written.
+    ("gram_bwd_cols", 500, 20, 8, 4000 + 160 + 1 + 10000 + 160, 54 * 10000),
+])
+def test_roofline_counts_each_byte_once(kernel, n, m, d, floats, flops):
+    r = roofline(kernel, n, m, d)
+    assert (r.bytes, r.flops) == (4 * floats, flops)
+    want = max(4 * floats / 3.35e12, flops / 67e12) * 1e6
+    assert r.bound_us == pytest.approx(want, rel=1e-12)
+    assert r.bound_by == ("bytes" if 4 * floats / 3.35e12 >= flops / 67e12 else "operations")
+
+
+def test_roofline_at_the_large_n_handover():
+    """8192 x 8192 x 8: 269 MB, about 80 us, by bytes, for every kernel; the
+    backward's FLOPs alone would take 54 us."""
+    for kernel in ("gram_fwd", "gram_bwd_rows", "gram_bwd_cols"):
+        r = roofline(kernel, 8192, 8192, 8)
+        assert r.bound_by == "bytes" and 80.0 < r.bound_us < 81.0
+    assert roofline("gram_bwd_rows", 8192, 8192, 8).flops / 67e12 * 1e6 == pytest.approx(
+        54.09, abs=0.01)
+    # A kernel with no roofline raises.
+    with pytest.raises(ValueError):
+        roofline("gram_nope", 1, 1, 1)
+
+
+def test_roofline_is_bound_by_operations_at_a_wide_input():
+    # d = 64: 390 FLOP (backward) and 195 (forward) for each 4 bytes of K,
+    # above the card's ridge of 67e12 / 3.35e12 = 20 FLOP a byte.
+    for kernel in ("gram_fwd", "gram_bwd_rows", "gram_bwd_cols"):
+        assert roofline(kernel, 4096, 4096, 64).bound_by == "operations"
