@@ -15,12 +15,16 @@ Phases, none of whose failures is caught:
    exercise the backward kernels' chunks and stages, and d = 12, 16 and 64
    (every DMAX build of the backward); two calls of each kernel on the same
    inputs must be bitwise equal; the synthetic studies' shapes (120x120x1,
-   300x120x1, 300x300x1; 120x5x1, 5x5x1, 300x5x1). Then, at 500x20x8,
-   20x20x8, 500x500x8, 9700x20x8, 120x120x1 and 8192x8192x8, kernel and plain
-   times per call (CUDA events, back to back) and device time per call
-   (torch.profiler's CUDA events, summed), beside the roofline bound
-   (gram_cuda.roofline) and the share of it the kernel's device time reaches
-   (gpscore_torch/bench_gram.py does the timing).
+   300x120x1, 300x300x1; 120x5x1, 5x5x1, 300x5x1); a row block of the
+   large-n backward (2048x30720x8), and gram_fwd alone at the whole large-n
+   K(x, x) (30720x30720x8) and the large-n evaluation's K(x, x*)
+   (30720x2048x8). Then, at 500x20x8, 20x20x8, 500x500x8, 9700x20x8,
+   120x120x1, 8192x8192x8 and 2048x30720x8, and for gram_fwd at
+   30720x2048x8, kernel and plain times per call (CUDA events, back to back)
+   and device time per call (torch.profiler's CUDA events, summed), and
+   gram_fwd's time per call at 30720x30720x8 (CUDA events alone), beside the
+   roofline bound (gram_cuda.roofline) and the share of it the kernel's time
+   reaches (gpscore_torch/bench_gram.py does the timing).
 4. The FITC slice: the five-rule KIN40K FITC-20 fit (n = 500, d = 8, m = 20)
    from the committed initial parameters, 25 GD steps per rule through fit_gd
    on CUDA, then the test-set evaluation. The kernels' launch counters are
@@ -39,14 +43,33 @@ Phases, none of whose failures is caught:
 7. The four experiment drivers' main() on CUDA at a cut size; the two
    synthetic ones (which run the kernels at m = 5 and 300x300x1) also with
    --device cpu, their per-rule means held against it.
+8. The exact GP at large n (the fused cores of gpscore_torch/ops/loo_fused.py
+   over the in-place K_hat^-1 of ops/potri_inplace.py). At n = 2048 and the
+   ragged 2000 (block 512, the fused threshold lowered) the loss and gradient
+   of crps, logs, interval and nlml on CUDA against the CPU's at the same
+   parameters. At n = 30,720, d = 8 (the large_n driver's data, unit
+   parameters): the step-0 loss and gradient of crps and nlml against the
+   dense path (K materialized), with both steps' peak memory, and both
+   against a float64 witness; the in-place Cholesky factor of K_hat and
+   cuSOLVER's against a float64 one; then, with the launch counters zeroed just
+   before and read just after, 2 fit_gd steps of each of crps, logs,
+   interval and nlml and exact_predictive_diag_large at 2048 test points per
+   rule; the predictive of the crps fit against the dense exact_predictive's
+   diagonal and a float64 solve; per rule the wall time per step, the
+   device-busy time and idle share of a profiled step, its device time by
+   kind of kernel, the achieved TFLOP/s, and for crps the host syncs of a
+   step (none allowed) and the peak memory of a step (at most 1.5 n^2 * 4
+   bytes). Last, the large_n driver's main() at n = 8192, 2 iterations.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit;
 before it, one JSON line describes every kernel: ``ms``, ``plain_ms``,
 ``bound_ms`` and ``bound_by`` at the FITC path's 500x20x8 (``library_ms`` is
 null: no single PyTorch call computes the ARD Gram or either half of its
-VJP), ``launches`` summed over the FITC and exact paths (each path's count
-under ``launches_by_path``), and under ``shapes`` the per-call and device
-times, the bound and the roofline share at every timed shape. The last line is
+VJP), ``launches`` summed over the FITC, exact and large-n paths (each path's
+count under ``launches_by_path``), and under ``shapes`` the per-call and device
+times, the bound and the roofline share at every timed shape, with
+``timed_by`` naming the source of the share's time (``torch.profiler``:
+``device_ms``; ``cuda_events``: ``ms``, and no ``device_ms``). The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -64,12 +87,20 @@ import numpy as np
 import torch
 
 import gpscore_torch
-from gpscore_torch.bench_gram import (device_ms, kernel_inputs, nvidia_smi_line,
-                                     time_shapes)
+from gpscore_torch.bench_gram import (cuda_ms, device_ms, kernel_inputs, kernel_pairs,
+                                     nvidia_smi_line, time_shapes)
 from gpscore_torch.data import kin40k_fitc20_init, kin40k_replicate_split, load_kin40k
+from gpscore_torch.experiments import bench_ceiling, large_n
 from gpscore_torch.fit import SCHEDULES, eval_predictive_metrics, fit_gd, make_objective
-from gpscore_torch.ops import _build, gram_cuda
-from gpscore_torch.utils import init_rand_params, params_from_numpy, params_to_numpy
+from gpscore_torch.fit import objectives
+from gpscore_torch.metrics import evaluate_predictive
+from gpscore_torch.models import exact as exact_mod
+from gpscore_torch.ops import _build, gram_cuda, linalg, potri_inplace
+from gpscore_torch.ops.kernels import gram
+from gpscore_torch.ops.loo_fused import auto_block
+from gpscore_torch.scoring import rules
+from gpscore_torch.utils import (init_rand_params, init_unit_params, params_from_numpy,
+                                 params_to_numpy)
 
 RULES = ["crps", "nlml", "logs", "dss", "kc"]
 SOURCE = "gpscore_torch/csrc/gram.cu"
@@ -82,7 +113,7 @@ KERNEL_SHAPES = [(500, 20, 8), (20, 20, 8), (500, 500, 8), (9700, 20, 8),
                  (4099, 1031, 8), (257, 33, 1), (9700, 1, 8), (9701, 33, 8),
                  (40000, 20, 8), (9700, 20, 64), (500, 500, 16), (20, 8192, 12),
                  (8192, 8192, 8), (120, 120, 1), (300, 120, 1), (300, 300, 1),
-                 (120, 5, 1), (5, 5, 1), (300, 5, 1)]
+                 (120, 5, 1), (5, 5, 1), (300, 5, 1), (2048, 30720, 8)]
 # 500x20x8: the FITC K_fu; 20x20x8: its K_uu; 500x500x8: the exact K_ff and
 # the evaluation; 9700x20x8: the full pool; 500x500x16 and 20x8192x12: the
 # backward's DMAX = 16 build (16-byte xps rows), the second with the row
@@ -90,10 +121,15 @@ KERNEL_SHAPES = [(500, 20, 8), (20, 20, 8), (500, 500, 8), (9700, 20, 8),
 # 8192x8192x8: the exact K_ff where the large-n path takes over; 120x120x1,
 # 300x120x1, 300x300x1: the synthetic exact study's K_ff and evaluation;
 # 120x5x1, 5x5x1, 300x5x1: the synthetic FITC study's K_fu, K_uu and K_su (a
-# ragged column tile of m = 5).
+# ragged column tile of m = 5); 2048x30720x8: a row block of the large-n
+# backward at n = 30,720 (the cotangent of K(x_b, x)).
 SQUARE = [(20, 20), (5, 5)]  # the K(u, u) shapes: xps = xs
 TIMED_SHAPES = [(500, 20, 8), (20, 20, 8), (500, 500, 8), (9700, 20, 8), (120, 120, 1),
-                (8192, 8192, 8)]
+                (8192, 8192, 8), (2048, 30720, 8)]
+# The large-n path's other forward shapes, checked and timed for gram_fwd
+# alone: all of K at n = 30,720 (one launch a step and one an evaluation),
+# and the evaluation's K(x, x*) for a chunk of 2048 test points.
+FWD_SHAPES = [(30720, 30720, 8), (30720, 2048, 8)]
 KERNELS = [("gram_fwd", "fwd"), ("gram_bwd_rows", "bwd_rows"), ("gram_bwd_cols", "bwd_cols")]
 INSTANTIATIONS = 4  # per kernel: gram_fwd's rows per thread, the backward's DMAX buckets
 # The plain forward uses the cross-term form, whose cancellation leaves
@@ -119,6 +155,35 @@ DRIVER_RUNS = [("simple_full", ["--replicates", "1"], True),
 # CPU, relative, after the whole free-running fit.
 DRIVER_RTOL = 1e-3
 METRICS = ("mse", "smse", "logs", "crps", "msll", "coverage95")
+# Phase 8.
+LARGE_RULES = ["crps", "logs", "interval", "nlml"]
+LARGE_N, LARGE_D, LARGE_TEST, LARGE_STEPS = 30720, 8, 2048, 2
+SMALL_LARGE = [(2048, 512), (2000, 512)]  # (n, block) against the CPU; 2000 is ragged
+# At n = 30,720, step 0: the fused and the dense fp32 paths against each
+# other and against a float64 witness (f64_step0), with K_hat's condition
+# number ~2e4. On an H100 the readings repeat bit for bit from call to call.
+# Losses: the dense crps loss is itself 3.0e-5 off float64, the fused ones
+# 2.1e-6 (crps) and 6.3e-8 (nlml).
+LARGE_LOSS_RTOL = 1e-4
+# Gradients, relative to each leaf's largest entry, per leaf. The log-signal
+# gradient of crps sums the n^2 terms of K_hat_bar * K to an O(1) total, so
+# the error of an fp32 K_hat^-1 shows there in both fp32 paths: 7.1e-3
+# (fused) and 6.1e-3 (dense) off float64. The other leaves read <= 2.4e-4.
+F64_GRAD_RTOL = {"log_signal_sq": 1e-2, "log_length": 1e-3, "log_noise_sq": 1e-3}
+# Fused against dense: that shared log-signal error leaves them 1.0e-3 apart
+# for crps (2.4e-4 for nlml); the float64 check above is the accuracy check.
+LARGE_GRAD_RTOL = 2e-3
+# The Cholesky factor of K_hat against float64: cuSOLVER's potrf reads
+# 4.6e-6, the in-place one 4.9e-6 (6.8e-5 when its left update was one GEMM
+# over all earlier columns).
+F64_FACTOR_RTOL = 1e-5
+# The crps fit's large-n predictive against the dense one and a float64
+# solve, relative to the largest entry: the dense mean and variance are
+# themselves 1.7e-5 and 4.3e-5 off float64; the large-n ones read <= 6.7e-5.
+LARGE_EVAL_RTOL = 1e-4
+F64_ROWS = 2048  # row block of the float64 witness
+PEAK_LIMIT_N2 = 1.5  # a crps step's peak memory, in n^2 * 4 bytes
+DRIVER_LARGE = ["--n", "8192", "--iters", "2"]  # the large_n driver at a cut size
 
 
 def log(*a):
@@ -149,6 +214,15 @@ def check_spills(report):
         assert all(v == (0, 0) for v in mine.values()), (name, mine)
     log(f"[build] ptxas: 0 spill bytes in all {INSTANTIATIONS} instantiations of "
         + ", ".join(name for name, _ in KERNELS))
+
+
+def fwd_inputs(n, m, d, dev, seed):
+    """xs [n, d] and xps [m, d] uniform in [-1, 1] (xps = xs when n == m, a
+    K(x, x)) and sig = e, drawn on the card (a forward needs no cotangent)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    xs = torch.rand((n, d), generator=gen, device=dev) * 2.0 - 1.0
+    xps = xs if n == m else torch.rand((m, d), generator=gen, device=dev) * 2.0 - 1.0
+    return xs, xps, torch.tensor(np.e, dtype=torch.float32, device=dev)
 
 
 def phase_kernels(dev):
@@ -185,13 +259,44 @@ def phase_kernels(dev):
         log(f"[kernels] {n}x{m}x{d}: fwd err {e_f:.3g} (tol {FWD_ATOL}); bwd err "
             + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
             + f" (tol {BWD_ATOL} + {BWD_RTOL} * max|ref|); second call bitwise equal")
+    for s, (n, m, d) in enumerate(FWD_SHAPES):
+        xs, xps, sig = fwd_inputs(n, m, d, dev, seed=s)
+        K = gram_cuda.gram_fwd_cuda(xs, xps, sig)
+        e_f = float((K - gram_cuda.gram_fwd_plain(xs, xps, sig)).abs().max())
+        assert torch.isfinite(K).all() and e_f <= FWD_ATOL, (n, m, d, e_f)
+        if n == m:
+            assert torch.equal(K, K.T) and torch.equal(torch.diagonal(K), sig.expand(n))
+        del K
+        err["gram_fwd"] = max(err["gram_fwd"], e_f)
+        log(f"[kernels] {n}x{m}x{d} (gram_fwd alone{', K(x, x)' if n == m else ''}): fwd err "
+            f"{e_f:.3g} (tol {FWD_ATOL})"
+            + ("; exactly symmetric with an exact diagonal" if n == m else ""))
+    # Each entry's device_ms is torch.profiler's; at 30720^2 the profiler's
+    # windows lost that kernel's events (three in a row), so there the time is
+    # CUDA events alone: a call is milliseconds of one kernel, under which the
+    # wrapper's host time hides, and the roofline share is taken of "ms".
     times = time_shapes(TIMED_SHAPES, dev, log=log)
+    times.update(time_shapes([s for s in FWD_SHAPES if s[0] != s[1]], dev,
+                             names=("gram_fwd",), log=log))
+    for t in times.values():
+        t["timed_by"] = "torch.profiler"
+    for n, m, d in FWD_SHAPES:
+        if n != m:
+            continue
+        kern, plain = kernel_pairs(*fwd_inputs(n, m, d, dev, seed=99), None)["gram_fwd"]
+        p1, k1, k2, p2 = (cuda_ms(f, reps=r, warmup=2) for f, r in
+                          ((plain, 10), (kern, 50), (kern, 50), (plain, 10)))
+        times[("gram_fwd", n, m, d)] = t = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                                            "timed_by": "cuda_events"}
+        log(f"[time] gram_fwd {n}x{m}x{d}: per call kernel {t['ms']:.5f} ms, plain "
+            f"{t['plain_ms']:.5f} ms (CUDA events, back to back; no profiler time)")
     for (name, n, m, d), t in times.items():
         bound = gram_cuda.roofline(name, n, m, d)
         t.update(bound_ms=bound.bound_us / 1e3, bound_by=bound.bound_by,
-                 roofline_share=bound.bound_us / 1e3 / t["device_ms"])
+                 roofline_share=bound.bound_us / 1e3 / t.get("device_ms", t["ms"]))
         log(f"[bound] {name} {n}x{m}x{d}: {bound.bytes} bytes, {bound.flops} FLOP: "
-            f"{bound.bound_us:.4f} us, by {bound.bound_by}; device time reaches "
+            f"{bound.bound_us:.4f} us, by {bound.bound_by}; "
+            f"{'device time' if 'device_ms' in t else 'time per call'} reaches "
             f"{t['roofline_share']:.3f} of it")
     return err, times
 
@@ -466,6 +571,268 @@ def phase_drivers(dev):
                                                    for r, rec in res.items()) + held)
 
 
+@contextlib.contextmanager
+def fused_from(n):
+    """The exact objectives take the fused large-n cores from ``n`` on
+    (objectives._FUSED_LOO_MIN_N), inside the block."""
+    saved = objectives._FUSED_LOO_MIN_N
+    objectives._FUSED_LOO_MIN_N = n
+    try:
+        yield
+    finally:
+        objectives._FUSED_LOO_MIN_N = saved
+
+
+def grad_rel(got, want):
+    """The largest gradient difference, relative to each leaf's largest entry."""
+    return max(float((got[f].cpu() - want[f].cpu()).abs().max()) / float(want[f].abs().max())
+               for f in want)
+
+
+def rel_max(got, want):
+    """max |got - want| over max |want|, in float64."""
+    want = want.double()
+    return float((got.double() - want).abs().max() / want.abs().max())
+
+
+def peak_of(fn):
+    """(fn(), the allocator's peak bytes while it ran, after a reset)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated()
+
+
+def f64_sqdist(a, b):
+    """The d per-dimension squared differences [n, m] of rows of a and b."""
+    return [(a[:, k, None] - b[None, :, k]) ** 2 for k in range(a.shape[1])]
+
+
+def f64_factor(x, p):
+    """(xs, sig, noise, L) in float64 on x's device: the scaled inputs, the
+    signal and noise variances, and cuSOLVER's Cholesky factor of K_hat =
+    K(x, x) + noise I, built in row blocks by direct differences."""
+    f64 = torch.float64
+    xs = x.to(f64) * torch.exp(-p.log_length.to(f64))
+    sig, noise = torch.exp(p.log_signal_sq.to(f64)), torch.exp(p.log_noise_sq.to(f64))
+    n = x.shape[0]
+    K = torch.empty((n, n), dtype=f64, device=x.device)
+    for r0 in range(0, n, F64_ROWS):
+        K[r0:r0 + F64_ROWS] = sig * torch.exp(-0.5 * sum(f64_sqdist(xs[r0:r0 + F64_ROWS], xs)))
+    K.diagonal().add_(noise)
+    return xs, sig, noise, torch.linalg.cholesky(K)
+
+
+def f64_step0(rule, x, y, p):
+    """The float64 witness of the exact crps or nlml objective: (loss, {leaf:
+    gradient}) in the three log-parameters. K_hat^-1 comes from the float64
+    factor; G = dloss/dK_hat in closed form (nlml: (K^-1 - a a^T) / 2; crps,
+    through a = K^-1 y and diag(K^-1): -(K^-1 a_bar) a^T - K^-1 diag(d_bar)
+    K^-1); G is then contracted with dK/dtheta in row blocks. Peak ~3 n^2 * 8
+    bytes."""
+    xs, sig, noise, L = f64_factor(x, p)
+    n, y64 = x.shape[0], y.to(torch.float64)
+    half_logdet = torch.log(L.diagonal()).sum()
+    Kinv = torch.cholesky_inverse(L)
+    del L
+    a = Kinv @ y64
+    if rule == "nlml":
+        loss = 0.5 * n * np.log(2.0 * np.pi) + half_logdet + 0.5 * (y64 @ a)
+
+        def g_rows(r0, r1):
+            return 0.5 * (Kinv[r0:r1] - a[r0:r1, None] * a[None, :])
+    else:  # crps on the LOO predictive
+        a_, d_ = a.clone().requires_grad_(), Kinv.diagonal().clone().requires_grad_()
+        loss = rules.crps_gaussian(y64 - a_ / d_, 1.0 / d_, y64)
+        a_bar, d_bar = torch.autograd.grad(loss, (a_, d_))
+        b = Kinv @ a_bar
+
+        def g_rows(r0, r1):
+            return -(b[r0:r1, None] * a[None, :]) - (Kinv[r0:r1] * d_bar) @ Kinv
+    sig_bar = torch.zeros((), dtype=torch.float64, device=x.device)
+    len_bar = torch.zeros(x.shape[1], dtype=torch.float64, device=x.device)
+    trace = torch.zeros((), dtype=torch.float64, device=x.device)
+    for r0 in range(0, n, F64_ROWS):
+        G = g_rows(r0, min(r0 + F64_ROWS, n))
+        trace += G.diagonal(offset=r0).sum()
+        diffs = f64_sqdist(xs[r0:r0 + F64_ROWS], xs)
+        C = G * (sig * torch.exp(-0.5 * sum(diffs)))
+        sig_bar += C.sum()
+        len_bar += torch.stack([(C * dk).sum() for dk in diffs])
+    del Kinv
+    return float(loss.detach()), {"log_signal_sq": sig_bar, "log_length": len_bar,
+                         "log_noise_sq": noise * trace}
+
+
+def f64_predictive(x, y, xt, p):
+    """The noise-inclusive predictive's mean and variances at xt, in float64
+    through the float64 factor."""
+    xs, sig, noise, L = f64_factor(x, p)
+    xts = xt.to(torch.float64) * torch.exp(-p.log_length.to(torch.float64))
+    ks = sig * torch.exp(-0.5 * sum(f64_sqdist(xs, xts)))  # [n, t]
+    mean = ks.T @ torch.cholesky_solve(y.to(torch.float64)[:, None], L)[:, 0]
+    V = torch.linalg.solve_triangular(L, ks, upper=False)
+    return mean, noise + sig - torch.sum(V * V, dim=0)
+
+
+def phase_large_n(dev):
+    vg = bench_ceiling.value_and_grad
+    # 1. Small n, the fused cores on CUDA against the CPU at the same parameters.
+    for n, block in SMALL_LARGE:
+        x, y, _, _ = large_n.make_data(n, LARGE_D, 0)
+        p_cpu = init_unit_params(LARGE_D, isotropic=False)
+        p_gpu = init_unit_params(LARGE_D, isotropic=False, device=dev)
+        worst = {"loss": 0.0, "grad": 0.0}
+        with fused_from(1):
+            for rule in LARGE_RULES:
+                loss = make_objective(rule, model="exact", block=block)
+                lg, gg = vg(loss, p_gpu, x.to(dev), y.to(dev))
+                lc, gc = vg(loss, p_cpu, x, y)
+                worst["loss"] = max(worst["loss"], abs(float(lg) - float(lc)) / abs(float(lc)))
+                worst["grad"] = max(worst["grad"], grad_rel(gg, gc))
+        log(f"[large_n] n = {n}, block {block}, fused {'/'.join(LARGE_RULES)}: CPU vs CUDA loss "
+            f"rel {worst['loss']:.3g} (tol {LOSS_RTOL}), grad rel {worst['grad']:.3g} (tol "
+            f"{GRAD_RTOL})")
+        assert worst["loss"] <= LOSS_RTOL and worst["grad"] <= GRAD_RTOL, (n, worst)
+
+    # 2. Full size: the large_n driver's data, unit parameters.
+    n, n2 = LARGE_N, 4.0 * LARGE_N * LARGE_N
+    x, y, xt, yt = (t.to(dev) for t in large_n.make_data(n, LARGE_D, LARGE_TEST))
+    p0 = init_unit_params(LARGE_D, isotropic=False, device=dev)
+    block = auto_block(n, device=dev)
+    log(f"[large_n] n = {n}, d = {LARGE_D}, {LARGE_TEST} test points; auto_block {block}")
+    for rule in ("crps", "nlml"):
+        loss = make_objective(rule, model="exact")
+        with fused_from(n + 1):  # the dense path: K, the Cholesky and K^-1 materialized
+            (vd, gd), peak_d = peak_of(lambda: vg(loss, p0, x, y))
+        (vf, gf), peak_f = peak_of(lambda: vg(loss, p0, x, y))
+        rel, g_rel = abs(float(vf) - float(vd)) / abs(float(vd)), grad_rel(gf, gd)
+        log(f"[large_n] {rule} step 0: fused {float(vf):.7g} vs dense {float(vd):.7g}, loss rel "
+            f"{rel:.3g} (tol {LARGE_LOSS_RTOL}), grad rel {g_rel:.3g} (tol {LARGE_GRAD_RTOL}); "
+            f"peak memory of the step, n^2 * 4 B: fused {peak_f / n2:.3f}, dense {peak_d / n2:.3f}")
+        torch.cuda.empty_cache()
+        v64, g64 = f64_step0(rule, x, y, p0)
+        near = {k: (abs(float(v) - v64) / abs(v64),
+                    {f: grad_rel({f: g[f]}, {f: g64[f]}) for f in g64})
+                for k, v, g in (("fused", vf, gf), ("dense", vd, gd))}
+        log(f"[large_n] {rule} step 0 against float64 (loss {v64:.10g}): " + "; ".join(
+            f"{k} loss rel {lr_:.3g}, grad rel by leaf "
+            + ", ".join(f"{f} {e:.3g}" for f, e in ge.items()) for k, (lr_, ge) in near.items())
+            + f" (tol {LARGE_LOSS_RTOL}, {F64_GRAD_RTOL} for fused)")
+        assert rel <= LARGE_LOSS_RTOL and g_rel <= LARGE_GRAD_RTOL, (rule, rel, g_rel)
+        lr_, ge = near["fused"]
+        assert lr_ <= LARGE_LOSS_RTOL and all(e <= F64_GRAD_RTOL[f] for f, e in ge.items()), \
+            (rule, lr_, ge)
+        if rule == "crps":
+            assert peak_f <= PEAK_LIMIT_N2 * n2, (peak_f / n2, PEAK_LIMIT_N2)
+        torch.cuda.empty_cache()
+    # The Cholesky factor of K_hat: the in-place pipeline's and cuSOLVER's
+    # potrf (what the dense path uses), against float64.
+    with torch.no_grad():
+        L64 = f64_factor(x, p0)[3]
+        lp = (p0.log_signal_sq, p0.log_length, p0.log_noise_sq, x)
+        e_ip = rel_max(potri_inplace.ard_gram_chol_inplace(*lp, block)[0], L64)
+        e_cs = rel_max(linalg.chol_factor(potri_inplace.khat_full(*lp)), L64)
+        del L64
+        torch.cuda.empty_cache()
+    log(f"[large_n] Cholesky factor of K_hat at step 0 against float64, relative to the largest "
+        f"entry: in-place (block {block}) {e_ip:.3g}, cuSOLVER potrf {e_cs:.3g} (tol "
+        f"{F64_FACTOR_RTOL} for in-place)")
+    assert e_ip <= F64_FACTOR_RTOL, (e_ip, e_cs)
+
+    # The counted run: 2 GD steps and the large-n evaluation per rule.
+    gram_cuda.reset_launches()
+    fits, walls, preds = {}, {}, {}
+    for rule in LARGE_RULES:
+        sched = large_n.schedule_for(rule, n, LARGE_STEPS)
+        loss = make_objective(rule, model="exact")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fits[rule] = fit_gd(loss, p0, x, y, LARGE_STEPS, sched.lr)
+        torch.cuda.synchronize()
+        walls[rule] = (time.perf_counter() - t0) / LARGE_STEPS
+        preds[rule] = exact_mod.exact_predictive_diag_large(x, y, xt, fits[rule].params,
+                                                            chunk=LARGE_TEST)
+    torch.cuda.synchronize()
+    launches = dict(gram_cuda.LAUNCHES)
+    log(f"[large_n] {len(LARGE_RULES)} rules x {LARGE_STEPS} steps + evaluation, n = {n}: "
+        f"kernel launches {launches}")
+    for k, v in launches.items():
+        assert v > 0, f"kernel {k} was not launched on the large_n path"
+    for rule in LARGE_RULES:
+        hist = fits[rule].loss_history.cpu()
+        assert torch.isfinite(hist).all() and int(fits[rule].stall_iters) == 0, (rule, hist)
+        vals = {k: float(v) for k, v in evaluate_predictive(
+            preds[rule].mean, preds[rule].cov, yt, y)._asdict().items()}
+        assert all(np.isfinite(v) for v in vals.values()), (rule, vals)
+        log(f"[large_n-eval] {rule}: loss {float(hist[0]):.6f} -> {float(hist[-1]):.6f}; "
+            + ", ".join(f"{k} {v:.5f}" for k, v in vals.items()))
+    # The crps fit's predictive against the dense one and a float64 solve.
+    p = fits["crps"].params
+    with torch.no_grad():
+        sig, ll = p.log_signal_sq, p.log_length
+        want = exact_mod.exact_predictive(gram(xt, x, sig, ll), gram(x, x, sig, ll),
+                                          gram(xt, xt, sig, ll), y, p.noise_sq)
+        dense = (want.mean, torch.diagonal(want.cov).clone())
+        del want
+        torch.cuda.empty_cache()
+        f64 = f64_predictive(x, y, xt, p)
+        torch.cuda.empty_cache()
+
+    def gaps(got, ref):
+        return tuple(rel_max(g, r) for g, r in zip(got, ref))
+
+    large = (preds["crps"].mean, preds["crps"].cov)
+    e = {"large-n vs dense": gaps(large, dense), "large-n vs float64": gaps(large, f64),
+         "dense vs float64": gaps(dense, f64)}
+    log("[large_n-eval] crps fit's predictive, relative to the largest entry: "
+        + "; ".join(f"{k} mean {m:.3g}, variance {v:.3g}" for k, (m, v) in e.items())
+        + f" (tol {LARGE_EVAL_RTOL} for large-n)")
+    for k in ("large-n vs dense", "large-n vs float64"):
+        assert max(e[k]) <= LARGE_EVAL_RTOL, (k, e[k])
+
+    # 3. Time, device time by kind, FLOP rate, host syncs and memory per rule.
+    for rule in LARGE_RULES:
+        loss = make_objective(rule, model="exact")
+        m = bench_ceiling.measure_step(loss, p0, x, y)
+        flop = bench_ceiling.step_flop(rule, n)
+        kinds = ", ".join(f"{k} {v * 1e3:.1f}" for k, v in m["busy_by_kind"].items())
+        line = (f"[large_n-time] {rule}: wall per GD step {walls[rule]:.4f} s; device busy "
+                f"{m['busy_s']:.4f} s of a profiled value-and-grad (ms by kind: {kinds}), idle "
+                f"share {m['idle_share']:.4f}; {flop / walls[rule] / 1e12:.2f} TFLOP/s "
+                f"({flop:.3g} FLOP); peak memory {m['peak_bytes'] / n2:.3f} n^2 * 4 B")
+        if rule in ("crps", "nlml"):
+            leaves = {f: t.clone().requires_grad_() for f, t in p0.leaves().items()}
+            fwd_s, fwd_kinds, _, _ = bench_ceiling.device_profile(
+                lambda: loss(p0.replace(**leaves), x, y))
+            line += ("; forward alone busy " f"{fwd_s:.4f} s (ms by kind: "
+                     + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in fwd_kinds.items()) + ")")
+        if rule == "crps":
+            sched = large_n.schedule_for(rule, n, 1)
+            syncs = [w for w in host_syncs(lambda: fit_gd(loss, p0, x, y, 1, sched.lr))
+                     if "set_sync_debug_mode" not in w]
+            line += f"; host syncs in one GD step: {len(syncs)} {syncs}"
+            assert not syncs, syncs
+            assert m["peak_bytes"] <= PEAK_LIMIT_N2 * n2, m["peak_bytes"] / n2
+        log(line)
+    _, _, top, _ = bench_ceiling.device_profile(
+        lambda: vg(make_objective("crps", model="exact"), p0, x, y))
+    log("[large_n-time] crps value-and-grad, largest device kernels (ms): "
+        + "; ".join(f"{name[:90]} {sec * 1e3:.2f}" for name, sec in top[:10]))
+
+    # 4. The large_n experiment driver at a cut size.
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = large_n.main(DRIVER_LARGE + ["--device", str(dev)])
+    for rule, rec in res.items():
+        assert all(np.isfinite(rec[k]) for k in ("loss_first", "loss_last", *METRICS)), rec
+    log(f"[large_n-driver] {' '.join(DRIVER_LARGE)}: {time.perf_counter() - t0:.2f} s; "
+        + "; ".join(f"{r} s_per_iter_steady {rec['s_per_iter_steady']:.4f}, test crps "
+                    f"{rec['crps']:.5f}" for r, rec in res.items()))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs a CUDA card")
@@ -484,6 +851,7 @@ def main():
     phase_pool(dev)
     launches["exact"] = phase_exact(dev)
     phase_drivers(dev)
+    launches["large_n"] = phase_large_n(dev)
     kernels = []
     for name, key in KERNELS:
         on_path = times[(name, *TIMED_SHAPES[0])]
@@ -495,7 +863,8 @@ def main():
                         "plain_ms": on_path["plain_ms"], "bound_ms": on_path["bound_ms"],
                         "bound_by": on_path["bound_by"], "library_ms": None,
                         "shapes": {"x".join(map(str, s)): times[(name, *s)]
-                                   for s in TIMED_SHAPES}})
+                                   for s in TIMED_SHAPES + FWD_SHAPES
+                                   if (name, *s) in times}})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,11 @@ in the repository unchanged). Module names mirror ``gpscore/``:
 
 - ``gpscore_torch.ops``      — Gram construction (the ARD Gram forward and
                                backward are hand-written CUDA C++ kernels on a
-                               CUDA tensor), Cholesky-based linear algebra.
-- ``gpscore_torch.models``   — the FITC posterior (Woodbury form).
+                               CUDA tensor), Cholesky-based linear algebra,
+                               the in-place K_hat^-1 pipeline and the fused
+                               large-n LOO/k-fold/NLML cores.
+- ``gpscore_torch.models``   — the exact GP and the FITC posterior (Woodbury
+                               form).
 - ``gpscore_torch.scoring``  — CRPS, log score, energy score, k-fold CRPS,
                                interval score.
 - ``gpscore_torch.fit``      — objectives, full-batch gradient descent,

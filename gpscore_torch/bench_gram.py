@@ -77,7 +77,9 @@ def device_ms(fn, reps=50, warmup=5, floor_ms=0.0):
         busy = sum(e.time_range.elapsed_us() for e in dev) / reps / 1e3
         if len(dev) >= reps and busy >= floor_ms:
             return busy, len(dev) / reps
-    raise RuntimeError("three profiled windows lost device events")
+    raise RuntimeError(f"three profiled windows lost device events (the last: {len(dev)} "
+                       f"events for {reps} calls, {busy:.5f} ms a call against a floor of "
+                       f"{floor_ms:.5f} ms)")
 
 
 def kernel_inputs(n, m, d, dev, seed, square=False):

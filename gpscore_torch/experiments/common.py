@@ -54,6 +54,12 @@ def resolve_device(name) -> torch.device:
     return device
 
 
+def synchronize(device) -> None:
+    """Wait for ``device``'s work (a no-op on the CPU): the end of a timed region."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def replicate_generator(seed: int, j: int, *stream: int, device="cpu") -> torch.Generator:
     """A generator on ``device`` seeded from (seed, j, *stream)."""
     state = np.random.SeedSequence((seed, j, *stream)).generate_state(1, np.uint64)[0]

@@ -8,8 +8,9 @@ rules (`kin40k-FULL-compare.py:226-233, 321-324`).
 
     python -m gpscore_torch.experiments.kin40k_full [--replicates 30] [--device cuda]
 
-The exact GP at --n-train >= 8192 takes the JAX package's fused large-n
-cores, which are not ported yet: the objectives raise there.
+At --n-train >= 8192 the exact objectives take the fused large-n cores
+(gpscore_torch/ops/loo_fused.py) for crps, logs and nlml; dss and es raise
+there, their fold-streamed cores not being ported yet.
 """
 
 import argparse

@@ -16,18 +16,22 @@ Rules:
 - ``kc``    sum of per-fold CRPS on block-conditional diagonals
 - ``interval`` mean interval score on the LOO predictive
 
-The exact GP (``model="exact"``) runs the dense path: K_ff = gram(x, x) through
-the Gram kernel, then one Cholesky and the closed-form solve cores of
-:mod:`gpscore_torch.ops.linalg`. At n >= ``_FUSED_LOO_MIN_N`` the JAX package
-switches to its fused large-n cores, which are not ported yet: the exact
-objectives raise ``NotImplementedError`` there rather than run a path the
-reference does not take.
+The exact GP (``model="exact"``) runs the dense path below
+``_FUSED_LOO_MIN_N``: K_ff = gram(x, x) through the Gram kernel, then one
+Cholesky and the closed-form solve cores of :mod:`gpscore_torch.ops.linalg`.
+From ``_FUSED_LOO_MIN_N`` on, as in the JAX package, crps, logs and interval
+go through the fused LOO core and nlml through the fused NLML core
+(:mod:`gpscore_torch.ops.loo_fused`: one n x n buffer, the gradient streamed
+through the Gram backward kernels). The fold rules dss, es and kc take the
+JAX package's fold-streamed cores there, which are not ported yet: they
+raise ``NotImplementedError`` rather than run a path the reference does not
+take.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -39,9 +43,19 @@ from gpscore_torch.scoring import rules
 
 OBJECTIVE_RULES = ("crps", "logs", "nlml", "dss", "es", "kc", "interval")
 
-# From this n on, the JAX package's exact objectives take the fused large-n
-# cores (`gpscore/fit/objectives.py:40`), which the port does not have yet.
+# From this n on, the exact objectives take the fused large-n cores
+# (`gpscore/fit/objectives.py:40`). Read at call time: tests lower it.
 _FUSED_LOO_MIN_N = 8192
+
+
+def _fused_params(params, kernel: str, d: int):
+    """Parameters as the fused ARD cores take them (`gpscore/fit/objectives.py:47-62`):
+    the isotropic rbf with log squared length b is ARD with log length b/2 in
+    each of the d dimensions; ``expand``'s backward sums the per-dimension
+    length gradient back into the scalar."""
+    if kernel == "ard":
+        return params
+    return params.replace(log_length=(0.5 * params.log_length).expand(d))
 
 
 def make_objective(
@@ -52,8 +66,12 @@ def make_objective(
     num_sim: int = 300,
     es_beta: float = 1.0,
     interval_alpha: float = 0.05,
+    block: Optional[int] = None,
 ) -> Callable:
     """Build ``loss(params, x, y, generator=None, eps=None) -> scalar``.
+
+    ``block`` is the fused cores' panel width at large n (None: their
+    ``auto_block``).
 
     For ``es``, ``eps`` fixes the standard normals of the two sample sets;
     otherwise they are drawn from ``generator``. FITC:
@@ -68,16 +86,22 @@ def make_objective(
         raise ValueError(f"unknown model {model!r}")
     exact = model == "exact"
 
+    def _fused(x):
+        return exact and x.shape[0] >= _FUSED_LOO_MIN_N
+
     def _k_ff(params, x):
-        if x.shape[0] >= _FUSED_LOO_MIN_N:
+        if _fused(x):
             raise NotImplementedError(
-                f"the exact GP at n = {x.shape[0]} >= {_FUSED_LOO_MIN_N} takes the JAX "
-                "package's fused large-n cores, which are not ported yet (ROADMAP.md, "
-                "queue 1, item 9)"
+                f"the exact {rule} objective at n = {x.shape[0]} >= {_FUSED_LOO_MIN_N} takes "
+                "the JAX package's fold-streamed cores (gpscore/ops/fold_stream.py), which "
+                "are not ported yet (ROADMAP.md, queue 1, item 3: the fold-streamed slice)"
             )
         return gram(x, x, params.log_signal_sq, params.log_length, kind=kernel)
 
     def _loo(params, x, y):
+        if _fused(x):
+            return exact_mod.loo_exact_fused(x, y, _fused_params(params, kernel, x.shape[1]),
+                                             block)
         if exact:
             return exact_mod.loo_exact(_k_ff(params, x), y, params.noise_sq)
         return fitc_mod.loo_fitc(
@@ -110,6 +134,9 @@ def make_objective(
     elif rule == "nlml":
 
         def loss(params, x, y, generator=None, eps=None):
+            if _fused(x):
+                return exact_mod.nlml_exact_fused(
+                    x, y, _fused_params(params, kernel, x.shape[1]), block)
             if exact:
                 return exact_mod.nlml_exact(_k_ff(params, x), y, params.noise_sq)
             return fitc_mod.nlml_fitc(x, y, params, kind=kernel)

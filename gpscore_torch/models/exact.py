@@ -9,9 +9,11 @@ of ``vmap``. The fold blocks are factored with
 on the host every step to find out), so ``fit_gd``'s masked update can skip a
 failed step.
 
-The fused large-n forms (``loo_exact_fused``, ``kfold_stats_fused``,
-``kfold_es_fused``, ``nlml_exact_fused``, ``exact_predictive_diag_large``) are
-not ported yet.
+The fused large-n forms ``loo_exact_fused``, ``nlml_exact_fused``,
+``kfold_exact_precision_fused`` and ``exact_predictive_diag_large`` take x and
+the parameters instead of K_ff: they go through the cores of
+:mod:`gpscore_torch.ops.loo_fused`, whose peak is one n x n buffer. The
+fold-streamed ``kfold_stats_fused`` and ``kfold_es_fused`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from typing import NamedTuple
 
 import torch
 
-from gpscore_torch.ops import linalg
+from gpscore_torch.ops import gram_cuda, linalg, loo_fused, potri_inplace
 from gpscore_torch.utils.precision import matmul
 
 
@@ -66,6 +68,56 @@ def exact_predictive(k_star_f, k_ff, k_ss, y, noise_sq, *, L=None) -> Gaussian:
     return Gaussian(mean, cov)
 
 
+def exact_predictive_diag_large(x, y, x_test, params, *, block=None,
+                                chunk: int = 2048, storage=None, refine: int = 0) -> Gaussian:
+    """Diagonal of the noise-inclusive exact predictive at large n, ARD
+    kernel (`gpscore/models/exact.py:66-203`): the mean and variances of
+    :func:`exact_predictive`, with K_ff never formed. The factor L of K_hat
+    comes from the in-place pipeline's first stage
+    (:func:`~gpscore_torch.ops.potri_inplace.ard_gram_chol_inplace`); the
+    test points stream in ``chunk`` columns, each a Gram kernel launch
+    K(x, x*) [n, chunk] and a triangular solve V = L^-1 K(x, x*), so the
+    t x t covariance never exists:
+
+        mean* = K(x, x*)^T K_hat^-1 y,   var* = noise + signal - sum_i V_i^2
+
+    The JAX function multiplies K(x, x*) by the explicit inverse instead,
+    because XLA's triangular solve with an [n, chunk] right-hand side held
+    more temporaries than its chip had (its docstring); here the solve is
+    one cuBLAS trsm with O(n chunk) memory. The factor also keeps the
+    variance accurate: k*^T (K_hat^-1 k*) off the explicit fp32 inverse
+    cancels, and at n = 30,720 with crps-fitted parameters it was 9.7% of
+    the largest variance off the dense form on an NVIDIA H100 80GB HBM3
+    (700 W) (1.4e-3 at n = 8192 against an fp64 solve on the CPU, where the
+    factor's sum of squares is 5e-7).
+
+    ``block`` is the Cholesky's panel width (None: ``auto_block``, as the
+    fused cores take it). Peak ~n^2 + O(n chunk). Not differentiable. Only
+    fp32 storage is ported:
+    ``storage`` and ``refine`` (the 2-byte-stored inverse and its refinement)
+    raise ``NotImplementedError``."""
+    if refine:
+        raise NotImplementedError(
+            "refine serves the 2-byte-stored inverse, which is not ported (ROADMAP.md, "
+            "queue 1, item 1)")
+    potri_inplace.check_storage(storage)
+    with torch.no_grad():
+        L, _ = potri_inplace.ard_gram_chol_inplace(
+            params.log_signal_sq, params.log_length, params.log_noise_sq, x,
+            loo_fused._resolve_block(x, block))
+        alpha = linalg.chol_solve_from_factor(L, y.reshape(-1, 1))[:, 0]
+        xs = gram_cuda.scale_inputs(x, params.log_length)
+        sig = params.signal_sq
+        means, variances = [], []
+        for c0 in range(0, x_test.shape[0], chunk):
+            xt = gram_cuda.scale_inputs(x_test[c0:c0 + chunk], params.log_length)
+            ks = gram_cuda.gram_fwd(xs, xt, sig)  # [n, chunk]
+            means.append(matmul(alpha[None, :], ks)[0])
+            V = linalg.tri_solve(L, ks)
+            variances.append(params.noise_sq + sig - torch.sum(V * V, dim=0))
+        return Gaussian(torch.cat(means), torch.cat(variances))
+
+
 def loo_exact(k_ff, y, noise_sq) -> Gaussian:
     """Leave-one-out predictive via the Rasmussen–Williams identities
     (reference `SIMPLE-DATA FULL-comapre.py:207-211`):
@@ -79,6 +131,18 @@ def loo_exact(k_ff, y, noise_sq) -> Gaussian:
     n = k_ff.shape[0]
     y = y.reshape(n)
     kinv_y, kinv_diag = linalg.loo_solve_diag(_k_hat(k_ff, noise_sq), y)
+    return Gaussian(y - kinv_y / kinv_diag, 1.0 / kinv_diag)
+
+
+def loo_exact_fused(x, y, params, block=None) -> Gaussian:
+    """:func:`loo_exact` through the fused ARD-Gram + solve core
+    (:func:`~gpscore_torch.ops.loo_fused.ard_loo_solve_diag`): K_ff never
+    persists, the forward inverts in one n x n buffer and the backward streams
+    the kernel contraction (`gpscore/models/exact.py:227-242`). ``block``:
+    the core's panel width (None: ``auto_block``)."""
+    y = y.reshape(x.shape[0])
+    kinv_y, kinv_diag = loo_fused.ard_loo_solve_diag(
+        params.log_signal_sq, params.log_length, params.log_noise_sq, x, y, block)
     return Gaussian(y - kinv_y / kinv_diag, 1.0 / kinv_diag)
 
 
@@ -120,6 +184,30 @@ def kfold_exact_precision(k_ff, y, noise_sq, fold_k: int) -> PrecisionGaussian:
     La = linalg.chol_factor(A)
     mean = y_b - linalg.chol_solve_from_factor(La, kinv_y_b)[..., 0]
     return PrecisionGaussian(mean, La)
+
+
+def kfold_exact_precision_fused(x, y, params, fold_k: int, block=None) -> PrecisionGaussian:
+    """:func:`kfold_exact_precision` through the fused ARD-Gram + k-fold
+    solve core (:func:`~gpscore_torch.ops.loo_fused.ard_kfold_solve_blocks`,
+    `gpscore/models/exact.py:304-330`)."""
+    n = x.shape[0]
+    y = y.reshape(n)
+    a, A = loo_fused.ard_kfold_solve_blocks(
+        params.log_signal_sq, params.log_length, params.log_noise_sq, x, y, fold_k, block)
+    nb = n // fold_k
+    La = linalg.chol_factor(A)
+    mean = y.reshape(fold_k, nb) - linalg.chol_solve_from_factor(
+        La, a.reshape(fold_k, nb, 1))[..., 0]
+    return PrecisionGaussian(mean, La)
+
+
+def nlml_exact_fused(x, y, params, block=None):
+    """:func:`nlml_exact` through the fused core
+    (:func:`~gpscore_torch.ops.loo_fused.ard_nlml`): the factorization runs in
+    one n x n buffer and the gradient reads K_hat_bar = (K^-1 - a a^T) / 2 off
+    K^-1's rows, with no second n^3 GEMM (`gpscore/models/exact.py:389-401`)."""
+    return loo_fused.ard_nlml(params.log_signal_sq, params.log_length, params.log_noise_sq,
+                              x, y.reshape(x.shape[0]), block)
 
 
 def nlml_exact(k_ff, y, noise_sq):

@@ -409,9 +409,13 @@ def gram_bwd(xs, xps, sig, g):
     return gram_bwd_cuda(xs, xps, sig, g)
 
 
+def scale_inputs(x, log_length):
+    """x / l, row-major: the inputs the kernels take."""
+    return (x * torch.exp(-log_length.reshape(1, -1))).contiguous()
+
+
 def _scale_inputs(x, xp, log_signal_sq, log_length):
-    inv_len = torch.exp(-log_length.reshape(1, -1))
-    return (x * inv_len).contiguous(), (xp * inv_len).contiguous(), torch.exp(log_signal_sq)
+    return scale_inputs(x, log_length), scale_inputs(xp, log_length), torch.exp(log_signal_sq)
 
 
 class ArdGram(torch.autograd.Function):

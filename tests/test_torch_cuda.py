@@ -272,3 +272,82 @@ def test_driver_device_cuda_without_cuda_raises(dev, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         kin40k_full.main(["--replicates", "1", "--device", "cuda"])
+
+
+# ---- the exact GP at large n ----------------------------------------------------
+
+
+def _large_n_problem(dev, n=4096, d=8):
+    from gpscore_torch.experiments import large_n
+    from gpscore_torch.utils.params import init_unit_params
+
+    x, y, _, _ = large_n.make_data(n, d, 0)
+    p = init_unit_params(d, isotropic=False, device=dev)
+    return x.to(dev), y.to(dev), p
+
+
+@pytest.mark.parametrize("rule", ["crps", "logs", "interval", "nlml"])
+def test_fused_objectives_on_cuda_match_the_dense_path_at_n_4096(dev, monkeypatch, rule):
+    """The fused objective (block 1024: four panels) against the dense path on
+    the card, n = 4096, d = 8: loss rel 1e-4, gradient within 1e-3 of each
+    leaf's largest entry. A fused step launches gram_fwd once and each
+    backward kernel once a row block."""
+    from gpscore_torch.experiments.bench_ceiling import value_and_grad
+    from gpscore_torch.fit import objectives
+
+    x, y, p = _large_n_problem(dev)
+    loss = make_objective(rule, model="exact", block=1024)
+    want_v, want_g = value_and_grad(loss, p, x, y)
+    monkeypatch.setattr(objectives, "_FUSED_LOO_MIN_N", 4096)
+    gram_cuda.reset_launches()
+    got_v, got_g = value_and_grad(loss, p, x, y)
+    assert gram_cuda.LAUNCHES == {"fwd": 1, "bwd_rows": 4, "bwd_cols": 4}
+    assert abs(float(got_v) - float(want_v)) <= 1e-4 * abs(float(want_v))
+    for f, want in want_g.items():
+        assert (got_g[f] - want).abs().max() <= 1e-3 * want.abs().max(), f
+
+
+def test_fused_kfold_core_on_cuda_matches_the_dense_core(dev):
+    """ArdKfoldSolveBlocks against KfoldSolveBlocks on the dense K_hat, n = 4096:
+    the outputs (1e-4 of the largest entry) and the gradient of a random
+    linear functional of both (1e-3 of each leaf's largest entry)."""
+    from gpscore_torch.ops import loo_fused
+
+    x, y, p = _large_n_problem(dev)
+    rng = np.random.default_rng(5)
+    c1 = torch.tensor(rng.standard_normal(4096).astype(np.float32), device=dev)
+    c2 = torch.tensor(rng.standard_normal((4, 1024, 1024)).astype(np.float32), device=dev)
+    out = {}
+    for fused in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (p.log_signal_sq, p.log_length,
+                                                       p.log_noise_sq)]
+        if fused:
+            a, A = loo_fused.ard_kfold_solve_blocks(*leaves, x, y, 4, 1024)
+        else:
+            K = gram(x, x, leaves[0], leaves[1]) + torch.exp(leaves[2]) * torch.eye(4096,
+                                                                                   device=dev)
+            a, A = linalg.kfold_solve_blocks(K, y, 4)
+        value = torch.sum(c1 * a) + torch.sum(c2 * A)
+        out[fused] = [a.detach(), A.detach(), *torch.autograd.grad(value, leaves)]
+    for i, (g, w) in enumerate(zip(out[True], out[False])):
+        assert (g - w).abs().max() <= (1e-4 if i < 2 else 1e-3) * w.abs().max(), i
+
+
+def test_predictive_diag_large_on_cuda_matches_the_dense_predictive(dev):
+    """exact_predictive_diag_large (block 1024, chunk 512 over 1000 test
+    points) against exact_predictive's diagonal, n = 4096: within 1e-4 of the
+    largest mean and variance (both solve with a Cholesky factor: 3e-7 and
+    1e-6 of the variance against an fp64 solve on the CPU)."""
+    from gpscore_torch.experiments import large_n
+    from gpscore_torch.models import exact
+
+    x, y, p = _large_n_problem(dev)
+    _, _, xt, _ = large_n.make_data(4096, 8, 1000)
+    xt = xt.to(dev)
+    got = exact.exact_predictive_diag_large(x, y, xt, p, block=1024, chunk=512)
+    sig, ll = p.log_signal_sq, p.log_length
+    want = exact.exact_predictive(gram(xt, x, sig, ll), gram(x, x, sig, ll), gram(xt, xt, sig, ll),
+                                  y, p.noise_sq)
+    assert (got.mean - want.mean).abs().max() <= 1e-4 * want.mean.abs().max()
+    var = torch.diagonal(want.cov)
+    assert (got.cov - var).abs().max() <= 1e-4 * var.abs().max()

@@ -125,7 +125,10 @@ def test_precision_is_ieee_fp32_and_reduced_modes_raise():
 
 
 def test_import_pulls_in_neither_jax_nor_gpscore_nor_triton():
-    code = ("import sys, gpscore_torch; "
+    # The package, and the modules that `import gpscore_torch` does not load.
+    code = ("import sys, gpscore_torch, gpscore_torch.ops.potri_inplace, "
+            "gpscore_torch.ops.loo_fused, gpscore_torch.experiments.large_n, "
+            "gpscore_torch.experiments.bench_ceiling, gpscore_torch.bench_gram; "
             "bad = [m for m in ('jax', 'gpscore', 'triton') if m in sys.modules]; "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

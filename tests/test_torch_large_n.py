@@ -1,0 +1,264 @@
+"""The port's large-n exact GP against gpscore's: the in-place K_hat^-1
+pipeline, the three fused cores (values and gradients), the four fused
+objectives, the chunked large-n predictive, auto_block, and the large_n
+and bench_ceiling experiments.
+
+The JAX side runs as its own tests run it on the CPU, jitted: its fused
+cores with ``inplace=True`` (the JAX Gram is the jnp form, no Pallas
+kernel). It pads n up to a multiple of the block and masks the pad; the port
+runs a ragged last panel, and the two are compared on the real [:n, :n]
+block.
+
+Tolerances: the inverse rtol 2e-4, atol 1e-5 (fp32, panel GEMMs in another
+order); half log-det rtol 1e-5; values and gradients of the cores and the
+objectives rtol 2e-4, atol 1e-5, as the JAX package's own fused-core tests
+(`tests/test_potri_inplace.py`); the predictive rtol 1e-4, atol 1e-5.
+"""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import gpscore.fit.objectives as jobjectives
+import gpscore.ops.loo_fused as jloo
+from gpscore.fit import make_objective as jax_make_objective
+from gpscore.models.exact import exact_predictive_diag_large as jax_predictive_large
+from gpscore.ops.potri_inplace import (ard_gram_chol_inplace as jax_chol_inplace,
+                                       ard_gram_inverse_inplace as jax_inverse_inplace,
+                                       pad_rows)
+from gpscore_torch.experiments import bench_ceiling, large_n
+from gpscore_torch.fit import fit_gd, make_objective
+from gpscore_torch.fit import objectives as tobjectives
+from gpscore_torch.models import exact as texact
+from gpscore_torch.ops import loo_fused as tloo
+from gpscore_torch.ops import potri_inplace as tpotri
+from torch_parity import close, jax_params, t, torch_params
+
+RTOL, ATOL = 2e-4, 1e-5
+SIZES = [(64, 16), (52, 16)]  # an exact multiple of the block, and a ragged last panel
+
+
+def _problem(seed, n, d=3):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    y = np.sin(x.sum(axis=1)).astype(np.float32)
+    p = {"log_signal_sq": np.float32(0.3),
+         "log_length": (0.3 * rng.standard_normal(d)).astype(np.float32),
+         "log_noise_sq": np.float32(-1.2), "inducing": None}
+    return x, y, p
+
+
+def _jax_args(p):
+    return [jnp.asarray(p[f]) for f in ("log_signal_sq", "log_length", "log_noise_sq")]
+
+
+def _torch_args(p, requires_grad=False):
+    return [torch.tensor(p[f], requires_grad=requires_grad)
+            for f in ("log_signal_sq", "log_length", "log_noise_sq")]
+
+
+def _padded(x, block):
+    return pad_rows(jnp.asarray(x), -(-x.shape[0] // block) * block)
+
+
+# ---- the in-place pipeline ----------------------------------------------------
+
+
+@pytest.mark.parametrize("n,block", SIZES)
+def test_inplace_inverse_and_half_logdet_match_jax(n, block):
+    x, _, p = _problem(1, n)
+    inverse = jax.jit(jax_inverse_inplace, static_argnums=(4, 5),
+                      static_argnames="return_half_logdet")
+    want, want_hld = inverse(*_jax_args(p), _padded(x, block), n, block,
+                             return_half_logdet=True)
+    got, hld = tpotri.ard_gram_inverse_inplace(*_torch_args(p), t(x), block,
+                                               return_half_logdet=True)
+    assert got.shape == (n, n)
+    close(got, np.asarray(want)[:n, :n], RTOL, ATOL)
+    close(hld, float(want_hld), 1e-5)
+    assert torch.equal(got, got.T)
+
+
+@pytest.mark.parametrize("n,block", SIZES)
+def test_inplace_cholesky_matches_jax(n, block):
+    x, _, p = _problem(2, n)
+    chol = jax.jit(jax_chol_inplace, static_argnums=(4, 5))
+    want, want_hld = chol(*_jax_args(p), _padded(x, block), n, block)
+    got, hld = tpotri.ard_gram_chol_inplace(*_torch_args(p), t(x), block)
+    close(got, np.asarray(want)[:n, :n], RTOL, ATOL)
+    assert torch.equal(got, got.tril())
+    close(hld, float(want_hld), 1e-5)
+
+
+def test_failed_leaf_factor_is_nan_and_does_not_raise():
+    """A matrix that is not SPD: the pipeline returns NaN, as chol_factor
+    does, and raises nothing."""
+    W = -torch.eye(10)
+    hld = tpotri.chol_inplace(W, 4)
+    tpotri.tri_inv_inplace(W, 4)
+    tpotri.lauum_inplace(W, 4)
+    assert torch.isnan(hld) and torch.isnan(W).all()
+
+
+def test_only_fp32_storage_is_ported():
+    x, y, p = _problem(3, 16)
+    with pytest.raises(NotImplementedError, match="queue 1, item 1"):
+        tpotri.ard_gram_inverse_inplace(*_torch_args(p), t(x), 8, storage=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="queue 1, item 1"):
+        texact.exact_predictive_diag_large(t(x), t(y), t(x), torch_params(p), refine=2)
+
+
+# ---- the fused cores ----------------------------------------------------------
+
+
+def _jax_core(core, x, block):
+    xj = jnp.asarray(x)
+    if core == "loo":
+        def f(s, ell, nu, y):
+            a, dg = jloo.ard_loo_solve_diag(s, ell, nu, xj, y, block, True)
+            return jnp.sum(jnp.sin(a) * dg) + jnp.sum(jnp.sqrt(dg))
+    elif core == "kfold":
+        def f(s, ell, nu, y):
+            a, A = jloo.ard_kfold_solve_blocks(s, ell, nu, xj, y, 4, block, True)
+            return jnp.sum(jnp.sin(a)) + jnp.sum(jnp.cos(A))
+    else:
+        def f(s, ell, nu, y):
+            return jloo.ard_nlml(s, ell, nu, xj, y, block, True)
+    return f
+
+
+def _torch_core(core, x, block):
+    xt = t(x)
+    if core == "loo":
+        def f(s, ell, nu, y):
+            a, dg = tloo.ard_loo_solve_diag(s, ell, nu, xt, y, block)
+            return torch.sum(torch.sin(a) * dg) + torch.sum(torch.sqrt(dg))
+    elif core == "kfold":
+        def f(s, ell, nu, y):
+            a, A = tloo.ard_kfold_solve_blocks(s, ell, nu, xt, y, 4, block)
+            return torch.sum(torch.sin(a)) + torch.sum(torch.cos(A))
+    else:
+        def f(s, ell, nu, y):
+            return tloo.ard_nlml(s, ell, nu, xt, y, block)
+    return f
+
+
+@pytest.mark.parametrize("n,block", SIZES)
+@pytest.mark.parametrize("core", ["loo", "kfold", "nlml"])
+def test_fused_core_values_and_gradients_match_jax(core, n, block):
+    """ArdLooSolveDiag, ArdKfoldSolveBlocks and ArdNlml through a scalar
+    function of their outputs: the value and the gradients to the three
+    log-parameters and y."""
+    x, y, p = _problem(4, n)
+    jargs = _jax_args(p) + [jnp.asarray(y)]
+    want, want_g = jax.jit(jax.value_and_grad(_jax_core(core, x, block),
+                                              argnums=(0, 1, 2, 3)))(*jargs)
+    targs = _torch_args(p, requires_grad=True) + [torch.tensor(y, requires_grad=True)]
+    got = _torch_core(core, x, block)(*targs)
+    for g, w in zip(torch.autograd.grad(got, targs), want_g):
+        close(g, w, RTOL, ATOL)
+    close(got, float(want), 1e-5)
+    if core == "nlml":  # the value alone: Cholesky and one solve, no inverse
+        with torch.no_grad():
+            close(_torch_core(core, x, block)(*targs), float(want), 1e-5)
+
+
+# ---- the fused objectives -----------------------------------------------------
+
+RULES = ["crps", "logs", "interval", "nlml"]
+
+
+@pytest.mark.parametrize("kernel", ["ard", "rbf"])
+@pytest.mark.parametrize("rule", RULES)
+def test_fused_objectives_match_jax(monkeypatch, rule, kernel):
+    """make_objective with the fused threshold at 1 on both sides (and the
+    JAX cores' in-place threshold); both at block 16 over a ragged n."""
+    n, d, block = 52, 3, 16
+    x, y, p = _problem(5, n, d)
+    if kernel == "rbf":
+        p["log_length"] = np.float32(0.4)
+    monkeypatch.setattr(jobjectives, "_FUSED_LOO_MIN_N", 1)
+    monkeypatch.setattr(jloo, "_INPLACE_MIN_N", 1)
+    monkeypatch.setattr(jloo, "auto_block", lambda n, storage_bytes=None: block)
+    monkeypatch.setattr(tobjectives, "_FUSED_LOO_MIN_N", 1)
+    jloss = jax_make_objective(rule, model="exact", kernel=kernel)
+    want, want_g = jax.jit(jax.value_and_grad(jloss))(jax_params(p), jnp.asarray(x),
+                                                      jnp.asarray(y), None)
+    tp = torch_params(p, requires_grad=True)
+    got = make_objective(rule, model="exact", kernel=kernel, block=block)(tp, t(x), t(y))
+    leaves = tp.leaves()
+    grads = torch.autograd.grad(got, list(leaves.values()))
+    close(got, float(want), 1e-5)
+    for f, g in zip(leaves, grads):
+        close(g, getattr(want_g, f), RTOL, ATOL)
+
+
+def test_fit_gd_through_the_fused_crps_matches_the_dense_one(monkeypatch):
+    """Five crps GD steps (lr 1): the fused core's losses and parameters
+    against the dense path's, rtol 1e-4."""
+    x, y, p = _problem(6, 48)
+    loss = make_objective("crps", model="exact", block=16)
+    dense = fit_gd(loss, torch_params(p), t(x), t(y), 5, 1.0)
+    monkeypatch.setattr(tobjectives, "_FUSED_LOO_MIN_N", 1)
+    fused = fit_gd(loss, torch_params(p), t(x), t(y), 5, 1.0)
+    close(fused.loss_history, dense.loss_history.numpy(), 1e-4)
+    for f, v in dense.params.leaves().items():
+        close(fused.params.leaves()[f], v.numpy(), 1e-4, 1e-6)
+
+
+# ---- evaluation, block size, drivers -------------------------------------------
+
+
+def test_predictive_diag_large_matches_jax():
+    n, nt = 52, 23
+    x, y, p = _problem(7, n)
+    xt = np.random.default_rng(8).standard_normal((nt, 3)).astype(np.float32)
+    predictive = jax.jit(jax_predictive_large, static_argnames=("block", "chunk"))
+    want = predictive(jnp.asarray(x), jnp.asarray(y), jnp.asarray(xt), jax_params(p),
+                      block=16, chunk=16)
+    got = texact.exact_predictive_diag_large(t(x), t(y), t(xt), torch_params(p), block=16,
+                                             chunk=16)
+    close(got.mean, want.mean, 1e-4, 1e-5)
+    close(got.cov, want.cov, 1e-4, 1e-5)
+
+
+def test_auto_block_matches_jax_at_a_fixed_budget():
+    """At the JAX package's budget (its _HBM_BYTES), fp32 storage; the CPU's
+    own budget is unbounded, so the widest divisor wins there."""
+    for n in (512, 1536, 2048, 8192, 30000, 30720, 57344, 61440, 62464, 65536):
+        assert tloo.auto_block(n, budget_bytes=jloo._HBM_BYTES) == jloo.auto_block(n, 4), n
+    assert tloo.auto_block(62464, device="cpu") == 1024
+    assert tloo.auto_block(30000) == 2048
+
+
+def test_large_n_driver_fits_saves_and_loads_on_the_cpu(tmp_path, monkeypatch, capsys):
+    """The large_n experiment at n = 128 with the fused threshold lowered, so the fits
+    run the fused cores: finite losses and metrics, and the saved parameters
+    load back to the same evaluation."""
+    monkeypatch.setattr(tobjectives, "_FUSED_LOO_MIN_N", 64)
+    prefix = str(tmp_path / "p")
+    common = ["--n", "128", "--n-test", "40", "--block", "48", "--eval-chunk", "16",
+              "--device", "cpu"]
+    res = large_n.main(common + ["--iters", "2", "--rules", "crps", "nlml",
+                                 "--save-params", prefix, "--out", str(tmp_path / "r.json")])
+    for rule in ("crps", "nlml"):
+        rec = res[rule]
+        assert rec["iters"] == 2 and rec["stall_iters"] == 0
+        assert all(math.isfinite(rec[k]) for k in ("loss_first", "loss_last", "fit_wall_s",
+                                                   "s_per_iter_steady", "crps", "mse"))
+    assert res["nlml"]["lr"] == pytest.approx(0.0005 * 500 / 128)
+    loaded = large_n.main(common + ["--rules", "crps", "nlml", "--load-params", prefix])
+    for rule in ("crps", "nlml"):
+        assert loaded[rule]["crps"] == pytest.approx(res[rule]["crps"], rel=1e-6)
+    assert "[nlml] {" in capsys.readouterr().out
+
+
+def test_bench_ceiling_runs_on_the_cpu(monkeypatch):
+    monkeypatch.setattr(tobjectives, "_FUSED_LOO_MIN_N", 64)
+    rec = bench_ceiling.main(["--n", "96", "--block", "32", "--repeats", "1", "--device", "cpu"])
+    assert math.isfinite(rec["loss"]) and rec["step_s"] > 0
+    assert rec["flop"] == 3.0 * 96 ** 3 and rec["peak_n2"] is None

@@ -81,12 +81,13 @@ def test_es_objective_draws_from_a_generator():
 
 
 def test_make_objective_refuses_what_is_not_ported():
-    """The exact GP at n >= 8192 takes the JAX package's fused large-n cores,
-    which are not ported: every exact objective raises there, before any
-    n x n work."""
+    """At n >= 8192 the exact fold rules take the JAX package's fold-streamed
+    cores, which are not ported: dss, es and kc raise there, before any
+    n x n work (crps, logs, interval and nlml take the fused cores,
+    tests/test_torch_large_n.py)."""
     x = torch.zeros((8192, 1))
-    for rule in OBJECTIVE_RULES:
-        with pytest.raises(NotImplementedError, match="large-n"):
+    for rule in ("dss", "es", "kc"):
+        with pytest.raises(NotImplementedError, match="fold-streamed"):
             make_objective(rule, model="exact")(torch_params(problem(m=1, d=1)[2]), x, x[:, 0])
     with pytest.raises(ValueError):
         make_objective("brier", model="fitc")
