@@ -59,14 +59,33 @@ Phases, none of whose failures is caught:
    device-busy time and idle share of a profiled step, its device time by
    kind of kernel, the achieved TFLOP/s, and for crps the host syncs of a
    step (none allowed) and the peak memory of a step (at most 1.5 n^2 * 4
-   bytes). Last, the large_n driver's main() at n = 8192, 2 iterations.
+   bytes). Last, the large_n experiment's main() at n = 8192, 2 iterations.
+   The crps and nlml steps also report their log-signal gradient's O(n)
+   closed form (closed_form_log_signal) beside the streamed one against float64.
+9. The fold rules at large n (the fold-streamed cores of
+   gpscore_torch/ops/fold_stream.py: dss, kc and es one fold at a time off
+   the in-place K_hat^-1, fold_k = 4). At n = 2048 and the ragged 2000 (block
+   512, the fused threshold lowered) the loss and gradient of dss, kc and es
+   (fixed normals) on CUDA against the CPU's. At n = 30,720 (the same data
+   and parameters as phase 8; es at fixed normals, 300 draws): the step-0
+   loss and gradient of each rule against the stacked composition
+   (kfold_exact_precision_fused and the rules) and against a float64 witness
+   (float64 K_hat^-1, the fold cotangents by float64 autograd of each fold's
+   score, contracted in row blocks), with the peak memory of both fp32 steps
+   (the fold-streamed one at most 1.5 n^2 * 4 bytes and under the stacked
+   one's); then, with the launch counters zeroed just before and read just
+   after, 2 fit_gd steps of each of dss, kc and es; per rule the wall time
+   per step, the device-busy time and idle share of a profiled step, its
+   device time by kind of kernel and the achieved TFLOP/s, and for dss the
+   host syncs of a step (none allowed). Then the large_n experiment's main() at
+   n = 8192, 2 iterations of dss, kc and es.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit;
 before it, one JSON line describes every kernel: ``ms``, ``plain_ms``,
 ``bound_ms`` and ``bound_by`` at the FITC path's 500x20x8 (``library_ms`` is
 null: no single PyTorch call computes the ARD Gram or either half of its
-VJP), ``launches`` summed over the FITC, exact and large-n paths (each path's
-count under ``launches_by_path``), and under ``shapes`` the per-call and device
+VJP), ``launches`` summed over the FITC, exact, large-n and large-n fold paths
+(each path's count under ``launches_by_path``), and under ``shapes`` the per-call and device
 times, the bound and the roofline share at every timed shape, with
 ``timed_by`` naming the source of the share's time (``torch.profiler``:
 ``device_ms``; ``cuda_events``: ``ms``, and no ``device_ms``). The last line is
@@ -92,10 +111,9 @@ from gpscore_torch.bench_gram import (cuda_ms, device_ms, kernel_inputs, kernel_
 from gpscore_torch.data import kin40k_fitc20_init, kin40k_replicate_split, load_kin40k
 from gpscore_torch.experiments import bench_ceiling, large_n
 from gpscore_torch.fit import SCHEDULES, eval_predictive_metrics, fit_gd, make_objective
-from gpscore_torch.fit import objectives
 from gpscore_torch.metrics import evaluate_predictive
 from gpscore_torch.models import exact as exact_mod
-from gpscore_torch.ops import _build, gram_cuda, linalg, potri_inplace
+from gpscore_torch.ops import _build, gram_cuda, linalg, loo_fused, potri_inplace
 from gpscore_torch.ops.kernels import gram
 from gpscore_torch.ops.loo_fused import auto_block
 from gpscore_torch.scoring import rules
@@ -166,9 +184,12 @@ SMALL_LARGE = [(2048, 512), (2000, 512)]  # (n, block) against the CPU; 2000 is 
 # 2.1e-6 (crps) and 6.3e-8 (nlml).
 LARGE_LOSS_RTOL = 1e-4
 # Gradients, relative to each leaf's largest entry, per leaf. The log-signal
-# gradient of crps sums the n^2 terms of K_hat_bar * K to an O(1) total, so
-# the error of an fp32 K_hat^-1 shows there in both fp32 paths: 7.1e-3
-# (fused) and 6.1e-3 (dense) off float64. The other leaves read <= 2.4e-4.
+# gradient of crps is -8.1e-4 at step 0, beside a log-noise gradient of 0.19:
+# the error of an fp32 K_hat^-1 is 7.1e-3 (fused) and 6.1e-3 (dense) of that
+# small leaf, 3e-5 of the log-noise one. Its O(n) closed form
+# (closed_form_log_signal) reads no nearer, 8.2e-3: it subtracts the
+# log-noise gradient. The other
+# leaves read <= 2.4e-4.
 F64_GRAD_RTOL = {"log_signal_sq": 1e-2, "log_length": 1e-3, "log_noise_sq": 1e-3}
 # Fused against dense: that shared log-signal error leaves them 1.0e-3 apart
 # for crps (2.4e-4 for nlml); the float64 check above is the accuracy check.
@@ -182,8 +203,17 @@ F64_FACTOR_RTOL = 1e-5
 # themselves 1.7e-5 and 4.3e-5 off float64; the large-n ones read <= 6.7e-5.
 LARGE_EVAL_RTOL = 1e-4
 F64_ROWS = 2048  # row block of the float64 witness
-PEAK_LIMIT_N2 = 1.5  # a crps step's peak memory, in n^2 * 4 bytes
+PEAK_LIMIT_N2 = 1.5  # a crps or fold-rule step's peak memory, in n^2 * 4 bytes
 DRIVER_LARGE = ["--n", "8192", "--iters", "2"]  # the large_n driver at a cut size
+# Phase 9.
+FOLD_RULES = ["dss", "kc", "es"]
+FOLD_K, NUM_SIM = 4, 300
+ES_NORMALS_SEED = 5  # the fixed normals of the es comparisons
+# The fold-streamed step 0 against float64, per leaf: the fold rules'
+# log-signal gradients (65, -0.0040 and -0.40 for dss, kc and es) read 4.2e-6,
+# 5.6e-5 and 3.1e-5, the log-length ones <= 6.3e-5, the log-noise ones
+# <= 2.3e-5.
+FOLD_F64_GRAD_RTOL = {"log_signal_sq": 1e-3, "log_length": 1e-3, "log_noise_sq": 1e-3}
 
 
 def log(*a):
@@ -571,16 +601,7 @@ def phase_drivers(dev):
                                                    for r, rec in res.items()) + held)
 
 
-@contextlib.contextmanager
-def fused_from(n):
-    """The exact objectives take the fused large-n cores from ``n`` on
-    (objectives._FUSED_LOO_MIN_N), inside the block."""
-    saved = objectives._FUSED_LOO_MIN_N
-    objectives._FUSED_LOO_MIN_N = n
-    try:
-        yield
-    finally:
-        objectives._FUSED_LOO_MIN_N = saved
+fused_from = bench_ceiling.fused_from
 
 
 def grad_rel(got, want):
@@ -624,25 +645,55 @@ def f64_factor(x, p):
     return xs, sig, noise, torch.linalg.cholesky(K)
 
 
-def f64_step0(rule, x, y, p):
-    """The float64 witness of the exact crps or nlml objective: (loss, {leaf:
-    gradient}) in the three log-parameters. K_hat^-1 comes from the float64
-    factor; G = dloss/dK_hat in closed form (nlml: (K^-1 - a a^T) / 2; crps,
-    through a = K^-1 y and diag(K^-1): -(K^-1 a_bar) a^T - K^-1 diag(d_bar)
-    K^-1); G is then contracted with dK/dtheta in row blocks. Peak ~3 n^2 * 8
-    bytes."""
+def f64_inverse(x, y, p):
+    """(xs, sig, noise, K_hat^-1, a = K_hat^-1 y, half log-det of K_hat) in
+    float64, through the float64 factor and cuSOLVER's inverse."""
     xs, sig, noise, L = f64_factor(x, p)
-    n, y64 = x.shape[0], y.to(torch.float64)
     half_logdet = torch.log(L.diagonal()).sum()
     Kinv = torch.cholesky_inverse(L)
     del L
-    a = Kinv @ y64
+    return xs, sig, noise, Kinv, Kinv @ y.to(torch.float64), half_logdet
+
+
+def f64_fold_loss(rule, A, a_f, y_f, eps_f):
+    """One fold's score in float64 from the fold precision A = [K_hat^-1]_ff
+    and a_f = [K_hat^-1 y]_f. dss and kc are written out here, apart from the
+    port's rules; es goes through the port's energy_score_precision in
+    float64, so only its K_hat^-1 and fold-adjoint chain is independent of
+    the port (the rule itself is held against the JAX package's in the CPU
+    tests)."""
+    La = torch.linalg.cholesky(A)
+    r = torch.cholesky_solve(a_f[:, None], La)[:, 0]  # y_f - mean
+    if rule == "dss":
+        return (0.5 * len(r) * np.log(2.0 * np.pi) - torch.log(La.diagonal()).sum()
+                + 0.5 * r @ (A @ r))
+    if rule == "kc":
+        sd = torch.sqrt(torch.cholesky_inverse(La).diagonal())
+        z = r / sd
+        pdf = torch.exp(-0.5 * z * z) / np.sqrt(2.0 * np.pi)
+        return torch.mean(sd * (z * torch.erf(z / np.sqrt(2.0)) + 2.0 * pdf - 1.0 / np.sqrt(np.pi)))
+    return rules.energy_score_precision(y_f - r, La, y_f, NUM_SIM, 1.0, eps=eps_f)
+
+
+def f64_step0(rule, x, y, p, eps=None, inverse=None):
+    """The float64 witness of an exact objective: (loss, {leaf: gradient}) in
+    the three log-parameters. K_hat^-1 comes from the float64 factor
+    (``inverse``: an :func:`f64_inverse` to reuse); G = dloss/dK_hat is then
+    contracted with dK/dtheta in row blocks. nlml: G = (K^-1 - a a^T) / 2.
+    crps, through a = K^-1 y and diag(K^-1): G = -(K^-1 a_bar) a^T - K^-1
+    diag(d_bar) K^-1. A fold rule (dss, kc, es at the normals ``eps`` =
+    (e, e')), through a and the fold blocks A_f = [K^-1]_ff: a_bar and A_bar_f
+    by float64 autograd of each fold's score (:func:`f64_fold_loss`), G =
+    -(K^-1 a_bar) a^T - sum_f K^-1[:, f] A_bar_f K^-1[f, :]. Peak ~3 n^2 * 8
+    bytes."""
+    xs, sig, noise, Kinv, a, half_logdet = inverse or f64_inverse(x, y, p)
+    n, y64 = x.shape[0], y.to(torch.float64)
     if rule == "nlml":
         loss = 0.5 * n * np.log(2.0 * np.pi) + half_logdet + 0.5 * (y64 @ a)
 
         def g_rows(r0, r1):
             return 0.5 * (Kinv[r0:r1] - a[r0:r1, None] * a[None, :])
-    else:  # crps on the LOO predictive
+    elif rule == "crps":  # on the LOO predictive
         a_, d_ = a.clone().requires_grad_(), Kinv.diagonal().clone().requires_grad_()
         loss = rules.crps_gaussian(y64 - a_ / d_, 1.0 / d_, y64)
         a_bar, d_bar = torch.autograd.grad(loss, (a_, d_))
@@ -650,6 +701,24 @@ def f64_step0(rule, x, y, p):
 
         def g_rows(r0, r1):
             return -(b[r0:r1, None] * a[None, :]) - (Kinv[r0:r1] * d_bar) @ Kinv
+    else:
+        nb = n // FOLD_K
+        folds = [slice(f * nb, (f + 1) * nb) for f in range(FOLD_K)]
+        loss, a_bar, A_bar = 0.0, torch.empty_like(a), []
+        for f, s in enumerate(folds):
+            A, a_f = Kinv[s, s].clone().requires_grad_(), a[s].clone().requires_grad_()
+            eps_f = None if eps is None else tuple(e[f].to(torch.float64) for e in eps)
+            loss_f = torch.sum(f64_fold_loss(rule, A, a_f, y64[s], eps_f))
+            A_bar_f, a_bar[s] = torch.autograd.grad(loss_f, (A, a_f))
+            A_bar.append(A_bar_f)
+            loss = loss + loss_f.detach()
+        b = Kinv @ a_bar
+
+        def g_rows(r0, r1):
+            G = -(b[r0:r1, None] * a[None, :])
+            for s, A_bar_f in zip(folds, A_bar):
+                G -= (Kinv[r0:r1, s] @ A_bar_f) @ Kinv[s]
+            return G
     sig_bar = torch.zeros((), dtype=torch.float64, device=x.device)
     len_bar = torch.zeros(x.shape[1], dtype=torch.float64, device=x.device)
     trace = torch.zeros((), dtype=torch.float64, device=x.device)
@@ -660,9 +729,8 @@ def f64_step0(rule, x, y, p):
         C = G * (sig * torch.exp(-0.5 * sum(diffs)))
         sig_bar += C.sum()
         len_bar += torch.stack([(C * dk).sum() for dk in diffs])
-    del Kinv
     return float(loss.detach()), {"log_signal_sq": sig_bar, "log_length": len_bar,
-                         "log_noise_sq": noise * trace}
+                                  "log_noise_sq": noise * trace}
 
 
 def f64_predictive(x, y, xt, p):
@@ -674,6 +742,21 @@ def f64_predictive(x, y, xt, p):
     mean = ks.T @ torch.cholesky_solve(y.to(torch.float64)[:, None], L)[:, 0]
     V = torch.linalg.solve_triangular(L, ks, upper=False)
     return mean, noise + sig - torch.sum(V * V, dim=0)
+
+
+def closed_form_log_signal(p0, x, y, noise_bar):
+    """{rule: the log-signal gradient in its O(n) closed form} for crps and
+    nlml, from ``noise_bar``, {rule: the fused step's log-noise gradient}.
+    K = K_hat - noise I gives sum K_hat_bar o K = tr(K_hat_bar K_hat) -
+    log_noise_bar, and the trace collapses: -a_bar^T a - d_bar^T d for a LOO
+    rule (a = K_hat^-1 y, d = diag K_hat^-1), (n - y^T a) / 2 for the NLML."""
+    with torch.no_grad():
+        a, d = loo_fused.ard_loo_solve_diag(p0.log_signal_sq, p0.log_length, p0.log_noise_sq, x, y)
+    a_, d_ = a.clone().requires_grad_(), d.clone().requires_grad_()
+    a_bar, d_bar = torch.autograd.grad(rules.crps_gaussian(y - a_ / d_, 1.0 / d_, y), (a_, d_))
+    trace = {"crps": -torch.dot(a_bar, a) - torch.dot(d_bar, d),
+             "nlml": 0.5 * (x.shape[0] - torch.dot(y, a))}
+    return {rule: trace[rule] - noise_bar[rule] for rule in trace}
 
 
 def phase_large_n(dev):
@@ -702,6 +785,7 @@ def phase_large_n(dev):
     p0 = init_unit_params(LARGE_D, isotropic=False, device=dev)
     block = auto_block(n, device=dev)
     log(f"[large_n] n = {n}, d = {LARGE_D}, {LARGE_TEST} test points; auto_block {block}")
+    streamed, g64s = {}, {}
     for rule in ("crps", "nlml"):
         loss = make_objective(rule, model="exact")
         with fused_from(n + 1):  # the dense path: K, the Cholesky and K^-1 materialized
@@ -716,7 +800,9 @@ def phase_large_n(dev):
         near = {k: (abs(float(v) - v64) / abs(v64),
                     {f: grad_rel({f: g[f]}, {f: g64[f]}) for f in g64})
                 for k, v, g in (("fused", vf, gf), ("dense", vd, gd))}
-        log(f"[large_n] {rule} step 0 against float64 (loss {v64:.10g}): " + "; ".join(
+        log(f"[large_n] {rule} step 0 against float64 (loss {v64:.10g}, log-signal gradient "
+            f"{float(g64['log_signal_sq']):.6g}, log-noise {float(g64['log_noise_sq']):.6g}): "
+            + "; ".join(
             f"{k} loss rel {lr_:.3g}, grad rel by leaf "
             + ", ".join(f"{f} {e:.3g}" for f, e in ge.items()) for k, (lr_, ge) in near.items())
             + f" (tol {LARGE_LOSS_RTOL}, {F64_GRAD_RTOL} for fused)")
@@ -726,7 +812,14 @@ def phase_large_n(dev):
             (rule, lr_, ge)
         if rule == "crps":
             assert peak_f <= PEAK_LIMIT_N2 * n2, (peak_f / n2, PEAK_LIMIT_N2)
+        streamed[rule], g64s[rule] = gf, g64
         torch.cuda.empty_cache()
+    f = "log_signal_sq"
+    closed = closed_form_log_signal(p0, x, y, {r: g["log_noise_sq"] for r, g in streamed.items()})
+    for rule, g64 in g64s.items():
+        log(f"[large_n] {rule} step 0, log-signal gradient against float64: streamed sum of "
+            f"rowsums (the gradient) {grad_rel({f: streamed[rule][f]}, {f: g64[f]}):.3g}, closed "
+            f"form {grad_rel({f: closed[rule]}, {f: g64[f]}):.3g}")
     # The Cholesky factor of K_hat: the in-place pipeline's and cuSOLVER's
     # potrf (what the dense path uses), against float64.
     with torch.no_grad():
@@ -833,6 +926,153 @@ def phase_large_n(dev):
     return launches
 
 
+def stacked_fold_loss(rule, eps):
+    """The fold rule through the stacked composition: the fused k-fold core's
+    [k, nb, nb] blocks (kfold_exact_precision_fused), factored at once, and
+    the rules on them, differentiated by autograd."""
+    def loss(params, x, y):
+        p = exact_mod.kfold_exact_precision_fused(x, y, params, FOLD_K)
+        y_b = y.reshape(p.mean.shape)
+        if rule == "dss":
+            return torch.sum(rules.dss_precision(p.mean, p.chol_prec, y_b))
+        if rule == "kc":
+            return rules.crps_kfold(p.mean, linalg.inv_diag_from_chol(p.chol_prec), y_b)
+        return torch.sum(rules.energy_score_precision(p.mean, p.chol_prec, y_b, NUM_SIM, 1.0,
+                                                      eps=eps))
+    return loss
+
+
+def fold_eps(n, where, seed=ES_NORMALS_SEED):
+    """Fixed normals (e, e'), each [FOLD_K, n / FOLD_K, NUM_SIM], made on the
+    CPU from a seed and moved."""
+    gen = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn((FOLD_K, n // FOLD_K, NUM_SIM), generator=gen).to(where)
+                 for _ in range(2))
+
+
+def phase_folds(dev):
+    vg = bench_ceiling.value_and_grad
+    # 1. Small n, the fold-streamed cores on CUDA against the CPU.
+    for n, block in SMALL_LARGE:
+        x, y, _, _ = large_n.make_data(n, LARGE_D, 0)
+        p_cpu = init_unit_params(LARGE_D, isotropic=False)
+        p_gpu = init_unit_params(LARGE_D, isotropic=False, device=dev)
+        eps_cpu = fold_eps(n, "cpu")
+        eps_gpu = tuple(e.to(dev) for e in eps_cpu)
+        worst = {"loss": 0.0, "grad": 0.0}
+        with fused_from(1):
+            for rule in FOLD_RULES:
+                loss = make_objective(rule, model="exact", fold_k=FOLD_K, num_sim=NUM_SIM,
+                                      block=block)
+                lg, gg = vg(loss, p_gpu, x.to(dev), y.to(dev),
+                            **({"eps": eps_gpu} if rule == "es" else {}))
+                lc, gc = vg(loss, p_cpu, x, y, **({"eps": eps_cpu} if rule == "es" else {}))
+                worst["loss"] = max(worst["loss"], abs(float(lg) - float(lc)) / abs(float(lc)))
+                worst["grad"] = max(worst["grad"], grad_rel(gg, gc))
+        log(f"[folds] n = {n}, block {block}, fold-streamed {'/'.join(FOLD_RULES)}: CPU vs CUDA "
+            f"loss rel {worst['loss']:.3g} (tol {LOSS_RTOL}), grad rel {worst['grad']:.3g} (tol "
+            f"{GRAD_RTOL})")
+        assert worst["loss"] <= LOSS_RTOL and worst["grad"] <= GRAD_RTOL, (n, worst)
+
+    # 2. Full size, step 0: against the stacked composition and float64.
+    n, n2 = LARGE_N, 4.0 * LARGE_N * LARGE_N
+    x, y, _, _ = (t.to(dev) for t in large_n.make_data(n, LARGE_D, LARGE_TEST))
+    p0 = init_unit_params(LARGE_D, isotropic=False, device=dev)
+    eps = fold_eps(n, dev)
+    fused, stacked = {}, {}
+    for rule in FOLD_RULES:
+        kw = {"eps": eps} if rule == "es" else {}
+        loss = make_objective(rule, model="exact", fold_k=FOLD_K, num_sim=NUM_SIM)
+        (vf, gf), peak_f = peak_of(lambda: vg(loss, p0, x, y, **kw))
+        torch.cuda.empty_cache()
+        (vs, gs), peak_s = peak_of(lambda: vg(stacked_fold_loss(rule, eps), p0, x, y))
+        torch.cuda.empty_cache()
+        fused[rule] = (vf, gf)
+        stacked[rule] = (vs, gs)
+        rel, g_rel = abs(float(vf) - float(vs)) / abs(float(vs)), grad_rel(gf, gs)
+        log(f"[folds] {rule} step 0: fold-streamed {float(vf):.7g} vs stacked {float(vs):.7g}, "
+            f"loss rel {rel:.3g} (tol {LARGE_LOSS_RTOL}), grad rel {g_rel:.3g} (tol "
+            f"{LARGE_GRAD_RTOL}); peak memory of the step, n^2 * 4 B: fold-streamed "
+            f"{peak_f / n2:.3f} (limit {PEAK_LIMIT_N2}), stacked {peak_s / n2:.3f}")
+        assert rel <= LARGE_LOSS_RTOL and g_rel <= LARGE_GRAD_RTOL, (rule, rel, g_rel)
+        assert peak_f <= PEAK_LIMIT_N2 * n2 and peak_f < peak_s, (rule, peak_f / n2, peak_s / n2)
+    inverse = f64_inverse(x, y, p0)
+    for rule in FOLD_RULES:
+        v64, g64 = f64_step0(rule, x, y, p0, eps=eps, inverse=inverse)
+        vf, gf = fused[rule]
+        near = {k: (abs(float(v) - v64) / abs(v64),
+                    {f: grad_rel({f: g[f]}, {f: g64[f]}) for f in g64})
+                for k, v, g in (("fold-streamed", vf, gf), ("stacked", *stacked[rule]))}
+        log(f"[folds] {rule} step 0 against float64 (loss {v64:.10g}, log-signal gradient "
+            f"{float(g64['log_signal_sq']):.6g}, log-noise {float(g64['log_noise_sq']):.6g}): "
+            + "; ".join(
+            f"{k} loss rel {lr_:.3g}, grad rel by leaf "
+            + ", ".join(f"{f_}: {e:.3g}" for f_, e in ge.items()) for k, (lr_, ge) in near.items())
+            + f" (tol {LARGE_LOSS_RTOL}, {FOLD_F64_GRAD_RTOL} for fold-streamed)")
+        lr_, ge = near["fold-streamed"]
+        assert lr_ <= LARGE_LOSS_RTOL and all(e <= FOLD_F64_GRAD_RTOL[f_]
+                                              for f_, e in ge.items()), (rule, lr_, ge)
+    del inverse, fused, stacked
+    torch.cuda.empty_cache()
+
+    # 3. The counted run: 2 GD steps per rule; es draws from a CUDA generator.
+    gram_cuda.reset_launches()
+    fits, walls = {}, {}
+    for rule in FOLD_RULES:
+        sched = large_n.schedule_for(rule, n, LARGE_STEPS)
+        loss = make_objective(rule, model="exact", fold_k=FOLD_K, num_sim=NUM_SIM)
+        gen = torch.Generator(device=dev).manual_seed(ES_SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fits[rule] = fit_gd(loss, p0, x, y, LARGE_STEPS, sched.lr, generator=gen)
+        torch.cuda.synchronize()
+        walls[rule] = (time.perf_counter() - t0) / LARGE_STEPS
+    launches = dict(gram_cuda.LAUNCHES)
+    log(f"[folds] {len(FOLD_RULES)} rules x {LARGE_STEPS} steps, n = {n}, fold_k = {FOLD_K}: "
+        f"kernel launches {launches}")
+    for k, v in launches.items():
+        assert v > 0, f"kernel {k} was not launched on the large_n fold path"
+    for rule in FOLD_RULES:
+        hist = fits[rule].loss_history.cpu()
+        assert torch.isfinite(hist).all() and int(fits[rule].stall_iters) == 0, (rule, hist)
+
+    # 4. Time, device time by kind, FLOP rate, memory; host syncs for dss.
+    for rule in FOLD_RULES:
+        loss = make_objective(rule, model="exact", fold_k=FOLD_K, num_sim=NUM_SIM)
+        kw = {"eps": eps} if rule == "es" else {}
+        m = bench_ceiling.measure_step(loss, p0, x, y, **kw)
+        flop = bench_ceiling.step_flop(rule, n, FOLD_K)
+        hist = fits[rule].loss_history.cpu()
+        kinds = ", ".join(f"{k} {v * 1e3:.1f}" for k, v in m["busy_by_kind"].items())
+        line = (f"[folds-time] {rule}: loss {float(hist[0]):.6f} -> {float(hist[-1]):.6f}; wall "
+                f"per GD step {walls[rule]:.4f} s; device busy {m['busy_s']:.4f} s of a profiled "
+                f"value-and-grad (ms by kind: {kinds}), idle share {m['idle_share']:.4f}; "
+                f"{flop / walls[rule] / 1e12:.2f} TFLOP/s ({flop:.3g} FLOP); peak memory "
+                f"{m['peak_bytes'] / n2:.3f} n^2 * 4 B")
+        if rule == "dss":
+            sched = large_n.schedule_for(rule, n, 1)
+            syncs = [w for w in host_syncs(lambda: fit_gd(loss, p0, x, y, 1, sched.lr))
+                     if "set_sync_debug_mode" not in w]
+            line += f"; host syncs in one GD step: {len(syncs)} {syncs}"
+            assert not syncs, syncs
+        assert m["peak_bytes"] <= PEAK_LIMIT_N2 * n2, (rule, m["peak_bytes"] / n2)
+        log(line)
+    del x, y, eps, fits
+    torch.cuda.empty_cache()
+
+    # 5. The large_n experiment on the fold rules at a cut size.
+    argv = DRIVER_LARGE + ["--rules", *FOLD_RULES]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = large_n.main(argv + ["--device", str(dev)])
+    for rule, rec in res.items():
+        assert all(np.isfinite(rec[k]) for k in ("loss_first", "loss_last", *METRICS)), rec
+    log(f"[folds-large_n] {' '.join(argv)}: {time.perf_counter() - t0:.2f} s; "
+        + "; ".join(f"{r} s_per_iter_steady {rec['s_per_iter_steady']:.4f}, test crps "
+                    f"{rec['crps']:.5f}" for r, rec in res.items()))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs a CUDA card")
@@ -852,6 +1092,7 @@ def main():
     launches["exact"] = phase_exact(dev)
     phase_drivers(dev)
     launches["large_n"] = phase_large_n(dev)
+    launches["large_n_folds"] = phase_folds(dev)
     kernels = []
     for name, key in KERNELS:
         on_path = times[(name, *TIMED_SHAPES[0])]

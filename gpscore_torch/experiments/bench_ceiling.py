@@ -2,9 +2,11 @@
 `experiments/bench_ceiling.py`, minimal).
 
     python -m gpscore_torch.experiments.bench_ceiling --n 65536 --rule crps [--block 0]
+    python -m gpscore_torch.experiments.bench_ceiling --crossover 2048 4096 8192
 
 The step is ``make_objective(rule, model="exact")``'s: the fused cores from
-n = 8192 on, the dense path below. Prints one JSON line on a CUDA card:
+the objectives' threshold on, the dense path below; es draws from a seeded
+generator on the device. Prints one JSON line on a CUDA card:
 
 - ``step_s``: the fastest of ``--repeats`` steps (host clock between device
   synchronizations), after one warm-up step (``warmup_s``);
@@ -18,11 +20,16 @@ n = 8192 on, the dense path below. Prints one JSON line on a CUDA card:
 - the card's ``nvidia-smi`` name and power limit.
 
 With ``--device cpu`` the device fields are null.
+
+``--crossover`` instead times the dense and the fused step of crps and dss
+at each given n (:func:`crossover`) and prints one JSON line per n, rule and
+path: the table the objectives' threshold ``_FUSED_LOO_MIN_N`` is set from.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import time
 
@@ -30,11 +37,12 @@ import torch
 
 from gpscore_torch.bench_gram import nvidia_smi_line
 from gpscore_torch.experiments.common import resolve_device, synchronize
-from gpscore_torch.fit import make_objective
+from gpscore_torch.fit import make_objective, objectives
 from gpscore_torch.ops.loo_fused import auto_block
 from gpscore_torch.utils.params import GPParams
 
-RULES = ("crps", "logs", "interval", "nlml")
+RULES = ("crps", "logs", "interval", "nlml", "dss", "kc", "es")
+FOLD_RULES = ("dss", "kc", "es")
 
 
 def make_data(n: int, d: int, seed: int = 0):
@@ -45,17 +53,36 @@ def make_data(n: int, d: int, seed: int = 0):
     return x, torch.sin(x.sum(dim=1)) + 0.1 * torch.randn((n,), generator=gen)
 
 
-def step_flop(rule: str, n: int) -> float:
+def step_flop(rule: str, n: int, fold_k: int = 4) -> float:
     """FLOP of one value-and-grad step: n^3 for the in-place K_hat^-1
     (LAPACK's counts: potrf n^3/3, trtri n^3/3, lauum n^3/3), plus, for a LOO
-    rule, 2 n^3 for the backward's [b, n] x [n, n] GEMMs over all row blocks.
-    The NLML backward has no n^3 term."""
-    return float(n) ** 3 * (1.0 if rule == "nlml" else 3.0)
+    rule, 2 n^3 for the backward's [b, n] x [n, n] GEMMs over all row blocks,
+    and for a fold rule 2 n^3 (1 + 1/k): per fold and row block a
+    [b, nb] x [nb, nb] and a [b, nb] x [nb, n] GEMM (the folds' own
+    factorizations, O(n^3 / k^2), are left out). The NLML backward has no
+    n^3 term."""
+    n3 = float(n) ** 3
+    if rule == "nlml":
+        return n3
+    return n3 * (3.0 + 2.0 / fold_k if rule in FOLD_RULES else 3.0)
 
 
-def value_and_grad(loss, params, x, y):
+@contextlib.contextmanager
+def fused_from(n):
+    """Inside the block the exact objectives take the fused large-n cores
+    from ``n`` on (``objectives._FUSED_LOO_MIN_N``)."""
+    saved = objectives._FUSED_LOO_MIN_N
+    objectives._FUSED_LOO_MIN_N = n
+    try:
+        yield
+    finally:
+        objectives._FUSED_LOO_MIN_N = saved
+
+
+def value_and_grad(loss, params, x, y, **kw):
+    """(value, {leaf: gradient}) of ``loss(params, x, y, **kw)``."""
     leaves = {f: t.detach().clone().requires_grad_() for f, t in params.leaves().items()}
-    value = loss(params.replace(**leaves), x, y)
+    value = loss(params.replace(**leaves), x, y, **kw)
     grads = torch.autograd.grad(value, list(leaves.values()))
     return value.detach(), dict(zip(leaves, grads))
 
@@ -97,7 +124,7 @@ def device_profile(fn):
             wall)
 
 
-def measure_step(loss, params, x, y):
+def measure_step(loss, params, x, y, **kw):
     """One value-and-grad step on the card: ``peak_bytes``, the allocator's
     peak over the step after ``reset_peak_memory_stats`` (what was allocated
     before it included), and, from a second, profiled step, ``busy_s``,
@@ -106,12 +133,49 @@ def measure_step(loss, params, x, y):
     dev = x.device
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    value_and_grad(loss, params, x, y)
+    value_and_grad(loss, params, x, y, **kw)
     torch.cuda.synchronize(dev)
     peak = torch.cuda.max_memory_allocated(dev)
-    busy, by_kind, _, wall = device_profile(lambda: value_and_grad(loss, params, x, y))
+    busy, by_kind, _, wall = device_profile(lambda: value_and_grad(loss, params, x, y, **kw))
     return {"peak_bytes": peak, "busy_s": busy, "busy_by_kind": by_kind,
             "idle_share": 1.0 - busy / wall}
+
+
+def _params(i: int, d: int, device) -> GPParams:
+    """The i-th parameter point of a timed run: a new one each step."""
+    return GPParams(torch.tensor(0.001 * i, device=device),
+                    torch.full((d,), 0.001 * i, device=device),
+                    torch.tensor(-1.0 - 0.001 * i, device=device))
+
+
+def crossover(sizes, d: int, repeats: int, device, rules=("crps", "dss")):
+    """The dense and the fused step of ``rules`` at each n of ``sizes``: one
+    record per (n, rule, path) with ``step_s`` (the fastest of ``repeats``
+    steps after a warm-up one) and, on a card, ``peak_n2``. The fused cores
+    take :func:`auto_block`."""
+    records = []
+    for n in sizes:
+        x, y = (t.to(device) for t in make_data(n, d))
+        for rule in rules:
+            loss = make_objective(rule, model="exact")
+            for path, threshold in (("dense", n + 1), ("fused", 1)):
+                with fused_from(threshold):
+                    times = []
+                    for i in range(repeats + 1):
+                        synchronize(device)
+                        t0 = time.perf_counter()
+                        value_and_grad(loss, _params(i, d, device), x, y)
+                        synchronize(device)
+                        times.append(time.perf_counter() - t0)
+                    rec = {"n": n, "rule": rule, "path": path, "step_s": min(times[1:]),
+                           "peak_n2": None}
+                    if device.type == "cuda":
+                        torch.cuda.reset_peak_memory_stats(device)
+                        value_and_grad(loss, _params(0, d, device), x, y)
+                        synchronize(device)
+                        rec["peak_n2"] = torch.cuda.max_memory_allocated(device) / (4.0 * n * n)
+                records.append(rec)
+    return records
 
 
 def main(argv=None):
@@ -123,34 +187,38 @@ def main(argv=None):
     ap.add_argument("--rule", default="crps", choices=list(RULES))
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    ap.add_argument("--crossover", type=int, nargs="+", default=None, metavar="N",
+                    help="time the dense and the fused crps and dss step at each N instead")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    if args.crossover:
+        records = crossover(args.crossover, args.d, args.repeats, device)
+        smi = nvidia_smi_line() if device.type == "cuda" else "cpu"
+        for rec in records:
+            print(json.dumps(dict(rec, nvidia_smi=smi), sort_keys=True), flush=True)
+        return records
     x, y = (t.to(device) for t in make_data(args.n, args.d))
     block = args.block or auto_block(args.n, device=device)
     loss = make_objective(args.rule, model="exact", block=block)
-
-    def params(i):
-        return GPParams(torch.tensor(0.001 * i, device=device),
-                        torch.full((args.d,), 0.001 * i, device=device),
-                        torch.tensor(-1.0 - 0.001 * i, device=device))
+    kw = {"generator": torch.Generator(device=device).manual_seed(0)} if args.rule == "es" else {}
 
     rec = {"rule": args.rule, "n": args.n, "d": args.d, "block": block}
     t0 = time.perf_counter()
-    value, _ = value_and_grad(loss, params(0), x, y)
+    value, _ = value_and_grad(loss, _params(0, args.d, device), x, y, **kw)
     synchronize(device)
     rec["warmup_s"] = time.perf_counter() - t0
     rec["loss"] = float(value)
     times = []
     for i in range(1, args.repeats + 1):
         t0 = time.perf_counter()
-        value_and_grad(loss, params(i), x, y)
+        value_and_grad(loss, _params(i, args.d, device), x, y, **kw)
         synchronize(device)
         times.append(time.perf_counter() - t0)
     rec["step_s"] = min(times)
     rec["flop"] = step_flop(args.rule, args.n)
     if device.type == "cuda":
-        m = measure_step(loss, params(0), x, y)
+        m = measure_step(loss, _params(0, args.d, device), x, y, **kw)
         rec.update(m, peak_n2=m["peak_bytes"] / (4.0 * args.n ** 2),
                    tflops=rec["flop"] / rec["step_s"] / 1e12,
                    device=torch.cuda.get_device_name(device), nvidia_smi=nvidia_smi_line())

@@ -8,9 +8,9 @@ rules (`kin40k-FULL-compare.py:226-233, 321-324`).
 
     python -m gpscore_torch.experiments.kin40k_full [--replicates 30] [--device cuda]
 
-At --n-train >= 8192 the exact objectives take the fused large-n cores
-(gpscore_torch/ops/loo_fused.py) for crps, logs and nlml; dss and es raise
-there, their fold-streamed cores not being ported yet.
+At --n-train >= 4096 the exact objectives take the fused large-n cores
+(gpscore_torch/ops/loo_fused.py for crps, logs and nlml,
+gpscore_torch/ops/fold_stream.py for dss and es).
 """
 
 import argparse

@@ -5,13 +5,13 @@
         [--save-params P] [--load-params P] [--skip-eval] [--out F] [--device cuda|cpu]
 
 The reference's dense CPU LOO stops at n = 500 (`kin40k-FULL-compare.py:196`).
-At n >= 8192 the exact objectives take the fused cores
-(:mod:`gpscore_torch.ops.loo_fused`), whose peak is one n x n buffer, and
-the evaluation streams test points through the chunked large-n predictive
-(:func:`~gpscore_torch.models.exact.exact_predictive_diag_large`). The rules
-are crps, logs, interval and nlml; a fold rule (dss, es, kc) at n >= 8192
-stops with the objective's ``NotImplementedError``: its fold-streamed cores
-are the next slice of the port.
+From the objectives' threshold on, the exact objectives take the fused cores
+(:mod:`gpscore_torch.ops.loo_fused` for crps, logs, interval and nlml,
+:mod:`gpscore_torch.ops.fold_stream` for the fold rules dss, es and kc),
+whose peak is one n x n buffer, and the evaluation streams test points
+through the chunked large-n predictive
+(:func:`~gpscore_torch.models.exact.exact_predictive_diag_large`). es draws
+its normals from a ``torch.Generator`` on the device, under a fixed seed.
 
 Data: a smooth function of d standard-normal inputs plus noise
 (`experiments/large_n.py:51-67`), drawn from a seeded CPU ``torch.Generator``
@@ -77,8 +77,10 @@ def schedule_for(rule: str, n: int, iters: int, lr_scale: float = 1.0) -> Schedu
 
 def _fit(rule, sched, params, x, y, block):
     """fit_gd with a timestamp, after a device synchronization, at the start
-    of every step; returns the fit, its wall time and its fastest step."""
+    of every step; returns the fit, its wall time and its fastest step. es
+    alone draws from the generator, whose seed is fixed."""
     loss = make_objective(rule, model="exact", block=block)
+    generator = torch.Generator(device=x.device).manual_seed(1)
     stamps = []
 
     def timed(p, xx, yy, generator=None):
@@ -87,7 +89,7 @@ def _fit(rule, sched, params, x, y, block):
         return loss(p, xx, yy, generator)
 
     t0 = time.perf_counter()
-    res = fit_gd(timed, params, x, y, sched.iters, sched.lr)
+    res = fit_gd(timed, params, x, y, sched.iters, sched.lr, generator=generator)
     synchronize(x.device)
     end = time.perf_counter()
     return res, end - t0, float(np.min(np.diff(stamps + [end])))

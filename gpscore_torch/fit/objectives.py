@@ -22,10 +22,9 @@ Cholesky and the closed-form solve cores of :mod:`gpscore_torch.ops.linalg`.
 From ``_FUSED_LOO_MIN_N`` on, as in the JAX package, crps, logs and interval
 go through the fused LOO core and nlml through the fused NLML core
 (:mod:`gpscore_torch.ops.loo_fused`: one n x n buffer, the gradient streamed
-through the Gram backward kernels). The fold rules dss, es and kc take the
-JAX package's fold-streamed cores there, which are not ported yet: they
-raise ``NotImplementedError`` rather than run a path the reference does not
-take.
+through the Gram backward kernels), and the fold rules dss, es and kc
+through the fold-streamed cores (:mod:`gpscore_torch.ops.fold_stream`: one
+fold at a time off that buffer).
 """
 
 from __future__ import annotations
@@ -43,9 +42,16 @@ from gpscore_torch.scoring import rules
 
 OBJECTIVE_RULES = ("crps", "logs", "nlml", "dss", "es", "kc", "interval")
 
-# From this n on, the exact objectives take the fused large-n cores
-# (`gpscore/fit/objectives.py:40`). Read at call time: tests lower it.
-_FUSED_LOO_MIN_N = 8192
+# From this n on, the exact objectives take the fused large-n cores. On an
+# NVIDIA H100 80GB HBM3 (700 W) the dense crps and dss steps are the faster
+# ones below it (3.2 and 5.9 ms at n = 2048 against the fused 4.0 and 7.4-8.0;
+# 7.1 and 12.3-12.7 at 3072 against 7.5 and 13.0-13.2), the two paths level at
+# 4096 (12.3 and 20.7-21.0 against 11.9-12.2 and 19.6, the fused one at 3.2-3.5
+# n^2 * 4 B of peak memory against 8.0) and the fused ones faster above (5120:
+# 19.0-22.4 and 30.3 against 22.6 and 36.5; 8192: 51.8 and 73 against 73 and
+# 111) (``bench_ceiling --crossover``, two runs; the JAX package's 8192 is a
+# TPU's). Read at call time: tests lower it.
+_FUSED_LOO_MIN_N = 4096
 
 
 def _fused_params(params, kernel: str, d: int):
@@ -78,7 +84,9 @@ def make_objective(
     ``eps = ((e1, e2), (e1p, e2p))``, shapes as in
     :func:`gpscore_torch.models.fitc.lowrank_fold_sample`. Exact:
     ``eps = (e, e')``, each [fold_k, nb, num_sim], as in
-    :func:`gpscore_torch.scoring.rules.energy_score_precision`.
+    :func:`gpscore_torch.scoring.rules.energy_score_precision`; the
+    fold-streamed core takes them side by side, z | z', and needs ``eps`` or
+    a ``generator``.
     """
     if rule not in OBJECTIVE_RULES:
         raise ValueError(f"unknown rule {rule!r}; expected one of {OBJECTIVE_RULES}")
@@ -90,13 +98,11 @@ def make_objective(
         return exact and x.shape[0] >= _FUSED_LOO_MIN_N
 
     def _k_ff(params, x):
-        if _fused(x):
-            raise NotImplementedError(
-                f"the exact {rule} objective at n = {x.shape[0]} >= {_FUSED_LOO_MIN_N} takes "
-                "the JAX package's fold-streamed cores (gpscore/ops/fold_stream.py), which "
-                "are not ported yet (ROADMAP.md, queue 1, item 3: the fold-streamed slice)"
-            )
         return gram(x, x, params.log_signal_sq, params.log_length, kind=kernel)
+
+    def _fold_stats(params, x, y, want_inv_diag=False):
+        return exact_mod.kfold_stats_fused(x, y, _fused_params(params, kernel, x.shape[1]),
+                                           fold_k, want_inv_diag, block)
 
     def _loo(params, x, y):
         if _fused(x):
@@ -144,6 +150,13 @@ def make_objective(
     elif rule == "dss":
 
         def loss(params, x, y, generator=None, eps=None):
+            if _fused(x):
+                # DSS_b = nb/2 log 2pi - hld_b + e_b^T a_b / 2: hld is the half
+                # log-det of the fold precision, and the quadratic r^T A r
+                # with r = e collapses since A e = a_b.
+                stats, a_b, _ = _fold_stats(params, x, y)
+                return (0.5 * a_b.numel() * math.log(2.0 * math.pi)
+                        - torch.sum(stats.half_logdet) + 0.5 * torch.sum(stats.e * a_b))
             p = _kfold(params, x, y)
             y_b = y.reshape(p.mean.shape)
             if exact:
@@ -160,6 +173,10 @@ def make_objective(
     elif rule == "es":
 
         def loss(params, x, y, generator=None, eps=None):
+            if _fused(x):
+                return exact_mod.kfold_es_fused(
+                    x, y, _fused_params(params, kernel, x.shape[1]), fold_k, num_sim, es_beta,
+                    block, generator, None if eps is None else torch.cat(eps, dim=-1))
             p = _kfold(params, x, y)
             y_b = y.reshape(p.mean.shape)
             if exact:
@@ -174,6 +191,9 @@ def make_objective(
     elif rule == "kc":
 
         def loss(params, x, y, generator=None, eps=None):
+            if _fused(x):
+                stats, _, y_b = _fold_stats(params, x, y, want_inv_diag=True)
+                return rules.crps_kfold(y_b - stats.e, stats.inv_diag, y_b)
             p = _kfold(params, x, y)
             y_b = y.reshape(p.mean.shape)
             if exact:

@@ -12,8 +12,10 @@ failed step.
 The fused large-n forms ``loo_exact_fused``, ``nlml_exact_fused``,
 ``kfold_exact_precision_fused`` and ``exact_predictive_diag_large`` take x and
 the parameters instead of K_ff: they go through the cores of
-:mod:`gpscore_torch.ops.loo_fused`, whose peak is one n x n buffer. The
-fold-streamed ``kfold_stats_fused`` and ``kfold_es_fused`` are not ported yet.
+:mod:`gpscore_torch.ops.loo_fused`, whose peak is one n x n buffer.
+``kfold_stats_fused`` and ``kfold_es_fused`` go through the fold-streamed
+cores of :mod:`gpscore_torch.ops.fold_stream`, which take one fold at a time
+off that buffer.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from typing import NamedTuple
 
 import torch
 
-from gpscore_torch.ops import gram_cuda, linalg, loo_fused, potri_inplace
+from gpscore_torch.ops import fold_stream, gram_cuda, linalg, loo_fused, potri_inplace
 from gpscore_torch.utils.precision import matmul
 
 
@@ -43,6 +45,17 @@ class PrecisionGaussian(NamedTuple):
 
     mean: torch.Tensor  # [..., nb]
     chol_prec: torch.Tensor  # [..., nb, nb] lower
+
+
+class FoldStats(NamedTuple):
+    """Statistics of the k-fold block conditionals A_f = [K_hat^-1]_ff, one
+    row per fold: e = A_f^-1 [K_hat^-1 y]_f (the fold mean is y_f - e), the
+    half log-det of the fold precision A_f, and diag(A_f^-1), the fold
+    variances (zeros where they were not asked for)."""
+
+    e: torch.Tensor  # [k, nb]
+    half_logdet: torch.Tensor  # [k]
+    inv_diag: torch.Tensor  # [k, nb]
 
 
 def _k_hat(k_ff, noise_sq):
@@ -99,7 +112,7 @@ def exact_predictive_diag_large(x, y, x_test, params, *, block=None,
     if refine:
         raise NotImplementedError(
             "refine serves the 2-byte-stored inverse, which is not ported (ROADMAP.md, "
-            "queue 1, item 1)")
+            "queue 1, item 2: the precision modes)")
     potri_inplace.check_storage(storage)
     with torch.no_grad():
         L, _ = potri_inplace.ard_gram_chol_inplace(
@@ -199,6 +212,35 @@ def kfold_exact_precision_fused(x, y, params, fold_k: int, block=None) -> Precis
     mean = y.reshape(fold_k, nb) - linalg.chol_solve_from_factor(
         La, a.reshape(fold_k, nb, 1))[..., 0]
     return PrecisionGaussian(mean, La)
+
+
+def kfold_stats_fused(x, y, params, fold_k: int, want_inv_diag: bool = True, block=None):
+    """The fold statistics of the large-n dss and kc objectives through the
+    fold-streamed core (:func:`~gpscore_torch.ops.fold_stream.ard_fold_stats_stream`,
+    `gpscore/models/exact.py:333-365`): the fold conditionals of
+    :func:`kfold_exact_precision`, factored, scored and differentiated one
+    fold at a time off K_hat^-1, with no [fold_k, nb, nb] tensor at any
+    point. ``want_inv_diag=False`` skips the fold variances (only kc reads
+    them). Returns ``(stats: FoldStats, a_b [k, nb], y_b [k, nb])``; the fold
+    mean is ``y_b - stats.e``."""
+    n = x.shape[0]
+    y = y.reshape(n)
+    e, hld, inv_diag, a = fold_stream.ard_fold_stats_stream(
+        params.log_signal_sq, params.log_length, params.log_noise_sq, x, y, fold_k,
+        want_inv_diag, block)
+    return FoldStats(e, hld, inv_diag), a.reshape(e.shape), y.reshape(e.shape)
+
+
+def kfold_es_fused(x, y, params, fold_k: int, num_sim: int = 300, es_beta: float = 1.0,
+                   block=None, generator=None, eps=None):
+    """The large-n es objective through the fold-streamed core
+    (:func:`~gpscore_torch.ops.fold_stream.ard_fold_es_stream`,
+    `gpscore/models/exact.py:368-386`): the summed Monte-Carlo energy score
+    of the fold conditionals. ``eps`` [fold_k, nb, 2 num_sim] fixes the
+    normals; else they are drawn from ``generator``."""
+    return torch.sum(fold_stream.ard_fold_es_stream(
+        params.log_signal_sq, params.log_length, params.log_noise_sq, x,
+        y.reshape(x.shape[0]), fold_k, num_sim, es_beta, block, generator, eps))
 
 
 def nlml_exact_fused(x, y, params, block=None):

@@ -30,11 +30,14 @@ def chol_factor(A):
     """Lower Cholesky factor of SPD A. Where A is not SPD, the factor is NaN
     on and below the diagonal and 0 above it, as ``jnp.linalg.cholesky`` gives.
     The NaN enters by multiplication, so the gradient is NaN there too, as in
-    JAX."""
+    JAX. Where autograd does not keep the factor it is marked in place: the
+    factor is the one new tensor, which the fold-streamed cores count on at
+    fold blocks of gigabytes."""
     L, info = torch.linalg.cholesky_ex(A)
-    lower = torch.ones_like(L, dtype=torch.bool).tril()
-    failed = (info > 0)[..., None, None] & lower
-    return L * torch.where(failed, torch.nan, torch.ones_like(L))
+    mark = torch.where(info > 0, torch.nan, 1.0).to(L.dtype)[..., None, None]
+    if L.requires_grad:
+        return (L * mark).tril()
+    return L.mul_(mark).tril_()
 
 
 def tri_solve(L, B, *, lower: bool = True, trans: bool = False):

@@ -22,7 +22,7 @@ chosen by hand:
 With xs = x / l the scaled inputs and, per block, (d_xs_b, rowsum_b) and
 d_xps_b the kernels' outputs (as in :class:`~gpscore_torch.ops.gram_cuda.ArdGram`):
 
-    log_signal_bar = sum_b sum rowsum_b
+    log_signal_bar = sum_b sum rowsum_b                    (= sum K_hat_bar o K)
     log_length_bar = -sum_b (sum_i d_xs_b * xs_b + sum_j d_xps_b * xs)
     log_noise_bar  = exp(log_noise_sq) * trace(K_hat_bar)
 
@@ -81,12 +81,13 @@ def _resolve_block(x, block) -> int:
     return auto_block(x.shape[0], device=x.device) if block is None else int(block)
 
 
-def _stream_param_grads(Kinv, a, w, extra_rows, xs, sig, log_noise_sq, block: int):
-    """(log_signal_bar, log_length_bar [d], log_noise_bar) of the streamed
-    backward: the rows of K_hat_bar for a row block are
-    ``extra_rows(Kinv_b) - w_b a^T``, and go through the Gram backward
+def _stream_param_grads(Kinv, a, w, extra_rows, xs, sig, block: int):
+    """(log_signal_bar, log_length_bar [d], trace(K_hat_bar)) of one streamed
+    pass: the rows of K_hat_bar for a row block are ``extra_rows(Kinv_b)``,
+    minus ``w_b a^T`` unless ``w`` is None, and go through the Gram backward
     kernels with the block's scaled inputs. ``extra_rows`` returns a fresh
-    [b, n] tensor, which is updated in place."""
+    [b, n] tensor, which is updated in place. A backward of several passes
+    (one per fold) adds their sums."""
     n = a.shape[0]
     sig_bar = a.new_zeros(())
     len_bar = xs.new_zeros((xs.shape[1],))
@@ -94,13 +95,14 @@ def _stream_param_grads(Kinv, a, w, extra_rows, xs, sig, log_noise_sq, block: in
     for r0 in range(0, n, block):
         r1 = min(r0 + block, n)
         g = extra_rows(Kinv[r0:r1])
-        g.addr_(w[r0:r1], a, alpha=-1.0)
+        if w is not None:
+            g.addr_(w[r0:r1], a, alpha=-1.0)
         trace = trace + torch.sum(torch.diagonal(g[:, r0:r1]))
         xs_b = xs[r0:r1]
         d_xs, d_xps, row = gram_cuda.gram_bwd(xs_b, xs, sig, g)
         sig_bar = sig_bar + torch.sum(row)
         len_bar = len_bar - torch.sum(d_xs * xs_b, dim=0) - torch.sum(d_xps * xs, dim=0)
-    return sig_bar, len_bar, torch.exp(log_noise_sq) * trace
+    return sig_bar, len_bar, trace
 
 
 def _length_grad(len_bar, log_length):
@@ -112,23 +114,33 @@ def _length_grad(len_bar, log_length):
 
 
 def _forward(ctx, log_signal_sq, log_length, log_noise_sq, x, y, block, half_logdet=False):
-    """The shared forward: K^-1 (and the half log-det), a = K^-1 y; saves
-    K^-1, a and the O(nd) scaled inputs."""
+    """The shared forward: K^-1 (and the half log-det), a = K^-1 y. Returns
+    (the tensors every backward reads, to be saved first: K^-1, a, the O(nd)
+    scaled inputs, the signal variance and two log-parameters; the half
+    log-det or None)."""
     out = potri_inplace.ard_gram_inverse_inplace(log_signal_sq, log_length, log_noise_sq, x,
                                                  block, return_half_logdet=half_logdet)
     Kinv = out[0] if half_logdet else out
     a = matmul(Kinv, y.reshape(-1, 1))[:, 0]
     xs = gram_cuda.scale_inputs(x, log_length)
     ctx.block = block
-    ctx.save_for_backward(Kinv, a, xs, torch.exp(log_signal_sq), log_noise_sq, log_length)
-    return Kinv, a, (out[1] if half_logdet else None)
+    saved = (Kinv, a, xs, torch.exp(log_signal_sq), log_noise_sq, log_length)
+    return saved, (out[1] if half_logdet else None)
+
+
+def _param_grads(sums, sig, log_length, log_noise_sq):
+    """The three log-parameter gradients from the sums of
+    :func:`_stream_param_grads`."""
+    s_bar, len_bar, trace = sums
+    return (s_bar.reshape(sig.shape), _length_grad(len_bar, log_length),
+            torch.exp(log_noise_sq) * trace)
 
 
 def _backward(ctx, w, extra_rows):
-    Kinv, a, xs, sig, log_noise_sq, log_length = ctx.saved_tensors
-    s_bar, l_bar, n_bar = _stream_param_grads(Kinv, a, w, extra_rows, xs, sig, log_noise_sq,
-                                              ctx.block)
-    return s_bar.reshape(sig.shape), _length_grad(l_bar, log_length), n_bar
+    """One streamed pass and the parameter gradients of it."""
+    Kinv, a, xs, sig, log_noise_sq, log_length = ctx.saved_tensors[:6]
+    sums = _stream_param_grads(Kinv, a, w, extra_rows, xs, sig, ctx.block)
+    return _param_grads(sums, sig, log_length, log_noise_sq)
 
 
 class ArdLooSolveDiag(torch.autograd.Function):
@@ -137,7 +149,9 @@ class ArdLooSolveDiag(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, log_signal_sq, log_length, log_noise_sq, x, y, block):
-        Kinv, a, _ = _forward(ctx, log_signal_sq, log_length, log_noise_sq, x, y, block)
+        saved, _ = _forward(ctx, log_signal_sq, log_length, log_noise_sq, x, y, block)
+        ctx.save_for_backward(*saved)
+        Kinv, a = saved[:2]
         return a, torch.diagonal(Kinv).clone()
 
     @staticmethod
@@ -162,8 +176,10 @@ class ArdKfoldSolveBlocks(torch.autograd.Function):
         n = x.shape[0]
         if n % fold_k:
             raise ValueError(f"n={n} not divisible by fold_k={fold_k}")
-        Kinv, a, _ = _forward(ctx, log_signal_sq, log_length, log_noise_sq, x, y, block)
+        saved, _ = _forward(ctx, log_signal_sq, log_length, log_noise_sq, x, y, block)
+        ctx.save_for_backward(*saved)
         ctx.fold_k = fold_k
+        Kinv, a = saved[:2]
         return a, linalg._fold_blocks(Kinv, fold_k).contiguous()
 
     @staticmethod
@@ -188,9 +204,10 @@ class ArdNlml(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, log_signal_sq, log_length, log_noise_sq, x, y, block):
-        _, a, hld = _forward(ctx, log_signal_sq, log_length, log_noise_sq, x, y, block,
-                             half_logdet=True)
-        return 0.5 * x.shape[0] * math.log(2.0 * math.pi) + hld + 0.5 * torch.dot(y, a)
+        saved, hld = _forward(ctx, log_signal_sq, log_length, log_noise_sq, x, y, block,
+                              half_logdet=True)
+        ctx.save_for_backward(*saved)
+        return 0.5 * x.shape[0] * math.log(2.0 * math.pi) + hld + 0.5 * torch.dot(y, saved[1])
 
     @staticmethod
     def backward(ctx, v_bar):

@@ -297,11 +297,37 @@ def test_fused_objectives_on_cuda_match_the_dense_path_at_n_4096(dev, monkeypatc
 
     x, y, p = _large_n_problem(dev)
     loss = make_objective(rule, model="exact", block=1024)
+    monkeypatch.setattr(objectives, "_FUSED_LOO_MIN_N", 4097)
     want_v, want_g = value_and_grad(loss, p, x, y)
     monkeypatch.setattr(objectives, "_FUSED_LOO_MIN_N", 4096)
     gram_cuda.reset_launches()
     got_v, got_g = value_and_grad(loss, p, x, y)
     assert gram_cuda.LAUNCHES == {"fwd": 1, "bwd_rows": 4, "bwd_cols": 4}
+    assert abs(float(got_v) - float(want_v)) <= 1e-4 * abs(float(want_v))
+    for f, want in want_g.items():
+        assert (got_g[f] - want).abs().max() <= 1e-3 * want.abs().max(), f
+
+
+@pytest.mark.parametrize("rule", ["dss", "kc", "es"])
+def test_fold_objectives_on_cuda_match_the_dense_path_at_n_4096(dev, monkeypatch, rule):
+    """The fold-streamed objective (block 1024, 4 folds; es at fixed normals)
+    against the dense path on the card, n = 4096, d = 8: loss rel 1e-4,
+    gradient within 1e-3 of each leaf's largest entry. A step launches
+    gram_fwd once and each backward kernel once a fold and row block."""
+    from gpscore_torch.experiments.bench_ceiling import value_and_grad
+    from gpscore_torch.fit import objectives
+
+    x, y, p = _large_n_problem(dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    kw = {"eps": tuple(torch.randn((4, 1024, 300), generator=gen, device=dev)
+                       for _ in range(2))} if rule == "es" else {}
+    loss = make_objective(rule, model="exact", fold_k=4, block=1024)
+    monkeypatch.setattr(objectives, "_FUSED_LOO_MIN_N", 4097)
+    want_v, want_g = value_and_grad(loss, p, x, y, **kw)
+    monkeypatch.setattr(objectives, "_FUSED_LOO_MIN_N", 4096)
+    gram_cuda.reset_launches()
+    got_v, got_g = value_and_grad(loss, p, x, y, **kw)
+    assert gram_cuda.LAUNCHES == {"fwd": 1, "bwd_rows": 16, "bwd_cols": 16}
     assert abs(float(got_v) - float(want_v)) <= 1e-4 * abs(float(want_v))
     for f, want in want_g.items():
         assert (got_g[f] - want).abs().max() <= 1e-3 * want.abs().max(), f

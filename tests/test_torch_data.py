@@ -127,7 +127,8 @@ def test_precision_is_ieee_fp32_and_reduced_modes_raise():
 def test_import_pulls_in_neither_jax_nor_gpscore_nor_triton():
     # The package, and the modules that `import gpscore_torch` does not load.
     code = ("import sys, gpscore_torch, gpscore_torch.ops.potri_inplace, "
-            "gpscore_torch.ops.loo_fused, gpscore_torch.experiments.large_n, "
+            "gpscore_torch.ops.loo_fused, gpscore_torch.ops.fold_stream, "
+            "gpscore_torch.experiments.large_n, "
             "gpscore_torch.experiments.bench_ceiling, gpscore_torch.bench_gram; "
             "bad = [m for m in ('jax', 'gpscore', 'triton') if m in sys.modules]; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -1,7 +1,8 @@
 """The port's large-n exact GP against gpscore's: the in-place K_hat^-1
 pipeline, the three fused cores (values and gradients), the four fused
 objectives, the chunked large-n predictive, auto_block, and the large_n
-and bench_ceiling experiments.
+and bench_ceiling experiments (the fold rules' cores are in
+tests/test_torch_fold_stream.py).
 
 The JAX side runs as its own tests run it on the CPU, jitted: its fused
 cores with ``inplace=True`` (the JAX Gram is the jnp form, no Pallas
@@ -31,7 +32,7 @@ from gpscore.ops.potri_inplace import (ard_gram_chol_inplace as jax_chol_inplace
                                        ard_gram_inverse_inplace as jax_inverse_inplace,
                                        pad_rows)
 from gpscore_torch.experiments import bench_ceiling, large_n
-from gpscore_torch.fit import fit_gd, make_objective
+from gpscore_torch.fit import SCHEDULES, fit_gd, make_objective
 from gpscore_torch.fit import objectives as tobjectives
 from gpscore_torch.models import exact as texact
 from gpscore_torch.ops import loo_fused as tloo
@@ -39,6 +40,7 @@ from gpscore_torch.ops import potri_inplace as tpotri
 from torch_parity import close, jax_params, t, torch_params
 
 RTOL, ATOL = 2e-4, 1e-5
+SCHEDULE_LR_DSS = SCHEDULES[("kin40k_full", "dss")].lr
 SIZES = [(64, 16), (52, 16)]  # an exact multiple of the block, and a ragged last panel
 
 
@@ -106,9 +108,9 @@ def test_failed_leaf_factor_is_nan_and_does_not_raise():
 
 def test_only_fp32_storage_is_ported():
     x, y, p = _problem(3, 16)
-    with pytest.raises(NotImplementedError, match="queue 1, item 1"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
         tpotri.ard_gram_inverse_inplace(*_torch_args(p), t(x), 8, storage=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="queue 1, item 1"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
         texact.exact_predictive_diag_large(t(x), t(y), t(x), torch_params(p), refine=2)
 
 
@@ -165,6 +167,33 @@ def test_fused_core_values_and_gradients_match_jax(core, n, block):
     if core == "nlml":  # the value alone: Cholesky and one solve, no inverse
         with torch.no_grad():
             close(_torch_core(core, x, block)(*targs), float(want), 1e-5)
+
+
+@pytest.mark.parametrize("core", ["loo", "kfold", "nlml"])
+def test_log_signal_gradient_closed_form_equals_the_streamed_sum(core):
+    """The log-signal gradient (the sum of the Gram backward's rowsums) against
+    its O(n) closed form and the JAX core's. K_hat -> e^t K_hat moves log-signal
+    and log-noise together and scales a, diag K^-1 and the fold blocks by e^-t,
+    so log_signal_bar + log_noise_bar = tr(K_hat_bar K_hat) = -sum out_bar o out
+    over a core's outputs; (n - y^T a) / 2 for the NLML. rtol 1e-4."""
+    n, block = 52, 16
+    x, y, p = _problem(9, n)
+    want = jax.jit(jax.grad(_jax_core(core, x, block)))(*_jax_args(p), jnp.asarray(y))
+    s, ell, nu = _torch_args(p, requires_grad=True)
+    if core == "nlml":
+        value = tloo.ard_nlml(s, ell, nu, t(x), t(y), block)
+        a, _ = tloo.ard_loo_solve_diag(s.detach(), ell.detach(), nu.detach(), t(x), t(y), block)
+        s_bar, n_bar = torch.autograd.grad(value, (s, nu))
+        trace = 0.5 * (n - torch.dot(t(y), a))
+    else:
+        outs = (tloo.ard_loo_solve_diag(s, ell, nu, t(x), t(y), block) if core == "loo" else
+                tloo.ard_kfold_solve_blocks(s, ell, nu, t(x), t(y), 4, block))
+        value = (torch.sum(torch.sin(outs[0]) * outs[1]) + torch.sum(torch.sqrt(outs[1]))
+                 if core == "loo" else torch.sum(torch.sin(outs[0])) + torch.sum(torch.cos(outs[1])))
+        s_bar, n_bar, *out_bars = torch.autograd.grad(value, (s, nu, *outs))
+        trace = -sum(torch.sum(o_bar * o.detach()) for o_bar, o in zip(out_bars, outs))
+    close(s_bar, want, RTOL, ATOL)
+    close(s_bar, (trace - n_bar).numpy(), 1e-4)
 
 
 # ---- the fused objectives -----------------------------------------------------
@@ -257,8 +286,38 @@ def test_large_n_driver_fits_saves_and_loads_on_the_cpu(tmp_path, monkeypatch, c
     assert "[nlml] {" in capsys.readouterr().out
 
 
-def test_bench_ceiling_runs_on_the_cpu(monkeypatch):
+def test_large_n_experiment_fits_the_fold_rules_on_the_cpu(monkeypatch, capsys):
+    """dss, kc and es through the fold-streamed cores (threshold lowered);
+    es draws from the experiment's seeded generator, so two runs agree."""
     monkeypatch.setattr(tobjectives, "_FUSED_LOO_MIN_N", 64)
-    rec = bench_ceiling.main(["--n", "96", "--block", "32", "--repeats", "1", "--device", "cpu"])
+    argv = ["--n", "128", "--n-test", "40", "--block", "48", "--eval-chunk", "16",
+            "--device", "cpu", "--iters", "2", "--rules", "dss", "kc", "es"]
+    res, again = large_n.main(argv), large_n.main(argv + ["--skip-eval"])
+    for rule in ("dss", "kc", "es"):
+        rec = res[rule]
+        assert rec["iters"] == 2 and rec["stall_iters"] == 0
+        assert all(math.isfinite(rec[k]) for k in ("loss_first", "loss_last", "crps", "mse"))
+        assert again[rule]["loss_last"] == rec["loss_last"]
+    assert res["dss"]["lr"] == pytest.approx(SCHEDULE_LR_DSS * 500 / 128)
+    assert "[es] {" in capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        large_n.main(["--n", "126", "--rules", "dss", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("rule,flop", [("crps", 3.0), ("dss", 3.5), ("es", 3.5)])
+def test_bench_ceiling_runs_on_the_cpu(monkeypatch, rule, flop):
+    monkeypatch.setattr(tobjectives, "_FUSED_LOO_MIN_N", 64)
+    rec = bench_ceiling.main(["--n", "96", "--block", "32", "--repeats", "1", "--device", "cpu",
+                              "--rule", rule])
     assert math.isfinite(rec["loss"]) and rec["step_s"] > 0
-    assert rec["flop"] == 3.0 * 96 ** 3 and rec["peak_n2"] is None
+    assert rec["flop"] == flop * 96 ** 3 and rec["peak_n2"] is None
+
+
+def test_bench_ceiling_crossover_times_both_paths_and_restores_the_threshold():
+    before = tobjectives._FUSED_LOO_MIN_N
+    recs = bench_ceiling.main(["--crossover", "64", "96", "--repeats", "1", "--device", "cpu"])
+    assert [(r["n"], r["rule"], r["path"]) for r in recs] == [
+        (n, rule, path) for n in (64, 96) for rule in ("crps", "dss")
+        for path in ("dense", "fused")]
+    assert all(r["step_s"] > 0 and r["peak_n2"] is None for r in recs)
+    assert tobjectives._FUSED_LOO_MIN_N == before

@@ -18,6 +18,7 @@ from gpscore.metrics import evaluate_predictive as jax_evaluate
 from gpscore.scoring import rules as jrules
 from gpscore_torch.experiments.common import run_sweep
 from gpscore_torch.fit import OBJECTIVE_RULES, eval_predictive_metrics, make_objective
+from gpscore_torch.fit import objectives as tobjectives
 from gpscore_torch.fit.schedules import Schedule
 from gpscore_torch.metrics import evaluate_predictive
 from gpscore_torch.scoring import rules as trules
@@ -80,15 +81,21 @@ def test_es_objective_draws_from_a_generator():
     assert torch.isfinite(a) and float(a) == float(b) and float(a) != float(c)
 
 
-def test_make_objective_refuses_what_is_not_ported():
-    """At n >= 8192 the exact fold rules take the JAX package's fold-streamed
-    cores, which are not ported: dss, es and kc raise there, before any
-    n x n work (crps, logs, interval and nlml take the fused cores,
-    tests/test_torch_large_n.py)."""
-    x = torch.zeros((8192, 1))
+def test_make_objective_refuses_what_is_not_ported(monkeypatch):
+    """No exact rule raises ``NotImplementedError`` at any n: with the fused
+    threshold lowered the fold rules dss, es and kc run the fold-streamed
+    cores and match the dense path (es at the same normals; the LOO rules
+    and nlml are in tests/test_torch_large_n.py). An unknown rule or model
+    is refused."""
+    x, y, p = problem(seed=4, n=64, d=3)
+    gen = torch.Generator().manual_seed(0)
+    eps = tuple(torch.randn((FOLDS, 64 // FOLDS, NUM_SIM), generator=gen) for _ in range(2))
     for rule in ("dss", "es", "kc"):
-        with pytest.raises(NotImplementedError, match="fold-streamed"):
-            make_objective(rule, model="exact")(torch_params(problem(m=1, d=1)[2]), x, x[:, 0])
+        loss = make_objective(rule, model="exact", fold_k=FOLDS, num_sim=NUM_SIM, block=24)
+        dense = loss(torch_params(p), t(x), t(y), eps=eps)
+        monkeypatch.setattr(tobjectives, "_FUSED_LOO_MIN_N", 64)
+        close(loss(torch_params(p), t(x), t(y), eps=eps), dense.numpy(), RTOL)
+        monkeypatch.undo()
     with pytest.raises(ValueError):
         make_objective("brier", model="fitc")
     with pytest.raises(ValueError):

@@ -60,3 +60,12 @@ def jax_fold_eps(key, folds, nb, m, num_sim):
         e1.append(np.asarray(jax.random.normal(k1, (num_sim, nb), jnp.float32)))
         e2.append(np.asarray(jax.random.normal(k2, (m, num_sim), jnp.float32)))
     return t(np.stack(e1)), t(np.stack(e2))
+
+
+def jax_stream_eps(key, folds, nb, num_sim):
+    """The standard normals of the JAX fold-streamed es core, [folds, nb,
+    2 num_sim] with z | z' column halves: ``fold_core._fold_eps`` per fold."""
+    from gpscore.ops.fold_core import _fold_eps
+
+    key_data = jax.random.key_data(key)
+    return t(np.stack([np.asarray(_fold_eps(key_data, f, nb, num_sim)) for f in range(folds)]))
