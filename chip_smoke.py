@@ -27,19 +27,22 @@ Phases, none of whose failures is caught:
    reaches (gpscore_torch/bench_gram.py does the timing).
 4. The FITC slice: the five-rule KIN40K FITC-20 fit (n = 500, d = 8, m = 20)
    from the committed initial parameters, 25 GD steps per rule through fit_gd
-   on CUDA, then the test-set evaluation. The kernels' launch counters are
-   zeroed just before and read just after. At every step the loss and
-   gradient on CUDA are held against the CPU's at the same parameters, the
-   loop's update is checked, and a free-running CPU fit is compared with the
-   CUDA one.
-5. A real-size step: five crps steps on the full 9700-row pool.
+   on CUDA (its default there: three eager steps, then 22 replays of the step
+   captured in a CUDA graph), then the test-set evaluation. The kernels'
+   launch counters are zeroed just before and read just after; they count the
+   replays. At every step the loss and gradient on CUDA are held against the
+   CPU's at the same parameters, the loop's update is checked, and a
+   free-running CPU fit is compared with the CUDA one.
+5. A real-size step: five crps steps on the full 9700-row pool (eager: under
+   fit_gd's capture minimum).
 6. The exact slice: the five kin40k_full rules (crps, nlml, logs, dss, es) on
    the exact GP at n = 500, d = 8, from init_rand_params on a seeded CPU
-   generator, 25 GD steps each on CUDA on the kin40k_full schedules (es draws
-   from a CUDA generator), then the test-set evaluation; launch counters
-   zeroed just before and read just after. The same checks as phase 4, es at
-   fixed normals on both sides; then the wall and device-busy time per step,
-   and the host syncs of one GD step under torch.cuda.set_sync_debug_mode.
+   generator, 25 GD steps each on CUDA on the kin40k_full schedules, replayed
+   as in phase 4 (es draws from a CUDA generator registered with the graph),
+   then the test-set evaluation; launch counters zeroed just before and read
+   just after. The same checks as phase 4, es at fixed normals on both sides;
+   then the eager loop's wall and device-busy time per step, and the host
+   syncs of one eager GD step under torch.cuda.set_sync_debug_mode.
 7. The four experiment drivers' main() on CUDA at a cut size; the two
    synthetic ones (which run the kernels at m = 5 and 300x300x1) also with
    --device cpu, their per-rule means held against it.
@@ -79,13 +82,32 @@ Phases, none of whose failures is caught:
    device time by kind of kernel and the achieved TFLOP/s, and for dss the
    host syncs of a step (none allowed). Then the large_n experiment's main() at
    n = 8192, 2 iterations of dss, kc and es.
+10. The fit as one device program (fit_gd's step replayed from a CUDA graph),
+   at the bench's full width. (1) For the five FITC rules and the five exact
+   rules (es from a seeded CUDA generator): a 200-step fit with graph=False
+   and one with graph=True from the same start, with record_params; the loss
+   history, every parameter history, the final parameters and stall_iters
+   must be equal bit for bit; per rule the eager and the replayed wall time
+   per step, and the device ops, device-busy time and idle share of a
+   profiled replayed step. (2) A fit whose Cholesky fails from some step on,
+   under replay: NaN losses, updates skipped, stall_iters counted, nothing
+   raised, equal to the eager run. (3) The whole five-rule FITC-20 fit,
+   14,000 iterations, replayed: wall-clock, microseconds per step, the Gram
+   launches (2/2/2 a step, replays counted), the final losses, and the first
+   500 steps of every rule eager for the ratio. (4) The host syncs of a
+   whole replayed 50-step fit: none after the capture. (5) fit_optim with a
+   capturable Adam, 200 steps replayed against eager, equal bit for bit.
+   (6) A replayed fit after a larger Gram shape grew the workspace on
+   another stream, a larger shape on the capture stream after the graph is
+   gone, and a replayed fit again: all equal to eager.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit;
 before it, one JSON line describes every kernel: ``ms``, ``plain_ms``,
 ``bound_ms`` and ``bound_by`` at the FITC path's 500x20x8 (``library_ms`` is
 null: no single PyTorch call computes the ARD Gram or either half of its
-VJP), ``launches`` summed over the FITC, exact, large-n and large-n fold paths
-(each path's count under ``launches_by_path``), and under ``shapes`` the per-call and device
+VJP), ``launches`` summed over the FITC, exact, large-n, large-n fold and
+graph paths (each path's count under ``launches_by_path``; a graph's replays
+are counted), and under ``shapes`` the per-call and device
 times, the bound and the roofline share at every timed shape, with
 ``timed_by`` naming the source of the share's time (``torch.profiler``:
 ``device_ms``; ``cuda_events``: ``ms``, and no ``device_ms``). The last line is
@@ -106,11 +128,13 @@ import numpy as np
 import torch
 
 import gpscore_torch
+from gpscore_torch import bench
 from gpscore_torch.bench_gram import (cuda_ms, device_ms, kernel_inputs, kernel_pairs,
                                      nvidia_smi_line, time_shapes)
 from gpscore_torch.data import kin40k_fitc20_init, kin40k_replicate_split, load_kin40k
 from gpscore_torch.experiments import bench_ceiling, large_n
-from gpscore_torch.fit import SCHEDULES, eval_predictive_metrics, fit_gd, make_objective
+from gpscore_torch.fit import (SCHEDULES, eval_predictive_metrics, fit_gd, fit_optim,
+                               make_objective, train)
 from gpscore_torch.metrics import evaluate_predictive
 from gpscore_torch.models import exact as exact_mod
 from gpscore_torch.ops import _build, gram_cuda, linalg, loo_fused, potri_inplace
@@ -214,6 +238,19 @@ ES_NORMALS_SEED = 5  # the fixed normals of the es comparisons
 # 5.6e-5 and 3.1e-5, the log-length ones <= 6.3e-5, the log-noise ones
 # <= 2.3e-5.
 FOLD_F64_GRAD_RTOL = {"log_signal_sq": 1e-3, "log_length": 1e-3, "log_noise_sq": 1e-3}
+# Phase 10.
+GRAPH_STEPS = 200  # the eager and the replayed fit that must be equal bit for bit
+GRAPH_LONG = 1000  # replays of the fit that times the replayed step
+GRAPH_EAGER_STEPS = 500  # the eager steps per rule beside the whole replayed fit
+GRAPH_SYNC_STEPS = 50
+# The eager loop's final losses of the 14,000-iteration fit on an NVIDIA H100
+# 80GB HBM3 (``python -m gpscore_torch.bench --eager``; ROADMAP.md, queue 3
+# item 3), beside which the replayed fit's are printed.
+EAGER_FINAL_LOSS = {"crps": 0.208145, "nlml": 285.691650, "logs": 0.447697,
+                    "dss": 222.006165, "kc": 0.832610}
+# A Gram backward whose column kernel needs more scratch (5 chunks of 1031 x 8)
+# than any shape of the fits (500 x 500 x 8: 8 chunks of 500 x 8).
+GROW_SHAPE = (4099, 1031, 8)
 
 
 def log(*a):
@@ -436,19 +473,31 @@ def exact_init(rule, where):
     return p.replace(**{f: t.to(where) for f, t in p.leaves().items()})
 
 
-def host_syncs(fn):
-    """Where ``fn`` makes a synchronizing CUDA call, as torch.cuda's sync
-    debug mode reports it: one "file:line" per call."""
+@contextlib.contextmanager
+def sync_warnings():
+    """Inside the block torch.cuda's sync debug mode warns of every
+    synchronizing CUDA call; yields the list the warnings land in."""
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            fn()
+            yield caught
         finally:
             torch.cuda.set_sync_debug_mode("default")
+
+
+def sync_sites(caught):
+    """One "file:line: source" per synchronizing call among the warnings."""
     return [f"{w.filename}:{w.lineno}: {linecache.getline(w.filename, w.lineno).strip()}"
             for w in caught if "synchroniz" in str(w.message)]
+
+
+def host_syncs(fn):
+    """Where ``fn`` makes a synchronizing CUDA call."""
+    with sync_warnings() as caught:
+        fn()
+    return sync_sites(caught)
 
 
 def phase_exact(dev):
@@ -540,9 +589,9 @@ def phase_exact(dev):
         log(f"[exact-eval] {rule} after {SMOKE_STEPS} steps: "
             + ", ".join(f"{k} {v:.5f}" for k, v in vals.items())
             + " (agrees with the CPU at the same parameters)")
-    # Time per step, warm, outside the counted run: three 25-step fits per
-    # rule (host clock, synchronized), device-busy time over 5 steps, and the
-    # host syncs of one step.
+    # The eager loop's time per step, warm, outside the counted run: three
+    # 25-step fits per rule (host clock, synchronized), device-busy time over
+    # 5 steps, and the host syncs of one step. Phase 10 times the replayed one.
     for rule in EXACT_RULES:
         sched = SCHEDULES[("kin40k_full", rule)]
         loss_fn = make_objective(rule, model="exact")
@@ -550,7 +599,8 @@ def phase_exact(dev):
         gen = torch.Generator(device=dev).manual_seed(ES_SEED)
 
         def fit(steps):
-            return fit_gd(loss_fn, p0, gpu.train_x, gpu.train_y, steps, sched.lr, generator=gen)
+            return fit_gd(loss_fn, p0, gpu.train_x, gpu.train_y, steps, sched.lr, generator=gen,
+                          graph=False)
 
         walls = []
         for _ in range(3):
@@ -561,7 +611,7 @@ def phase_exact(dev):
             walls.append((time.perf_counter() - t) / SMOKE_STEPS * 1e3)
         busy, n_ops = device_ms(lambda: fit(5), reps=1, warmup=1)
         syncs = [host_syncs(lambda: fit(1)) for _ in range(2)]
-        log(f"[exact-time] {rule}: wall per step " + ", ".join(f"{w:.3f}" for w in walls)
+        log(f"[exact-time] {rule}, eager: wall per step " + ", ".join(f"{w:.3f}" for w in walls)
             + f" ms (three {SMOKE_STEPS}-step fits); device busy {busy / 5:.4f} ms and "
             f"{n_ops / 5:.0f} device ops per step; host syncs in one GD step, twice: "
             f"{len(syncs[0])}, {len(syncs[1])} {sorted(set(syncs[0] + syncs[1]))}")
@@ -1073,6 +1123,209 @@ def phase_folds(dev):
     return launches
 
 
+def bits_equal(a, b):
+    """Equal bit for bit, NaNs included (``torch.equal`` calls no NaN equal);
+    two Nones are equal."""
+    if a is None or b is None:
+        return a is b
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def fits_equal(a, b, steps=None):
+    """The fields of FitResult ``a`` that differ from ``b``'s bit for bit:
+    the loss history, every parameter history (both up to ``steps``), and,
+    with ``steps`` None, the final parameters and stall_iters."""
+    cut = slice(None, steps)
+    pairs = [("loss_history", a.loss_history[cut], b.loss_history[cut])]
+    if a.param_history is not None:
+        pairs += [(f"param_history.{f}", t[cut], b.param_history.leaves()[f][cut])
+                  for f, t in a.param_history.leaves().items()]
+    if steps is None:
+        pairs += [(f"params.{f}", t, b.params.leaves()[f]) for f, t in a.params.leaves().items()]
+        pairs.append(("stall_iters", a.stall_iters, b.stall_iters))
+    return [name for name, u, v in pairs if not bits_equal(u, v)]
+
+
+def first_parting(a, b):
+    """The first step whose loss differs bit for bit, or None."""
+    differ = (a.loss_history.view(torch.int32) != b.loss_history.view(torch.int32)).nonzero()
+    return int(differ[0]) if len(differ) else None
+
+
+def failing_below(loss_fn, threshold):
+    """``loss_fn`` plus the half log-det of a 2 x 2 matrix that stops being
+    positive definite once the loss is under ``threshold``: from that step on
+    the Cholesky fails on the device, the loss is NaN, the update is skipped,
+    and so it fails at every later step too. Nothing here looks at a value on
+    the host, so the step can be captured."""
+    def loss(params, x, y, generator=None):
+        value = loss_fn(params, x, y, generator)
+        bad = torch.eye(2, device=x.device) * (value.detach() - threshold)
+        return value + 0.0 * linalg.half_logdet(linalg.chol_factor(bad))
+    return loss
+
+
+def phase_graph(dev):
+    data = load_kin40k()
+    gpu = kin40k_replicate_split(data, 0, device=dev)
+    x, y = gpu.train_x, gpu.train_y
+    p_fitc = kin40k_fitc20_init(dev)
+
+    def case(model, rule):
+        """(loss, initial parameters, lr, lr_inducing, generator factory)."""
+        if model == "fitc":
+            sched, p0 = SCHEDULES[("kin40k_fitc", rule)], p_fitc
+        else:
+            sched, p0 = SCHEDULES[("kin40k_full", rule)], exact_init(rule, dev)
+        gen = (lambda: torch.Generator(device=dev).manual_seed(ES_SEED)) if rule == "es" \
+            else (lambda: None)
+        return make_objective(rule, model=model), p0, sched.lr, sched.lr_inducing, gen
+
+    def timed_fit(fit):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fit()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    # 1. Replayed against eager, bit for bit, all ten rules; time and profile.
+    eager_crps = None
+    for model, rule in [("fitc", r) for r in RULES] + [("exact", r) for r in EXACT_RULES]:
+        loss, p0, lr, lr_u, gen = case(model, rule)
+
+        def fit(iters, graph, record=False):
+            return fit_gd(loss, p0, x, y, iters, lr, lr_u, generator=gen(),
+                          record_params=record, graph=graph)
+
+        fit(train.GRAPH_WARMUP, False)  # warm: the rule's kernels and handles
+        eager, eager_s = timed_fit(lambda: fit(GRAPH_STEPS, False, True))
+        replayed, replayed_s = timed_fit(lambda: fit(GRAPH_STEPS, True, True))
+        differ = fits_equal(replayed, eager)
+        assert not differ, (model, rule, differ, "first parting step",
+                            first_parting(replayed, eager))
+        assert torch.isfinite(eager.loss_history).all() and int(replayed.stall_iters) == 0
+        # The replay alone: a long replayed fit less the shortest one (warm-up,
+        # capture and one replay; the fastest of five, as is the warm-up
+        # alone, whose difference is the capture's cost).
+        warm = train.GRAPH_WARMUP
+        short_s = min(timed_fit(lambda: fit(warm + 1, True))[1] for _ in range(5))
+        warm_s = min(timed_fit(lambda: fit(warm, False))[1] for _ in range(5))
+        _, long_s = timed_fit(lambda: fit(warm + 1 + GRAPH_LONG, True))
+        step_us = (long_s - short_s) / GRAPH_LONG * 1e6
+        eager_us = eager_s / GRAPH_STEPS * 1e6
+        ops, busy_us = bench.profile_replayed(lambda iters: fit(iters, True))
+        log(f"[graph] {model} {rule}: {GRAPH_STEPS} steps replayed == eager bit for bit (loss "
+            f"and parameter histories, final parameters, stall_iters), loss "
+            f"{float(eager.loss_history[0]):.6f} -> {float(eager.loss_history[-1]):.6f}; per "
+            f"step eager {eager_us:.1f} us, replayed {step_us:.1f} us ({eager_us / step_us:.2f}x"
+            f") over {GRAPH_LONG} replays; capture {(short_s - warm_s) * 1e3 - step_us / 1e3:.2f} "
+            f"ms beside {warm} eager steps of {warm_s / warm * 1e3:.2f} ms; the {GRAPH_STEPS}-step "
+            f"replayed fit, all in, {replayed_s * 1e3:.1f} ms (eager {eager_s * 1e3:.1f}); a "
+            f"replayed step under the profiler: {ops:.1f} device ops, busy {busy_us:.1f} us; "
+            f"idle share replayed {1 - busy_us / step_us:.3f}, eager {1 - busy_us / eager_us:.3f} "
+            f"(the same device time over the eager step)")
+        if (model, rule) == ("fitc", "crps"):
+            eager_crps = eager
+
+    # 2. A Cholesky that fails from some step on, under replay.
+    loss, p0, lr, lr_u, gen = case("fitc", "crps")
+    hist = eager_crps.loss_history
+    threshold = float(0.5 * (hist[0] + hist.min()))
+    failing = failing_below(loss, threshold)
+    runs = [fit_gd(failing, p0, x, y, GRAPH_STEPS, lr, lr_u, record_params=True, graph=g)
+            for g in (False, True)]
+    differ = fits_equal(runs[1], runs[0])
+    nan = torch.isnan(runs[1].loss_history)
+    first = int(nan.nonzero()[0])
+    assert not differ, (differ, first_parting(runs[1], runs[0]))
+    assert train.GRAPH_WARMUP < first < GRAPH_STEPS - 1, first  # it fails under replay
+    assert nan[first:].all() and not nan[:first].any()
+    assert int(runs[1].stall_iters) == GRAPH_STEPS - first
+    for f, t in runs[1].params.leaves().items():  # frozen at the last good point
+        assert torch.equal(t, runs[1].param_history.leaves()[f][first]), f
+    log(f"[graph] failed Cholesky under replay (crps loss under {threshold:.4f}): NaN from step "
+        f"{first} on, updates skipped, stall_iters {int(runs[1].stall_iters)}, no raise; equal "
+        f"to the eager run bit for bit")
+
+    # 3. The whole five-rule fit, replayed; the same first steps eager.
+    gram_cuda.reset_launches()
+    (fits, seconds), wall = timed_fit(lambda: bench.fit_all(p_fitc, x, y))
+    launches = dict(gram_cuda.LAUNCHES)
+    total = sum(len(r.loss_history) for r in fits.values())
+    assert launches == {k: 2 * total for k in launches}, (launches, total)
+    (_, eager_seconds), eager_wall = timed_fit(
+        lambda: bench.fit_all(p_fitc, x, y, iters=GRAPH_EAGER_STEPS, graph=False))
+    log(f"[graph] five-rule FITC-20 fit, {total} iterations replayed ({total} - "
+        f"{train.GRAPH_WARMUP * len(RULES)} replays): {wall:.3f} s; kernel launches {launches}; "
+        f"the first {GRAPH_EAGER_STEPS} steps of every rule eager: {eager_wall:.3f} s")
+    for rule, res in fits.items():
+        h = res.loss_history
+        assert torch.isfinite(h).all() and int(res.stall_iters) == 0, rule
+        step_us = seconds[rule] / len(h) * 1e6
+        eager_us = eager_seconds[rule] / GRAPH_EAGER_STEPS * 1e6
+        was = EAGER_FINAL_LOSS[rule]
+        log(f"[graph] {rule}: {len(h)} iterations in {seconds[rule]:.3f} s, {step_us:.1f} us "
+            f"per step (eager {eager_us:.1f}, {eager_us / step_us:.2f}x); final loss "
+            f"{float(h[-1]):.6f}, the eager loop's on record {was:.6f} (rel "
+            f"{abs(float(h[-1]) - was) / abs(was):.2g}); stall_iters 0")
+
+    # 4. Host syncs of a whole replayed fit: none once the step is captured.
+    marks = []
+    with sync_warnings() as caught:
+        def marking(params, xx, yy, generator=None):
+            marks.append(len(sync_sites(caught)))
+            return loss(params, xx, yy, generator)
+
+        fit_gd(marking, p0, x, y, GRAPH_SYNC_STEPS, lr, lr_u, graph=True)
+    sites = sync_sites(caught)
+    assert len(marks) == train.GRAPH_WARMUP + 1, marks  # the loss ran in Python 4 times
+    after = sites[marks[-1]:]
+    log(f"[graph] host syncs of a replayed {GRAPH_SYNC_STEPS}-step fit: {marks[-1]} before the "
+        f"captured step ({sorted(set(sites[:marks[-1]]))}), {len(after)} from the captured "
+        f"step to the return {after}")
+    assert not after, after
+
+    # 5. fit_optim with a capturable Adam.
+    def adam(leaves):
+        return torch.optim.Adam(leaves, lr=1e-2, capturable=True)
+
+    runs = [fit_optim(loss, p0, x, y, GRAPH_STEPS, adam, graph=g) for g in (False, True)]
+    differ = fits_equal(runs[1], runs[0])
+    h = runs[1].loss_history
+    assert not differ and torch.isfinite(h).all() and float(h[-1]) < float(h[0]), (differ, h)
+    log(f"[graph] fit_optim, Adam (lr 1e-2, capturable), {GRAPH_STEPS} steps replayed == eager "
+        f"bit for bit; crps loss {float(h[0]):.6f} -> {float(h[-1]):.6f}")
+
+    # 6. The Gram backward's workspace around a graph's life.
+    # The current stream's has held this shape's scratch since phase 3; the
+    # capture stream's has only ever seen the fits' shapes.
+    big = kernel_inputs(*GROW_SHAPE, dev, seed=0)
+    want = gram_cuda.gram_bwd_cuda(*big)
+    again = fit_gd(loss, p0, x, y, GRAPH_SYNC_STEPS, lr, lr_u, record_params=True, graph=True)
+    differ = fits_equal(again, eager_crps, GRAPH_SYNC_STEPS)
+    assert not differ, ("beside a larger workspace on another stream", differ)
+    side = train._capture_stream(dev)
+    held = gram_cuda._WORKSPACES[(dev, side.cuda_stream)]
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # replaces the capture stream's workspace, the graph gone
+        got = gram_cuda.gram_bwd_cuda(*big)
+    torch.cuda.current_stream().wait_stream(side)
+    grown = gram_cuda._WORKSPACES[(dev, side.cuda_stream)]
+    assert grown[1].numel() > held[1].numel(), (grown[1].numel(), held[1].numel())
+    del held
+    assert all(torch.equal(a, b) for a, b in zip(got, want)), "capture stream's workspace"
+    again = fit_gd(loss, p0, x, y, GRAPH_SYNC_STEPS, lr, lr_u, record_params=True, graph=True)
+    differ = fits_equal(again, eager_crps, GRAPH_SYNC_STEPS)
+    assert not differ, ("after growth on the capture stream", differ)
+    log(f"[graph] workspace: a replayed fit beside the current stream's larger workspace, a "
+        f"{'x'.join(map(str, GROW_SHAPE))} backward that replaces the capture stream's "
+        f"({grown[1].numel()} scratch floats) once the graph is gone, and a replayed fit again: "
+        f"all equal to eager bit for bit")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs a CUDA card")
@@ -1093,6 +1346,7 @@ def main():
     phase_drivers(dev)
     launches["large_n"] = phase_large_n(dev)
     launches["large_n_folds"] = phase_folds(dev)
+    launches["graph"] = phase_graph(dev)
     kernels = []
     for name, key in KERNELS:
         on_path = times[(name, *TIMED_SHAPES[0])]

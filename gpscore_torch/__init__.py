@@ -12,10 +12,14 @@ in the repository unchanged). Module names mirror ``gpscore/``:
                                form).
 - ``gpscore_torch.scoring``  — CRPS, log score, energy score, k-fold CRPS,
                                interval score.
-- ``gpscore_torch.fit``      — objectives, full-batch gradient descent,
-                               schedules, the fit-and-evaluate driver.
+- ``gpscore_torch.fit``      — objectives, full-batch gradient descent (on a
+                               card one CUDA graph replayed per iteration),
+                               an opt-in ``torch.optim`` loop, schedules,
+                               fit-and-evaluate.
 - ``gpscore_torch.metrics``  — MSE/SMSE/MSLL/coverage evaluation suite.
-- ``gpscore_torch.data``     — KIN40K loader and replicate protocol.
+- ``gpscore_torch.data``     — KIN40K loader (xlsx, npz, csv) and replicate
+                               protocol.
+- ``gpscore_torch.utils``    — parameters, precision mode, timing and tracing.
 
 Importing the package pins IEEE fp32 contractions (TF32 off), the JAX
 package's default "highest" precision mode (:mod:`gpscore_torch.utils.precision`).

@@ -1,10 +1,10 @@
 """KIN40K loading with the reference's subsampling protocol (port of
 `gpscore/data/kin40k.py`).
 
-- :func:`load_kin40k` reads an ``.npz`` (keys trainx/trainy/testx/testy) or a
-  directory of ``.csv`` files; with no file it synthesizes the same
-  KIN40K-shaped stand-in as the JAX package, with numpy alone. The reference's
-  ``.xlsx`` format is not ported yet and raises.
+- :func:`load_kin40k` reads the reference's ``.xlsx`` workbook (sheets
+  trainx/trainy/testx/testy), an ``.npz`` with those keys, or a directory of
+  ``.csv`` files; with no file it synthesizes the same KIN40K-shaped stand-in
+  as the JAX package, with numpy alone.
 - :func:`kin40k_replicate_split` reproduces the per-replicate protocol
   (`kin40k-FULL-compare.py:194-214`). It draws with
   ``np.random.default_rng(replicate * 100)`` exactly as the JAX package does,
@@ -67,13 +67,26 @@ def synthesize_kin40k_like(
 
 
 def load_kin40k(path: Optional[str] = None) -> Kin40k:
-    """Load from ``path`` (``.npz`` or directory of csv) or fall back to the
-    synthetic stand-in. Env var ``GPSCORE_KIN40K`` overrides."""
+    """Load from ``path`` (``.xlsx``, ``.npz`` or directory of csv) or fall
+    back to the synthetic stand-in. Env var ``GPSCORE_KIN40K`` overrides."""
     path = path or os.environ.get("GPSCORE_KIN40K")
     if path and os.path.exists(path):
         if path.endswith(".xlsx"):
-            raise NotImplementedError(
-                "the .xlsx KIN40K reader is not ported yet; convert to .npz or csv"
+            # The reference's format (`kin40k-FULL-compare.py:197-200`). pandas
+            # where it has an xlsx engine, else the standard-library reader.
+            names = ["trainx", "trainy", "testx", "testy"]
+            try:
+                import pandas as pd
+
+                # One call: read_excel parses the whole workbook every time.
+                sheets = pd.read_excel(path, sheet_name=names, header=None)
+            except ImportError:
+                from gpscore_torch.data.xlsx_lite import read_sheets
+
+                sheets = read_sheets(path, names)
+            arr = {k: np.asarray(v, np.float32) for k, v in sheets.items()}
+            return Kin40k(
+                arr["trainx"], arr["trainy"].reshape(-1), arr["testx"], arr["testy"].reshape(-1)
             )
         if path.endswith(".npz"):
             z = np.load(path)

@@ -77,8 +77,10 @@ def schedule_for(rule: str, n: int, iters: int, lr_scale: float = 1.0) -> Schedu
 
 def _fit(rule, sched, params, x, y, block):
     """fit_gd with a timestamp, after a device synchronization, at the start
-    of every step; returns the fit, its wall time and its fastest step. es
-    alone draws from the generator, whose seed is fixed."""
+    of every step; returns the fit, its wall time and its fastest step. The
+    loop is the eager one: the timestamps wait on the device, which a CUDA
+    graph cannot capture. es alone draws from the generator, whose seed is
+    fixed."""
     loss = make_objective(rule, model="exact", block=block)
     generator = torch.Generator(device=x.device).manual_seed(1)
     stamps = []
@@ -89,7 +91,7 @@ def _fit(rule, sched, params, x, y, block):
         return loss(p, xx, yy, generator)
 
     t0 = time.perf_counter()
-    res = fit_gd(timed, params, x, y, sched.iters, sched.lr, generator=generator)
+    res = fit_gd(timed, params, x, y, sched.iters, sched.lr, generator=generator, graph=False)
     synchronize(x.device)
     end = time.perf_counter()
     return res, end - t0, float(np.min(np.diff(stamps + [end])))

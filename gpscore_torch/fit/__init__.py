@@ -1,7 +1,7 @@
 from gpscore_torch.fit.driver import eval_predictive_metrics, fit_and_eval
 from gpscore_torch.fit.objectives import OBJECTIVE_RULES, make_objective
 from gpscore_torch.fit.schedules import SCHEDULES, Schedule, get_schedule, rules_for
-from gpscore_torch.fit.train import FitResult, fit_gd
+from gpscore_torch.fit.train import FitResult, fit_gd, fit_optim, max_reduce
 
 __all__ = [
     "eval_predictive_metrics",
@@ -14,4 +14,6 @@ __all__ = [
     "rules_for",
     "FitResult",
     "fit_gd",
+    "fit_optim",
+    "max_reduce",
 ]

@@ -7,6 +7,7 @@ from typing import Optional
 
 import torch
 
+from gpscore_torch.fit import objectives
 from gpscore_torch.fit.objectives import make_objective
 from gpscore_torch.fit.schedules import Schedule
 from gpscore_torch.fit.train import FitResult, fit_gd
@@ -52,8 +53,14 @@ def fit_and_eval(
     fold_k: int = 4,
     num_sim: int = 300,
 ) -> tuple[EvalMetrics, FitResult]:
-    """Fit by GD on the schedule, then evaluate the test predictive."""
+    """Fit by GD on the schedule, then evaluate the test predictive.
+
+    The fit takes ``fit_gd``'s default (replayed from a CUDA graph on a card)
+    except where the exact objective takes the fused large-n cores: there the
+    card is busy throughout an eager step, and a captured step would hold its
+    n x n temporaries in the graph's pool for the whole fit."""
     loss = make_objective(rule, model=model, kernel=kernel, fold_k=fold_k, num_sim=num_sim)
+    fused = model == "exact" and train_x.shape[0] >= objectives._FUSED_LOO_MIN_N
     res = fit_gd(
         loss,
         params0,
@@ -63,6 +70,7 @@ def fit_and_eval(
         lr=schedule.lr,
         lr_inducing=schedule.lr_inducing,
         generator=generator,
+        graph=False if fused else None,
     )
     metrics = eval_predictive_metrics(
         model, res.params, train_x, train_y, test_x, test_y, kernel=kernel

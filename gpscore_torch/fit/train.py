@@ -1,9 +1,26 @@
-"""Full-batch gradient descent (port of `gpscore/fit/train.py::fit_gd`).
+"""Training loops (port of `gpscore/fit/train.py`'s single-device loops):
+full-batch gradient descent, and an opt-in ``torch.optim`` loop.
 
-The JAX package compiles the whole fit as one ``lax.scan``; here it is an
-eager Python loop. Each iteration does one ``torch.autograd.grad`` and a
-masked update under ``no_grad``, and writes the loss into a history that
-stays on the device, so the loop never waits on the host.
+The JAX package compiles the whole fit as one ``lax.scan``. Here one step
+function works on static buffers, allocated once and updated in place: the
+parameter leaves, the stall counter, a device step counter, the ``[iters]``
+loss history and, when asked for, ``[iters, ...]`` parameter histories. The
+step never indexes a tensor with a Python integer and never waits on the
+host, so it can run in two ways with the same arithmetic:
+
+- eagerly, ``iters`` calls of the step (the plain version, and the only one
+  on the CPU);
+- on a CUDA card, replayed from a CUDA graph: a few eager steps on a side
+  stream, one captured step (the loss, ``torch.autograd.grad``, the update
+  and the history writes), then one ``replay`` per remaining iteration. The
+  warm-up steps are the fit's first iterations, on the same buffers, so the
+  result is that of the all-eager run from the same start. The graph and its
+  memory pool live only inside the call.
+
+A ``loss_fn`` that cannot be captured (it waits on the host, or branches on a
+device value) makes a graphed fit raise PyTorch's capture error; nothing
+drops back to the eager loop by itself. A caller that needs the eager loop
+passes ``graph=False``.
 
 Fault tolerance as in the JAX package: an iteration whose loss or gradient is
 not finite (a failed Cholesky gives NaN, see
@@ -13,11 +30,27 @@ not finite (a failed Cholesky gives NaN, see
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from gpscore_torch.utils.params import FIELDS, GPParams
+from gpscore_torch.ops import gram_cuda
+from gpscore_torch.utils.params import GPParams
+
+# Fewest iterations that the default (``graph=None``) captures on a card. The
+# capture and the graph's instantiation cost 10-20 ms beside the warm-up's
+# eager steps; at n = 500 a replayed step takes 0.46-2.2 ms by rule where an
+# eager one takes 5.7-12.8 ms, so the capture is paid back within 2-4 replays
+# (NVIDIA H100 80GB HBM3, 700 W; ``chip_smoke.py`` phase 10). Shorter fits,
+# a few steps of a test or a probe, stay eager.
+GRAPH_MIN_ITERS = 16
+# Eager steps on the side stream before the capture: PyTorch's rule for
+# ``torch.cuda.graph``. They build the kernels, create the cuBLAS and cuSOLVER
+# handles of both the forward's and autograd's threads, and size the Gram
+# backward's workspace on the capture stream.
+GRAPH_WARMUP = 3
+
+_CAPTURE_STREAMS = {}  # device -> the side stream every capture on it uses
 
 
 class FitResult(NamedTuple):
@@ -31,6 +64,115 @@ class FitResult(NamedTuple):
     stall_iters: Optional[torch.Tensor] = None
 
 
+def max_reduce(xs):
+    """Elementwise-maximum fold of a nonempty list of scalars (NaN-propagating)."""
+    out = xs[0]
+    for v in xs[1:]:
+        out = torch.maximum(out, v)
+    return out
+
+
+class _Buffers:
+    """The static buffers every loop shares: the parameter leaves (copies,
+    updated in place), the evaluation point built on them, the loss history,
+    the device step counter and, with ``record_params``, the parameter
+    histories."""
+
+    def __init__(self, params: GPParams, x, iters: int, record_params: bool = False):
+        self.leaves = {f: t.detach().clone().requires_grad_()
+                       for f, t in params.leaves().items()}
+        self.point = params.replace(**self.leaves)
+        self.losses = torch.empty((iters,), dtype=x.dtype, device=x.device)
+        self.i = torch.zeros((1,), dtype=torch.int64, device=x.device)
+        self.history = None
+        if record_params:
+            self.history = {f: torch.empty((iters, *t.shape), dtype=t.dtype, device=t.device)
+                            for f, t in self.leaves.items()}
+
+    def value_and_grad(self, loss_fn, x, y, generator):
+        loss = loss_fn(self.point, x, y, generator)
+        return loss, torch.autograd.grad(loss, list(self.leaves.values()))
+
+    def record(self, loss) -> None:
+        """Write the loss and the evaluation point at the device counter, then
+        advance it. Call before the update, under ``no_grad``."""
+        self.losses.index_copy_(0, self.i, loss.detach().reshape(1).to(self.losses.dtype))
+        if self.history is not None:
+            for f, t in self.leaves.items():
+                self.history[f].index_copy_(0, self.i, t.detach().unsqueeze(0))
+        self.i.add_(1)
+
+    def final(self, params: GPParams) -> GPParams:
+        return params.replace(**{f: t.detach() for f, t in self.leaves.items()})
+
+
+def _capture_stream(device) -> "torch.cuda.Stream":
+    if device not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    return _CAPTURE_STREAMS[device]
+
+
+def _replay(step: Callable[[], None], iters: int, device, generator) -> None:
+    """``iters`` calls of ``step``: GRAPH_WARMUP eagerly on the side stream,
+    the rest as replays of one captured call. Nothing waits on the host after
+    the capture. A CUDA ``generator`` is registered with the graph, so every
+    replay draws on from where the last draw stopped, as the eager loop does.
+
+    The Gram kernels' launch counters are host integers, which a replay does
+    not touch: the captured step's launches are counted once, at the capture
+    (they run as the first replay), and added for every later replay here.
+
+    The graph holds the addresses of the Gram backward's workspace of the
+    capture stream. The warm-up sized it, growing it during the capture
+    raises (:func:`gpscore_torch.ops.gram_cuda._workspace`), and nothing else
+    runs on that stream while this call's graph lives."""
+    with torch.cuda.device(device):
+        current = torch.cuda.current_stream()
+        side = _capture_stream(device)
+        side.wait_stream(current)
+        warm = min(GRAPH_WARMUP, iters)
+        with torch.cuda.stream(side):
+            for _ in range(warm):
+                step()
+        current.wait_stream(side)
+        replays = iters - warm
+        if replays == 0:
+            return
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None and generator.device.type == "cuda":
+            graph.register_generator_state(generator)
+        before = dict(gram_cuda.LAUNCHES)
+        # capture_begin and capture_end themselves, not the torch.cuda.graph
+        # context: on its way in that one synchronizes the device and empties
+        # the allocator's cache (and may collect garbage), which every fit of
+        # a sweep would pay again, itself and in the allocations after it.
+        with torch.cuda.stream(side):
+            graph.capture_begin()
+            try:
+                step()
+            finally:
+                graph.capture_end()
+        per_step = {k: v - before[k] for k, v in gram_cuda.LAUNCHES.items()}
+        for _ in range(replays):
+            graph.replay()
+        gram_cuda.add_launches(per_step, replays - 1)
+
+
+def _run(step: Callable[[], None], iters: int, device, graph: Optional[bool], generator) -> None:
+    """``iters`` calls of ``step``, replayed from a CUDA graph or eager.
+    ``graph=None``: replayed when ``device`` is a card and ``iters`` reaches
+    GRAPH_MIN_ITERS."""
+    if graph is None:
+        graph = device.type == "cuda" and iters >= GRAPH_MIN_ITERS
+    elif graph and device.type != "cuda":
+        raise ValueError(f"graph=True replays a CUDA graph; the data is on {device}")
+    if graph:
+        _replay(step, iters, device, generator)
+    else:
+        for _ in range(iters):
+            step()
+
+
 def fit_gd(
     loss_fn,
     params: GPParams,
@@ -42,6 +184,7 @@ def fit_gd(
     generator: Optional[torch.Generator] = None,
     skip_nonfinite: bool = True,
     record_params: bool = False,
+    graph: Optional[bool] = None,
 ) -> FitResult:
     """Full-batch gradient descent with a separate inducing-point learning
     rate (the reference's ``learning_rate2``, `SIMPLE-FITC--comapre.py:318-319`).
@@ -53,41 +196,69 @@ def fit_gd(
     ``record_params=True`` also returns the per-iteration parameters as a
     ``[iters]``-leading GPParams: ``param_history[i]`` is the evaluation point
     of ``loss_history[i]`` (pre-update); the final parameters are ``params``.
+
+    ``graph``: replay the step from a CUDA graph (True; raises ``ValueError``
+    for CPU data), run it eagerly (False), or, by default, replay on a card
+    from GRAPH_MIN_ITERS iterations on. Both give the same result; the
+    replayed fit raises if ``loss_fn`` cannot be captured.
     """
     if lr_inducing is None:
         lr_inducing = lr
-    rates = {f: (lr_inducing if f == "inducing" else lr) for f in FIELDS}
-    leaves = {f: t.detach() for f, t in params.leaves().items()}
-    device = x.device
-    losses = torch.empty((iters,), dtype=x.dtype, device=device)
-    stall = torch.zeros((), dtype=torch.int32, device=device)
-    history = {f: [] for f in leaves}
-    for i in range(iters):
-        cur = {f: t.detach().requires_grad_() for f, t in leaves.items()}
-        loss = loss_fn(params.replace(**cur), x, y, generator)
-        grads = torch.autograd.grad(loss, list(cur.values()))
+    buf = _Buffers(params, x, iters, record_params)
+    rates = {f: (lr_inducing if f == "inducing" else lr) for f in buf.leaves}
+    stall = torch.zeros((), dtype=torch.int32, device=x.device)
+
+    def step():
+        loss, grads = buf.value_and_grad(loss_fn, x, y, generator)
         with torch.no_grad():
             # One scalar probe: max(|.|) propagates NaN and surfaces Inf, and
             # cannot overflow on large finite gradients as a sum could.
-            probe = torch.abs(loss)
-            for g in grads:
-                probe = torch.maximum(probe, torch.max(torch.abs(g)))
+            probe = max_reduce([torch.abs(loss)] + [torch.max(torch.abs(g)) for g in grads])
             finite = torch.isfinite(probe)
-            stall = torch.where(finite, torch.zeros_like(stall), stall + 1)
-            new = {}
-            for (f, t), g in zip(cur.items(), grads):
+            stall.copy_(torch.where(finite, torch.zeros_like(stall), stall + 1))
+            buf.record(loss)
+            for (f, t), g in zip(buf.leaves.items(), grads):
                 upd = t - rates[f] * g
-                new[f] = torch.where(finite, upd, t) if skip_nonfinite else upd
-            losses[i] = loss
-            if record_params:
-                for f, t in cur.items():
-                    history[f].append(t.detach())
-        leaves = new
-    final = params.replace(**leaves)
-    param_history = None
-    if record_params:
-        param_history = params.replace(
-            **{f: torch.stack(h) if h else None for f, h in history.items()}
-        )
-    ok = torch.any(torch.isfinite(losses))
-    return FitResult(final, losses, ok, param_history, stall)
+                t.copy_(torch.where(finite, upd, t) if skip_nonfinite else upd)
+
+    _run(step, iters, x.device, graph, generator)
+    param_history = None if buf.history is None else params.replace(**buf.history)
+    ok = torch.any(torch.isfinite(buf.losses))
+    return FitResult(buf.final(params), buf.losses, ok, param_history, stall)
+
+
+def fit_optim(
+    loss_fn,
+    params: GPParams,
+    x,
+    y,
+    iters: int,
+    optimizer: Callable[[list], torch.optim.Optimizer],
+    generator: Optional[torch.Generator] = None,
+    graph: Optional[bool] = None,
+) -> FitResult:
+    """Opt-in ``torch.optim`` loop (Adam etc.), the counterpart of the JAX
+    package's ``fit_optax``: no NaN mask, no stall counter.
+
+    ``optimizer`` makes the optimizer from the list of leaf tensors, e.g.
+    ``lambda ps: torch.optim.Adam(ps, lr=1e-2, capturable=True)``; a replayed
+    fit (``graph`` as in :func:`fit_gd`) needs an optimizer that PyTorch can
+    capture. Its state is made by the first, eager step and updated in place.
+    """
+    buf = _Buffers(params, x, iters)
+    leaves = list(buf.leaves.values())
+    opt = optimizer(leaves)
+
+    def step():
+        loss, grads = buf.value_and_grad(loss_fn, x, y, generator)
+        with torch.no_grad():
+            buf.record(loss)
+        for t, g in zip(leaves, grads):
+            t.grad = g
+        opt.step()
+
+    _run(step, iters, x.device, graph, generator)
+    for t in leaves:
+        t.grad = None
+    ok = torch.any(torch.isfinite(buf.losses))
+    return FitResult(buf.final(params), buf.losses, ok)

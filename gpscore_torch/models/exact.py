@@ -112,7 +112,7 @@ def exact_predictive_diag_large(x, y, x_test, params, *, block=None,
     if refine:
         raise NotImplementedError(
             "refine serves the 2-byte-stored inverse, which is not ported (ROADMAP.md, "
-            "queue 1, item 2: the precision modes)")
+            "queue 1, item 1: the precision modes)")
     potri_inplace.check_storage(storage)
     with torch.no_grad():
         L, _ = potri_inplace.ard_gram_chol_inplace(

@@ -23,7 +23,9 @@ as `gram_pallas.py:127-132` does.
 Dispatch is by device alone: a CPU tensor takes the plain version (the
 cross-term form of `gpscore/ops/kernels.py:28-40,54-64`, so CPU results track
 the JAX package), a CUDA tensor launches the kernel or raises. ``LAUNCHES``
-counts kernel launches, so a run can show that it went through the kernels.
+counts kernel launches, so a run can show that it went through the kernels;
+a loop that replays a captured CUDA graph adds its replays with
+:func:`add_launches`.
 """
 
 from __future__ import annotations
@@ -36,7 +38,8 @@ import torch
 
 from gpscore_torch.ops import _build
 
-# Kernel launches by kernel; a launch adds one here and nothing else does.
+# Kernel launches by kernel: a wrapper adds one where it launches, and
+# add_launches adds the replays of a graph that captured such launches.
 LAUNCHES = {"fwd": 0, "bwd_rows": 0, "bwd_cols": 0}
 MAX_D = 64  # the kernels' limit on the input dimension (csrc/gram.cu kMaxD)
 THREADS = 256  # threads per block of every kernel (kThreads)
@@ -60,6 +63,14 @@ H100_FP32_FLOP_PER_S = 67e12
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def add_launches(per_call, times: int) -> None:
+    """Count ``times`` replays of a CUDA graph whose capture launched
+    ``per_call`` ({kernel: launches}): a replay runs the kernels without
+    passing through their wrappers."""
+    for k, v in per_call.items():
+        LAUNCHES[k] += v * times
 
 
 class Roofline(NamedTuple):
@@ -305,7 +316,11 @@ def _device_plan(plan, device, n, m, d):
 # tickets (one int per tile, 0 between launches, since a kernel's last block
 # of a tile sets its ticket back) and the scratch of per-chunk partials.
 # Launches that share them must run in order, which one stream guarantees.
-# Both only grow.
+# Both only grow, by being replaced; a CUDA graph keeps the addresses it
+# captured, so a capture must find its stream's workspace large enough (an
+# eager call of the same shapes on that stream first sizes it): growing
+# during a capture raises. The tickets' invariant holds across replays as
+# across launches.
 _WORKSPACES = {}
 
 
@@ -313,6 +328,11 @@ def _workspace(device, stream, tiles, scratch_shape):
     floats = 0 if scratch_shape is None else math.prod(scratch_shape)
     ws = _WORKSPACES.get((device, stream))
     if ws is None or ws[0].numel() < tiles or ws[1].numel() < floats:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "the Gram backward's workspace would grow during a CUDA graph capture "
+                f"(to {tiles} tickets, {floats} scratch floats): run the step once on the "
+                "capture stream before capturing it")
         tiles = max(tiles, 1 if ws is None else ws[0].numel())
         floats = max(floats, 1 if ws is None else ws[1].numel())
         ws = (torch.zeros(tiles, dtype=torch.int32, device=device),

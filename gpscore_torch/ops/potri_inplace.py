@@ -43,7 +43,7 @@ def check_storage(storage) -> None:
     if storage is not None and storage != torch.float32:
         raise NotImplementedError(
             f"storage={storage} is not ported: only fp32 buffers (ROADMAP.md, queue 1, "
-            "item 2: the precision modes)"
+            "item 1: the precision modes)"
         )
 
 

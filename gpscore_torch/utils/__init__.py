@@ -13,6 +13,7 @@ from gpscore_torch.utils.precision import (
     matmul_crit,
     set_matmul_mode,
 )
+from gpscore_torch.utils.profiling import timed, trace
 
 __all__ = [
     "GPParams",
@@ -26,4 +27,6 @@ __all__ = [
     "set_matmul_mode",
     "matmul",
     "matmul_crit",
+    "timed",
+    "trace",
 ]

@@ -377,3 +377,138 @@ def test_predictive_diag_large_on_cuda_matches_the_dense_predictive(dev):
     assert (got.mean - want.mean).abs().max() <= 1e-4 * want.mean.abs().max()
     var = torch.diagonal(want.cov)
     assert (got.cov - var).abs().max() <= 1e-4 * var.abs().max()
+
+
+# ---- the fit replayed from a CUDA graph ------------------------------------------
+
+
+def _graph_case(dev, model, rule):
+    split = kin40k_replicate_split(load_kin40k(), 0, device=dev)
+    if model == "fitc":
+        sched, p0 = SCHEDULES[("kin40k_fitc", rule)], kin40k_fitc20_init(dev)
+    else:
+        sched = SCHEDULES[("kin40k_full", rule)]
+        p0 = _kin40k_exact(dev)[1]
+
+    def fit(iters, graph, **kw):
+        gen = torch.Generator(device=dev).manual_seed(7) if rule == "es" else None
+        return fit_gd(make_objective(rule, model=model), p0, split.train_x, split.train_y, iters,
+                      sched.lr, sched.lr_inducing, generator=gen, graph=graph, **kw)
+
+    return fit
+
+
+@pytest.mark.parametrize("model,rule", [("fitc", "crps"), ("fitc", "dss"), ("exact", "es")])
+def test_replayed_fit_equals_the_eager_fit_bit_for_bit(dev, model, rule):
+    """50 steps with graph=True against graph=False from the same start: loss
+    history, parameter histories, final parameters and stall_iters equal bit
+    for bit; es draws from a seeded CUDA generator, which the graph advances
+    as the eager loop does. The launch counters count the replays."""
+    fit = _graph_case(dev, model, rule)
+    fit(3, False)  # warm
+    gram_cuda.reset_launches()
+    eager = fit(50, False, record_params=True)
+    eager_launches = dict(gram_cuda.LAUNCHES)
+    gram_cuda.reset_launches()
+    replayed = fit(50, True, record_params=True)
+    assert gram_cuda.LAUNCHES == eager_launches
+    assert eager_launches["bwd_rows"] == (100 if model == "fitc" else 50)
+    assert torch.isfinite(eager.loss_history).all()
+    assert torch.equal(replayed.loss_history, eager.loss_history)
+    for f, want in eager.param_history.leaves().items():
+        assert torch.equal(replayed.param_history.leaves()[f], want), f
+        assert torch.equal(replayed.params.leaves()[f], eager.params.leaves()[f]), f
+    assert int(replayed.stall_iters) == int(eager.stall_iters) == 0
+
+
+def test_the_default_replays_from_the_capture_minimum_on(dev):
+    """graph=None on a card: eager under GRAPH_MIN_ITERS iterations, replayed
+    from there on (seen by the Python calls of the loss: every eager step
+    makes one, a replayed fit the warm-up's and the capture's)."""
+    from gpscore_torch.fit import train
+
+    calls = []
+    inner = make_objective("nlml", model="fitc")
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return inner(*a, **kw)
+
+    split = kin40k_replicate_split(load_kin40k(), 0, device=dev)
+    for iters, want in ((train.GRAPH_MIN_ITERS - 1, train.GRAPH_MIN_ITERS - 1),
+                        (train.GRAPH_MIN_ITERS, train.GRAPH_WARMUP + 1)):
+        calls.clear()
+        res = fit_gd(counted, kin40k_fitc20_init(dev), split.train_x, split.train_y, iters, 1e-3)
+        assert len(calls) == want and torch.isfinite(res.loss_history).all()
+
+
+@pytest.mark.parametrize("n,m,d", [(500, 20, 8), (20, 8192, 12), (9701, 33, 8)])
+def test_two_replays_of_a_captured_backward_are_bitwise_equal(dev, n, m, d):
+    """The tickets are 0 again after every launch, so a graph that captured
+    both backward kernels (with several chunks a tile at 20 x 8192 and 9701 x
+    33) gives the eager result at every replay."""
+    xs, xps, sig, g = _scaled(n + m, n, m, d, dev)
+    want = gram_cuda.gram_bwd_cuda(xs, xps, sig, g)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gram_cuda.gram_bwd_cuda(xs, xps, sig, g)  # sizes the stream's workspace
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = gram_cuda.gram_bwd_cuda(xs, xps, sig, g)
+    for _ in range(2):
+        for t in out:
+            t.fill_(float("nan"))
+        graph.replay()
+        assert all(torch.equal(a, b) for a, b in zip(out, want))
+
+
+def test_workspace_growth_during_a_capture_raises(dev):
+    xs, xps, sig, g = _scaled(5, 20, 8192, 12, dev)
+    side = torch.cuda.Stream()
+    gram_cuda._WORKSPACES.pop((xs.device, side.cuda_stream), None)
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="would grow during a CUDA graph capture"):
+        with torch.cuda.graph(graph, stream=side):
+            gram_cuda.gram_bwd_rows_cuda(xs, xps, sig, g)
+    # Outside a capture the same call sizes the workspace and runs.
+    with torch.cuda.stream(side):
+        d_xs, _ = gram_cuda.gram_bwd_rows_cuda(xs, xps, sig, g)
+    side.synchronize()
+    assert torch.isfinite(d_xs).all()
+
+
+def test_a_loss_that_cannot_be_captured_raises_and_nothing_runs_on_eagerly(dev):
+    """A loss that reads a device value on the host cannot be captured: the
+    replayed fit raises PyTorch's capture error after the warm-up's and the
+    capture's calls of the loss, and takes no eager step beyond them. In a
+    process of its own: a failed capture may leave CUDA unusable."""
+    import os
+    import subprocess
+    import sys
+
+    code = """
+import torch
+from gpscore_torch.data import kin40k_fitc20_init, kin40k_replicate_split, load_kin40k
+from gpscore_torch.fit import fit_gd, make_objective
+from gpscore_torch.fit.train import GRAPH_WARMUP
+dev = torch.device("cuda", 0)
+s = kin40k_replicate_split(load_kin40k(), 0, device=dev)
+inner, calls = make_objective("nlml", model="fitc"), []
+def loss(p, x, y, generator=None):
+    calls.append(1)
+    value = inner(p, x, y)
+    return value if float(value) > 0 else -value  # branches on a device value
+try:
+    fit_gd(loss, kin40k_fitc20_init(dev), s.train_x, s.train_y, 40, 1e-3)
+except Exception as e:
+    assert len(calls) == GRAPH_WARMUP + 1, calls
+    print("RAISED", type(e).__name__)
+else:
+    print("RAN", len(calls))
+"""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                          text=True, timeout=600)
+    assert "RAISED" in proc.stdout, proc.stdout + proc.stderr

@@ -58,10 +58,13 @@ def test_load_kin40k_reads_npz_and_csv_like_jax(tmp_path, data):
     for path in (str(npz), str(csv_dir)):
         for a, b in zip(tkin.load_kin40k(path), jkin.load_kin40k(path)):
             np.testing.assert_array_equal(a, b)
+    from gpscore_torch.data.xlsx_lite import write_sheets
+
     xlsx = tmp_path / "k.xlsx"
-    xlsx.write_bytes(b"")
-    with pytest.raises(NotImplementedError):
-        tkin.load_kin40k(str(xlsx))
+    write_sheets(str(xlsx), dict(zip(["trainx", "trainy", "testx", "testy"], small)))
+    for a, b, want in zip(tkin.load_kin40k(str(xlsx)), jkin.load_kin40k(str(xlsx)), small):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, want.reshape(a.shape))
     parquet = tmp_path / "k.parquet"
     parquet.write_bytes(b"")
     with pytest.raises(ValueError):
@@ -129,7 +132,9 @@ def test_import_pulls_in_neither_jax_nor_gpscore_nor_triton():
     code = ("import sys, gpscore_torch, gpscore_torch.ops.potri_inplace, "
             "gpscore_torch.ops.loo_fused, gpscore_torch.ops.fold_stream, "
             "gpscore_torch.experiments.large_n, "
-            "gpscore_torch.experiments.bench_ceiling, gpscore_torch.bench_gram; "
+            "gpscore_torch.experiments.bench_ceiling, gpscore_torch.bench_gram, "
+            "gpscore_torch.bench, gpscore_torch.data.xlsx_lite, "
+            "gpscore_torch.utils.profiling, gpscore_torch.fit.train; "
             "bad = [m for m in ('jax', 'gpscore', 'triton') if m in sys.modules]; "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -146,3 +151,31 @@ def test_init_json_is_plain_float32_values():
         arr = np.asarray(raw[f], np.float64)
         np.testing.assert_array_equal(arr, arr.astype(np.float32).astype(np.float64))
     assert raw["log_signal_sq"] == raw["log_noise_sq"] == 1.0
+
+
+def test_timed_gives_seconds_per_call_and_the_last_result():
+    from gpscore_torch.utils import timed
+
+    calls = []
+
+    def fn(a, b):
+        calls.append(a)
+        return a @ b
+
+    a = torch.ones(8, 8)
+    seconds, out = timed(fn, a, a, warmup=2, repeats=3)
+    assert len(calls) == 5 and seconds > 0.0
+    assert torch.equal(out, a @ a)
+
+
+def test_trace_writes_a_chrome_trace_and_yields_the_profiler(tmp_path):
+    from gpscore_torch.utils import trace
+    from gpscore_torch.utils.profiling import device_events
+
+    logdir = tmp_path / "tb"
+    with trace(str(logdir), name="fit") as prof:
+        torch.ones(16, 16) @ torch.ones(16, 16)
+    with open(logdir / "fit.json") as f:
+        events = json.load(f)["traceEvents"]
+    assert any("mm" in e.get("name", "") for e in events)
+    assert device_events(prof) == []  # no card here: host events alone

@@ -108,9 +108,9 @@ def test_failed_leaf_factor_is_nan_and_does_not_raise():
 
 def test_only_fp32_storage_is_ported():
     x, y, p = _problem(3, 16)
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 1"):
         tpotri.ard_gram_inverse_inplace(*_torch_args(p), t(x), 8, storage=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 1"):
         texact.exact_predictive_diag_large(t(x), t(y), t(x), torch_params(p), refine=2)
 
 

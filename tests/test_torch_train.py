@@ -1,5 +1,8 @@
 """The port's fit_gd against gpscore's: 25-step loss histories of every bench
-rule (rtol 1e-4), and the NaN-masked update with its stall counter.
+rule (rtol 1e-4), and the NaN-masked update with its stall counter; the
+static-buffer step against the functional loop written out here, bit for bit;
+fit_optim against gpscore's fit_optax (loss rtol 1e-5, parameters 1e-4), and
+max_reduce against gpscore's.
 
 The problem (seed 1, n = 128, m = 8, d = 3) is one on which 25 steps at the
 reference learning rates stay away from unstable transients, so that the
@@ -12,12 +15,16 @@ fp32 grade).
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
 from gpscore.fit import fit_gd as jax_fit_gd
 from gpscore.fit import make_objective as jax_make_objective
-from gpscore_torch.fit import SCHEDULES, fit_and_eval, fit_gd, make_objective
+from gpscore.fit.train import fit_optax as jax_fit_optax
+from gpscore.fit.train import max_reduce as jax_max_reduce
+from gpscore_torch.fit import (SCHEDULES, fit_and_eval, fit_gd, fit_optim, make_objective,
+                               max_reduce)
 from gpscore_torch.fit.schedules import Schedule
 from gpscore_torch.ops import linalg
 from gpscore_torch.utils.params import params_to_numpy
@@ -123,3 +130,125 @@ def test_fit_and_eval_runs_the_fitc_slice(prob):
                                 torch_params(p), t(x), t(y), t(xs), t(ys))
     assert res.loss_history.shape == (5,)
     assert all(torch.isfinite(getattr(metrics, f)) for f in metrics._fields)
+
+
+# ---- the static-buffer step against the functional loop ----------------------
+
+
+def _functional_loop(loss_fn, params, x, y, iters, lr, lr_inducing, skip_nonfinite=True):
+    """Gradient descent with fresh tensors every step and list histories: the
+    arithmetic fit_gd's in-place step must reproduce bit for bit. Returns
+    (final leaves, losses, parameter lists, stall)."""
+    leaves = {f: v.detach() for f, v in params.leaves().items()}
+    losses, history, stall = [], {f: [] for f in leaves}, 0
+    for _ in range(iters):
+        cur = {f: v.detach().requires_grad_() for f, v in leaves.items()}
+        loss = loss_fn(params.replace(**cur), x, y, None)
+        grads = torch.autograd.grad(loss, list(cur.values()))
+        with torch.no_grad():
+            probe = torch.abs(loss)
+            for g in grads:
+                probe = torch.maximum(probe, torch.max(torch.abs(g)))
+            finite = bool(torch.isfinite(probe))
+            stall = 0 if finite else stall + 1
+            new = {}
+            for (f, v), g in zip(cur.items(), grads):
+                upd = v - (lr_inducing if f == "inducing" else lr) * g
+                new[f] = upd if finite or not skip_nonfinite else v.detach()
+            losses.append(loss.detach())
+            for f, v in cur.items():
+                history[f].append(v.detach())
+        leaves = new
+    return leaves, torch.stack(losses), {f: torch.stack(h) for f, h in history.items()}, stall
+
+
+@pytest.fixture(scope="module")
+def small():
+    return problem(seed=3, n=48, m=6, d=3)
+
+
+@pytest.mark.parametrize("fail_at", [(), (2, 5), (8, 9)], ids=["healthy", "failed-mid", "stalled"])
+@pytest.mark.parametrize("model,rule", [("fitc", r) for r in BENCH_RULES]
+                         + [("exact", "crps"), ("exact", "dss")])
+def test_static_buffer_step_equals_the_functional_loop(small, model, rule, fail_at):
+    """Loss history, parameter history, final parameters and stall_iters of
+    fit_gd, equal bit for bit (NaNs at the same places) to the functional
+    loop's, at n = 48 over 10 steps, with and without failed steps."""
+    x, y, p = small
+    if model == "exact":
+        p = {f: v for f, v in p.items() if f != "inducing"}
+        sched = SCHEDULES[("kin40k_full", rule)]
+    else:
+        sched = SCHEDULES[("kin40k_fitc", rule)]
+    objective = make_objective(rule, model=model)
+    lr = sched.lr * 0.1  # a tenth of the n = 500 rate: finite throughout at n = 48
+    lr_u = None if sched.lr_inducing is None else sched.lr_inducing * 0.1
+    got = fit_gd(_failing_at(objective, set(fail_at)), torch_params(p), t(x), t(y), 10, lr, lr_u,
+                 record_params=True)
+    leaves, losses, history, stall = _functional_loop(
+        _failing_at(objective, set(fail_at)), torch_params(p), t(x), t(y), 10, lr,
+        lr if lr_u is None else lr_u)
+    assert torch.isnan(losses).nonzero().flatten().tolist() == list(fail_at)
+    np.testing.assert_array_equal(got.loss_history.numpy(), losses.numpy())
+    for f, want in leaves.items():
+        np.testing.assert_array_equal(getattr(got.params, f).numpy(), want.numpy())
+        np.testing.assert_array_equal(getattr(got.param_history, f).numpy(), history[f].numpy())
+    assert int(got.stall_iters) == stall == (2 if fail_at == (8, 9) else 0)
+    assert not any(v.requires_grad for v in got.params.leaves().values())
+
+
+def test_fit_gd_leaves_the_callers_parameters_alone(small):
+    x, y, p = small
+    p0 = torch_params(p)
+    before = {f: v.clone() for f, v in p0.leaves().items()}
+    fit_gd(make_objective("nlml", model="fitc"), p0, t(x), t(y), 3, 1e-3)
+    for f, v in p0.leaves().items():
+        assert torch.equal(v, before[f]) and not v.requires_grad
+
+
+def test_graph_true_on_cpu_raises_and_the_default_on_cpu_is_eager(small):
+    x, y, p = small
+    loss = make_objective("nlml", model="fitc")
+    with pytest.raises(ValueError, match="CUDA graph"):
+        fit_gd(loss, torch_params(p), t(x), t(y), 3, 1e-3, graph=True)
+    with pytest.raises(ValueError, match="CUDA graph"):
+        fit_optim(loss, torch_params(p), t(x), t(y), 3,
+                  lambda ps: torch.optim.SGD(ps, lr=1e-3), graph=True)
+    # 20 iterations: over the capture minimum, and still eager on the CPU.
+    default = fit_gd(loss, torch_params(p), t(x), t(y), 20, 1e-3)
+    eager = fit_gd(loss, torch_params(p), t(x), t(y), 20, 1e-3, graph=False)
+    assert torch.equal(default.loss_history, eager.loss_history)
+
+
+# ---- fit_optim and max_reduce against the JAX package -------------------------
+
+
+@pytest.mark.parametrize("name", ["sgd", "adam"])
+def test_fit_optim_matches_fit_optax(prob, name):
+    """20 steps of the FITC nlml fit from the same numpy inputs and initial
+    parameters: loss history rtol 1e-5, final parameters rtol 1e-4 (atol that
+    of the leaf's largest entry)."""
+    x, y, p = prob
+    lr = {"sgd": 1e-3, "adam": 1e-2}[name]
+    want = jax_fit_optax(jax_make_objective("nlml", model="fitc"), jax_params(p), jnp.asarray(x),
+                         jnp.asarray(y), 20, getattr(optax, name)(lr))
+    make = {"sgd": lambda ps: torch.optim.SGD(ps, lr=lr),
+            "adam": lambda ps: torch.optim.Adam(ps, lr=lr)}[name]
+    got = fit_optim(make_objective("nlml", model="fitc"), torch_params(p), t(x), t(y), 20, make)
+    close(got.loss_history, want.loss_history, 1e-5)
+    got_p = params_to_numpy(got.params)
+    for f in got_p:
+        w = np.asarray(getattr(want.params, f))
+        close(got_p[f], w, 1e-4, 1e-4 * float(np.abs(w).max()))
+    assert bool(got.ok) and got.param_history is None and got.stall_iters is None
+    assert float(got.loss_history[-1]) < float(got.loss_history[0])
+    assert all(v.grad is None and not v.requires_grad for v in got.params.leaves().values())
+
+
+@pytest.mark.parametrize("values", [[1.0], [1.0, 3.0, 2.0], [1.0, float("nan"), 2.0],
+                                    [float("nan"), 1.0], [1.0, float("inf")],
+                                    [float("inf"), float("nan")], [-float("inf"), -2.0]])
+def test_max_reduce_matches_jax(values):
+    got = max_reduce([torch.tensor(v) for v in values])
+    want = jax_max_reduce([jnp.float32(v) for v in values])
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
