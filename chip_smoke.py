@@ -100,17 +100,44 @@ Phases, none of whose failures is caught:
    (6) A replayed fit after a larger Gram shape grew the workspace on
    another stream, a larger shape on the capture stream after the graph is
    gone, and a replayed fit again: all equal to eager.
+11. The precision modes (gpscore_torch/utils/precision.py: "high" and "fast"
+   as 3 and 1 TF32 passes, "bf16" and "f16" as 2-byte K_hat^-1 storage). (1)
+   gram_fwd's 2-byte output at 30720x30720x8 (noise diagonal), 30720x2048x8
+   and 500x500x8, bf16 and f16: bitwise the fp32 kernel's output rounded,
+   within 1 ulp of the plain version, timed beside its 2-byte bound. (2) At
+   n = 2048 and 2000 (block 512, fused threshold 1), crps, nlml, dss and es
+   (fixed normals) on CUDA against the CPU's emulation of the same mode:
+   "high" at phase 4's limits, the others at value rtol 2e-2 and gradient
+   cosine > 0.999. (3) The 3 x TF32 product and one TF32 pass at 16384^3
+   against float64, with their rates. (4) At n = 30,720 (phase 8's data,
+   unit parameters), step 0 of crps, nlml and dss in every mode against
+   float64 and "highest": "high" within "highest"'s float64 limits, and
+   beside it crps and nlml in "high" with every product at 3 x TF32; "high",
+   "fast" and "f16" finite (bf16 may come out NaN, and says so), peaks at most
+   1.5 n^2 * 4 B ("high", "fast") and 0.45 under the rule's "highest" one
+   (2-byte); wall per step, effective TFLOP/s, device time by kind, idle
+   share, and for crps the host syncs of a GD step (none allowed). The
+   launch counters are zeroed here and read after (8). (5) The in-place
+   factor per mode against float64, and fit_gd_recovering from "bf16" for 3
+   iterations of crps and dss: its recovery trail, no unrecovered iteration.
+   (7) The large-n predictive of phase 8's crps fit at f16 storage, refine 0
+   and 8, against float64 and the fp32 predictive (refine 8 within 1e-4 of
+   float64). (8) The large_n experiment at n = 8192, --matmul bf16 and high,
+   crps and dss. (6) A 200-step FITC crps fit under "high" and under "fast"
+   (TF32 kernels in the graph), replayed == eager bit for bit. Phase 11 runs to its end and then fails on any failed check.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit;
 before it, one JSON line describes every kernel: ``ms``, ``plain_ms``,
 ``bound_ms`` and ``bound_by`` at the FITC path's 500x20x8 (``library_ms`` is
 null: no single PyTorch call computes the ARD Gram or either half of its
-VJP), ``launches`` summed over the FITC, exact, large-n, large-n fold and
-graph paths (each path's count under ``launches_by_path``; a graph's replays
-are counted), and under ``shapes`` the per-call and device
+VJP), ``launches`` summed over the FITC, exact, large-n, large-n fold, graph and
+precision paths (each path's count under ``launches_by_path``; a graph's
+replays are counted, gram_fwd's 2-byte launches under gram_fwd), and under
+``shapes`` the per-call and device
 times, the bound and the roofline share at every timed shape, with
 ``timed_by`` naming the source of the share's time (``torch.profiler``:
-``device_ms``; ``cuda_events``: ``ms``, and no ``device_ms``). The last line is
+``device_ms``; ``cuda_events``: ``ms``, and no ``device_ms``); gram_fwd's
+2-byte shapes end in ``/bf16`` or ``/f16``. The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -142,7 +169,7 @@ from gpscore_torch.ops.kernels import gram
 from gpscore_torch.ops.loo_fused import auto_block
 from gpscore_torch.scoring import rules
 from gpscore_torch.utils import (init_rand_params, init_unit_params, params_from_numpy,
-                                 params_to_numpy)
+                                 params_to_numpy, precision)
 
 RULES = ["crps", "nlml", "logs", "dss", "kc"]
 SOURCE = "gpscore_torch/csrc/gram.cu"
@@ -173,7 +200,9 @@ TIMED_SHAPES = [(500, 20, 8), (20, 20, 8), (500, 500, 8), (9700, 20, 8), (120, 1
 # and the evaluation's K(x, x*) for a chunk of 2048 test points.
 FWD_SHAPES = [(30720, 30720, 8), (30720, 2048, 8)]
 KERNELS = [("gram_fwd", "fwd"), ("gram_bwd_rows", "bwd_rows"), ("gram_bwd_cols", "bwd_cols")]
-INSTANTIATIONS = 4  # per kernel: gram_fwd's rows per thread, the backward's DMAX buckets
+# Per kernel: gram_fwd's rows per thread times its three output types, the
+# backward's DMAX buckets.
+INSTANTIATIONS = {"gram_fwd": 12, "gram_bwd_rows": 4, "gram_bwd_cols": 4}
 # The plain forward uses the cross-term form, whose cancellation leaves
 # ~1e-7 * |xs|^2 in the exponent; K <= sig = e here.
 FWD_ATOL = 2e-5
@@ -251,6 +280,33 @@ EAGER_FINAL_LOSS = {"crps": 0.208145, "nlml": 285.691650, "logs": 0.447697,
 # A Gram backward whose column kernel needs more scratch (5 chunks of 1031 x 8)
 # than any shape of the fits (500 x 500 x 8: 8 chunks of 500 x 8).
 GROW_SHAPE = (4099, 1031, 8)
+# Phase 11.
+PREC_MODES = ["high", "fast", "bf16", "f16"]  # the reduced modes; "highest" is phases 1-10's
+PREC_SMALL_RULES = ["crps", "nlml", "dss", "es"]
+PREC_LARGE_RULES = ["crps", "nlml", "dss"]
+STORAGE = {"bf16": torch.bfloat16, "f16": torch.float16}
+# The 2-byte Gram: the whole K_hat with its noise diagonal, the evaluation's
+# K(x, x*) and the exact K_ff.
+GRAM2_SHAPES = [(30720, 30720, 8, True), (30720, 2048, 8, False), (500, 500, 8, True)]
+# The reduced modes against the CPU's emulation of the same mode at n = 2048
+# and 2000: "high" at phase 4's limits; the one-pass and 2-byte modes, whose
+# rounding the two sides take in other orders, at the JAX package's own
+# limits for them (tests/test_potri_inplace.py:141-173): value rtol 2e-2,
+# gradient cosine per leaf > 0.999.
+PREC_RTOL, PREC_COS = 2e-2, 0.999
+# The 3 x TF32 product against float64, relative to max (|A| |B|), at the JAX
+# package's "high" grade: over the whole inner dimension it read 3.1e-6 at
+# 16384^3, IEEE fp32 5.2e-7, one TF32 pass 2.1e-5 (NVIDIA H100 80GB HBM3,
+# 700 W): the tensor cores' fp32 sum of a long chain, which the chunks of
+# precision._SPLIT_K cut. Limit: 1e-6, and under one pass's.
+TF32X3_GEMM, TF32X3_TOL = 16384, 1e-6
+# Chunks of the inner dimension printed beside the package's precision._SPLIT_K
+# (16384: one chain over the whole product).
+TF32X3_CHUNKS = [16384, 4096, 1024, 512]
+# A 2-byte step's peak, in n^2 * 4 B, at least this far under the same rule's
+# "highest" one: the n x n buffer halves (0.5), 0.05 left for new transients.
+PEAK_SAVE_N2 = 0.45
+RECOVER_ITERS = 3  # fit_gd_recovering's iterations from "bf16" at n = 30,720
 
 
 def log(*a):
@@ -277,10 +333,10 @@ def check_spills(report):
     found = spills(report)
     for name, _ in KERNELS:
         mine = {sym: v for sym, v in found.items() if f"{name}_kernel" in sym}
-        assert len(mine) == INSTANTIATIONS, (name, sorted(mine))
+        assert len(mine) == INSTANTIATIONS[name], (name, sorted(mine))
         assert all(v == (0, 0) for v in mine.values()), (name, mine)
-    log(f"[build] ptxas: 0 spill bytes in all {INSTANTIATIONS} instantiations of "
-        + ", ".join(name for name, _ in KERNELS))
+    log("[build] ptxas: 0 spill bytes in every instantiation: "
+        + ", ".join(f"{name} {INSTANTIATIONS[name]}" for name, _ in KERNELS))
 
 
 def fwd_inputs(n, m, d, dev, seed):
@@ -973,7 +1029,7 @@ def phase_large_n(dev):
     log(f"[large_n-driver] {' '.join(DRIVER_LARGE)}: {time.perf_counter() - t0:.2f} s; "
         + "; ".join(f"{r} s_per_iter_steady {rec['s_per_iter_steady']:.4f}, test crps "
                     f"{rec['crps']:.5f}" for r, rec in res.items()))
-    return launches
+    return launches, p
 
 
 def stacked_fold_loss(rule, eps):
@@ -1326,6 +1382,360 @@ def phase_graph(dev):
     return launches
 
 
+PREC_FAILED = []  # phase 11's failed checks: it runs to its end, then fails on any
+
+
+def check(ok, *what):
+    """A check of phase 11: logged and kept when it fails."""
+    if not ok:
+        PREC_FAILED.append(what)
+        log(f"[precision] CHECK FAILED: {what}")
+
+
+def storage_ulps(got, want_fp32, st):
+    """The largest |got - want| in units of the storage dtype's spacing at
+    want (subnormals' spacing below its smallest normal)."""
+    info = torch.finfo(st)
+    w = want_fp32.float()
+    spacing = torch.clamp(torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(info.tiny)))),
+                          min=info.tiny) * info.eps
+    return float(((got.float() - w).abs() / spacing).max())
+
+
+def cosines(got, want):
+    """{leaf: cosine of the two gradients} (a scalar leaf: the sign)."""
+    out = {}
+    for f in want:
+        g, w = got[f].double().cpu().reshape(-1), want[f].double().cpu().reshape(-1)
+        out[f] = float(g @ w / (g.norm() * w.norm()).clamp_min(1e-300))
+    return out
+
+
+def phase_gram2(dev, times):
+    """Phase 11.1: the 2-byte gram_fwd against the fp32 kernel rounded, its
+    plain version, and its bound; the times land in ``times``."""
+    for n, m, d, diag in GRAM2_SHAPES:
+        xs, xps, sig = fwd_inputs(n, m, d, dev, seed=7)
+        noise = torch.tensor(0.37, device=dev) if diag else None
+        K = gram_cuda.gram_fwd_cuda(xs, xps, sig)
+        if diag:
+            K.diagonal().add_(noise)
+        for name, st in STORAGE.items():
+            K2 = gram_cuda.gram_fwd_cuda(xs, xps, sig, out_dtype=st, diag_add=noise)
+            again = gram_cuda.gram_fwd_cuda(xs, xps, sig, out_dtype=st, diag_add=noise)
+            assert K2.dtype == st and torch.equal(K2, K.to(st)), (n, m, d, name, "not bitwise")
+            assert torch.equal(K2, again), (n, m, d, name, "two calls differ")
+            ulps = storage_ulps(K2, gram_cuda.gram_fwd_plain(xs, xps, sig, torch.float32, noise)
+                                .to(st), st)
+            assert ulps <= 1.0, (n, m, d, name, ulps)
+
+            def kern():
+                return gram_cuda.gram_fwd_cuda(xs, xps, sig, out_dtype=st, diag_add=noise)
+
+            def plain():
+                return gram_cuda.gram_fwd_plain(xs, xps, sig, st, noise)
+
+            reps = 50 if n * m > 1e8 else 200
+            p1, k1, k2, p2 = (cuda_ms(f, reps=r, warmup=2) for f, r in
+                              ((plain, max(5, reps // 10)), (kern, reps), (kern, reps),
+                               (plain, max(5, reps // 10))))
+            bound = gram_cuda.roofline("gram_fwd", n, m, d, out_bytes=2, diag=diag)
+            t = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "timed_by": "cuda_events",
+                 "dtype": name, "bound_ms": bound.bound_us / 1e3, "bound_by": bound.bound_by}
+            t["roofline_share"] = t["bound_ms"] / t["ms"]
+            times[("gram_fwd", n, m, d, name)] = t
+            log(f"[precision] gram_fwd {n}x{m}x{d} -> {name}{' + noise diagonal' if diag else ''}"
+                f": bitwise the fp32 kernel's output rounded, {ulps:.3g} ulp of the plain version "
+                f"(limit 1); per call kernel {t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms "
+                f"(CUDA events); bound {bound.bytes} bytes, {t['bound_ms']:.5f} ms by "
+                f"{bound.bound_by}, reached {t['roofline_share']:.3f}")
+        del K, K2, again
+        torch.cuda.empty_cache()
+
+
+def phase_precision_small(dev):
+    """Phase 11.2: each reduced mode on CUDA against the CPU's emulation of
+    the same mode, at n = 2048 and 2000 (block 512, fused threshold 1)."""
+    vg = bench_ceiling.value_and_grad
+    for n, block in SMALL_LARGE:
+        x, y, _, _ = large_n.make_data(n, LARGE_D, 0)
+        p_cpu = init_unit_params(LARGE_D, isotropic=False)
+        p_gpu = init_unit_params(LARGE_D, isotropic=False, device=dev)
+        eps_cpu = fold_eps(n, "cpu")
+        eps_gpu = tuple(e.to(dev) for e in eps_cpu)
+        for mode in PREC_MODES:
+            worst = {"loss": 0.0, "grad": 0.0, "cos": 1.0}
+            with fused_from(1), precision.matmul_mode(mode):
+                for rule in PREC_SMALL_RULES:
+                    loss = make_objective(rule, model="exact", fold_k=FOLD_K, num_sim=NUM_SIM,
+                                          block=block)
+                    es = rule == "es"
+                    lg, gg = vg(loss, p_gpu, x.to(dev), y.to(dev), **({"eps": eps_gpu} if es else {}))
+                    lc, gc = vg(loss, p_cpu, x, y, **({"eps": eps_cpu} if es else {}))
+                    rel = abs(float(lg) - float(lc)) / abs(float(lc))
+                    worst["loss"] = max(worst["loss"], rel)
+                    worst["grad"] = max(worst["grad"], grad_rel(gg, gc))
+                    worst["cos"] = min(worst["cos"], *cosines(gg, gc).values())
+            log(f"[precision] n = {n}, block {block}, {mode}, fused {'/'.join(PREC_SMALL_RULES)}: "
+                f"CPU (emulated) vs CUDA loss rel {worst['loss']:.3g}, grad rel {worst['grad']:.3g}"
+                f", least gradient cosine {worst['cos']:.7f}")
+            if mode == "high":
+                check(worst["loss"] <= LOSS_RTOL and worst["grad"] <= GRAD_RTOL, n, mode, worst)
+            else:
+                check(worst["loss"] <= PREC_RTOL and worst["cos"] > PREC_COS, n, mode, worst)
+
+
+def phase_tf32_gemm(dev):
+    """Phase 11.3: the 3 x TF32 product and one TF32 pass at 16384^3 against
+    float64, with their rates."""
+    n = TF32X3_GEMM
+    gen = torch.Generator(device=dev).manual_seed(11)
+    A = torch.randn((n, n), generator=gen, device=dev)
+    B = torch.randn((n, n), generator=gen, device=dev)
+    want = A.double() @ B.double()
+    scale = float((A.double().abs() @ B.double().abs()).max())
+    out = {}
+    for mode in ("highest", "high", "fast"):
+        with precision.matmul_mode(mode):
+            C = precision.matmul(A, B)
+            ms = cuda_ms(lambda: precision.matmul(A, B), reps=3, warmup=1)
+        out[mode] = (float((C.double() - want).abs().max()) / scale, ms)
+        del C
+    assert not torch.backends.cuda.matmul.allow_tf32
+    log(f"[precision] {n}^3 GEMM against float64, max error over max(|A| |B|): "
+        + "; ".join(f"{m} {e:.3g} in {ms:.2f} ms ({2.0 * n ** 3 / ms / 1e9:.1f} TFLOP/s)"
+                    for m, (e, ms) in out.items())
+        + f" (highest: IEEE fp32; high: 3 x TF32 in chunks of {precision._SPLIT_K} of the inner"
+        f" dimension, limit {TF32X3_TOL}; fast: one TF32 pass)")
+    check(out["high"][0] <= TF32X3_TOL and out["high"][0] < out["fast"][0], "3 x TF32 GEMM", out)
+    chunks, kept = {}, precision._SPLIT_K
+    try:
+        for k in TF32X3_CHUNKS:
+            precision._SPLIT_K = k
+            with precision.matmul_mode("high"):
+                C = precision.matmul(A, B)
+                ms = cuda_ms(lambda: precision.matmul(A, B), reps=3, warmup=1)
+            chunks[k] = (float((C.double() - want).abs().max()) / scale, ms)
+            del C
+    finally:
+        precision._SPLIT_K = kept
+    log(f"[precision] 3 x TF32 at {n}^3 by chunk of the inner dimension (the package's: {kept}), "
+        "error over max(|A| |B|) and rate: "
+        + "; ".join(f"{k} {e:.3g} ({2.0 * n ** 3 / ms / 1e9:.1f} TFLOP/s)"
+                    for k, (e, ms) in chunks.items()))
+    del A, B, want
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def every_product_tf32x3():
+    """Inside the block "high" splits every non-critical product into 3 x
+    TF32, the in-place pipeline's short ones too, instead of running those
+    IEEE: the measurement behind precision._SPLIT_MIN_K."""
+    k = precision._SPLIT_MIN_K
+    precision._SPLIT_MIN_K = 0
+    try:
+        yield
+    finally:
+        precision._SPLIT_MIN_K = k
+
+
+def phase_precision(dev, crps_fit, times):
+    """Phase 11: the precision modes (gpscore_torch.utils.precision)."""
+    PREC_FAILED.clear()
+    phase_gram2(dev, times)
+    phase_precision_small(dev)
+    gemm = phase_tf32_gemm(dev)
+    vg = bench_ceiling.value_and_grad
+    n, n2 = LARGE_N, 4.0 * LARGE_N * LARGE_N
+    x, y, xt, _ = (t.to(dev) for t in large_n.make_data(n, LARGE_D, LARGE_TEST))
+    p0 = init_unit_params(LARGE_D, isotropic=False, device=dev)
+
+    # 4. At n = 30,720, step 0 of each rule in each mode: counted from here on.
+    gram_cuda.reset_launches()
+    steps = {}
+    for rule in PREC_LARGE_RULES:
+        loss = make_objective(rule, model="exact", fold_k=FOLD_K, num_sim=NUM_SIM)
+        for mode in ["highest"] + PREC_MODES:
+            with precision.matmul_mode(mode):
+                (v, g), peak = peak_of(lambda: vg(loss, p0, x, y))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                vg(loss, p0, x, y)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                busy, kinds, top, pwall = bench_ceiling.device_profile(lambda: vg(loss, p0, x, y))
+                syncs = None
+                if rule == "crps":
+                    sched = large_n.schedule_for(rule, n, 1)
+                    syncs = [w for w in host_syncs(lambda: fit_gd(loss, p0, x, y, 1, sched.lr))
+                             if "set_sync_debug_mode" not in w]
+            steps[(rule, mode)] = {"v": float(v), "g": {f: t.cpu() for f, t in g.items()},
+                                   "peak": peak / n2, "wall": wall, "busy": busy,
+                                   "kinds": kinds, "idle": 1.0 - busy / pwall, "syncs": syncs,
+                                   "top": top[:6]}
+            torch.cuda.empty_cache()
+    variant = {}
+    for rule in ("crps", "nlml"):
+        loss = make_objective(rule, model="exact")
+        with precision.matmul_mode("high"), every_product_tf32x3():
+            vg(loss, p0, x, y)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            v, g = vg(loss, p0, x, y)
+            torch.cuda.synchronize()
+            variant[rule] = (float(v), {f: t.cpu() for f, t in g.items()},
+                             time.perf_counter() - t0)
+        torch.cuda.empty_cache()
+    inverse = f64_inverse(x, y, p0)
+    for rule in PREC_LARGE_RULES:
+        v64, g64 = f64_step0(rule, x, y, p0, inverse=inverse)
+        g64 = {f: t.cpu() for f, t in g64.items()}
+        top = steps[(rule, "highest")]
+        limits = FOLD_F64_GRAD_RTOL if rule in FOLD_RULES else F64_GRAD_RTOL
+        flop = bench_ceiling.step_flop(rule, n, FOLD_K)
+        for mode in ["highest"] + PREC_MODES:
+            st = steps[(rule, mode)]
+            finite = np.isfinite(st["v"]) and all(torch.isfinite(t).all() for t in st["g"].values())
+            e64 = (abs(st["v"] - v64) / abs(v64), {f: grad_rel({f: st["g"][f]}, {f: g64[f]})
+                                                   for f in g64})
+            etop = (abs(st["v"] - top["v"]) / abs(top["v"]), grad_rel(st["g"], top["g"]))
+            kinds = ", ".join(f"{k} {t * 1e3:.1f}" for k, t in st["kinds"].items())
+            log(f"[precision] n = {n}, {rule}, {mode}: loss {st['v']:.7g}{'' if finite else ' (NOT FINITE)'}"
+                f"; against float64 loss rel {e64[0]:.3g}, grad rel by leaf "
+                + ", ".join(f"{f} {e:.3g}" for f, e in e64[1].items())
+                + f"; against highest loss rel {etop[0]:.3g}, grad rel {etop[1]:.3g}; wall per "
+                f"step {st['wall']:.4f} s, {flop / st['wall'] / 1e12:.2f} effective TFLOP/s; "
+                f"device busy {st['busy']:.4f} s (ms by kind: {kinds}), idle share "
+                f"{st['idle']:.4f}; peak {st['peak']:.3f} n^2 * 4 B"
+                + ("" if st["syncs"] is None else f"; host syncs in one GD step: "
+                   f"{len(st['syncs'])} {st['syncs']}")
+                + "; largest device kernels (ms): "
+                + "; ".join(f"{k[:60]} {t * 1e3:.1f}" for k, t in st["top"]))
+            if st["syncs"] is not None:
+                check(not st["syncs"], rule, mode, st["syncs"])
+            if mode in ("highest", "high"):
+                check(e64[0] <= LARGE_LOSS_RTOL
+                      and all(e <= limits[f] for f, e in e64[1].items()),
+                      rule, mode, "against float64", e64)
+            if mode in ("high", "fast", "f16"):
+                check(finite, rule, mode, "not finite", st["v"])
+            if mode in ("high", "fast"):
+                check(st["peak"] <= PEAK_LIMIT_N2, rule, mode, "peak", st["peak"])
+            if mode in STORAGE:
+                check(st["peak"] <= top["peak"] - PEAK_SAVE_N2, rule, mode, "peak", st["peak"],
+                      top["peak"])
+        if rule in variant:
+            vv, vg_, vwall = variant[rule]
+            log(f"[precision] n = {n}, {rule}, high with every product at 3 x TF32 (not the "
+                f"package's choice): wall per step {vwall:.4f} s; loss rel "
+                f"{abs(vv - v64) / abs(v64):.3g}, grad rel by leaf "
+                + ", ".join(f"{f} {grad_rel({f: vg_[f]}, {f: g64[f]}):.3g}" for f in g64)
+                + f" against float64; against highest grad rel {grad_rel(vg_, top['g']):.3g}")
+
+    # 5. The in-place factor per mode against float64; fit_gd_recovering from bf16.
+    del inverse
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        L64 = f64_factor(x, p0)[3]
+        lp = (p0.log_signal_sq, p0.log_length, p0.log_noise_sq, x)
+        block = auto_block(n, device=dev)
+        errs = {}
+        for mode in ["highest"] + PREC_MODES:
+            with precision.matmul_mode(mode):
+                L, hld = potri_inplace.ard_gram_chol_inplace(*lp, block,
+                                                             storage=precision.storage_dtype())
+                errs[mode] = (rel_max(L, L64), str(L.dtype).replace("torch.", ""))
+                del L
+        del L64
+        torch.cuda.empty_cache()
+    log(f"[precision] in-place Cholesky factor of K_hat at n = {n} against float64, relative to "
+        "the largest entry: " + ", ".join(f"{m} ({dt}) {e:.3g}" for m, (e, dt) in errs.items()))
+    for rule in ("crps", "dss"):
+        loss = make_objective(rule, model="exact", fold_k=FOLD_K, num_sim=NUM_SIM)
+        sched = large_n.schedule_for(rule, n, RECOVER_ITERS)
+        t0 = time.perf_counter()
+        with precision.matmul_mode("bf16"):
+            res, info = train.fit_gd_recovering(loss, p0, x, y, RECOVER_ITERS, sched.lr, rule=rule)
+        wall = time.perf_counter() - t0
+        hist = res.loss_history.cpu().tolist()
+        log(f"[precision] fit_gd_recovering from bf16, {rule}, {RECOVER_ITERS} iterations at "
+            f"n = {n}: {wall:.2f} s; stall_iters {info['stall_iters']}, recovery "
+            f"{info['recovery']}, legs {[(g['mode'], g['iters'], g['wall_s']) for g in info['segments']]}"
+            f", losses {hist}")
+        check("unrecovered_iters" not in info and int(res.stall_iters) == 0
+              and all(np.isfinite(hist)), rule, "fit_gd_recovering", info, hist)
+
+    # 7. The storage-aware predictive of the crps fit (phase 8's parameters).
+    with torch.no_grad():
+        f32 = exact_mod.exact_predictive_diag_large(x, y, xt, crps_fit, chunk=LARGE_TEST)
+        preds = {r: exact_mod.exact_predictive_diag_large(x, y, xt, crps_fit, chunk=LARGE_TEST,
+                                                          storage=torch.float16, refine=r)
+                 for r in (0, 8)}
+        torch.cuda.empty_cache()
+        f64 = f64_predictive(x, y, xt, crps_fit)
+        torch.cuda.empty_cache()
+    gaps = {}
+    for name, pr in [("fp32", f32), ("f16", preds[0]), ("f16 refine 8", preds[8])]:
+        gaps[name] = (rel_max(pr.mean, f64[0]), rel_max(pr.cov, f64[1]),
+                      rel_max(pr.mean, f32.mean), rel_max(pr.cov, f32.cov))
+    log(f"[precision] the crps fit's large-n predictive at {LARGE_TEST} test points, relative to "
+        "the largest entry (mean, variance) against float64 | against the fp32 predictive: "
+        + "; ".join(f"{k} {a:.3g}, {b:.3g} | {c:.3g}, {d:.3g}" for k, (a, b, c, d) in gaps.items())
+        + f" (limit {LARGE_EVAL_RTOL} for f16 refine 8 against float64)")
+    check(max(gaps["f16 refine 8"][:2]) <= LARGE_EVAL_RTOL, "refined f16 predictive", gaps)
+
+    # 8. The large_n experiment under --matmul at a cut size.
+    drivers = {}
+    for mode in ("bf16", "high"):
+        argv = DRIVER_LARGE + ["--rules", "crps", "dss", "--matmul", mode]
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            drivers[mode] = large_n.main(argv + ["--device", str(dev)])
+        for rule, rec in drivers[mode].items():
+            check(all(np.isfinite(rec[k]) for k in ("loss_first", "loss_last", *METRICS))
+                  and "unrecovered_iters" not in rec, "large_n", mode, rec)
+        log(f"[precision-large_n] {' '.join(argv)}: {time.perf_counter() - t0:.2f} s; "
+            + "; ".join(f"{r} s_per_iter_steady {rec['s_per_iter_steady']:.4f}, recovery "
+                        f"{rec['recovery']}, eval {rec['eval_storage']}, test crps {rec['crps']:.5f}"
+                        for r, rec in drivers[mode].items()))
+    torch.cuda.synchronize()
+    launches = dict(gram_cuda.LAUNCHES)
+    log(f"[precision] modes x rules at n = {n}, the recovering fits, the predictives and the "
+        f"drivers: kernel launches {launches}")
+    for k, v in launches.items():
+        check(v > 0, f"kernel {k} was not launched on the precision path")
+    del x, y, xt
+    torch.cuda.empty_cache()
+
+    # 6. Replayed FITC fits under "high" and "fast", equal to eager bit for bit.
+    # FITC's products are short, so "high" runs them IEEE; "fast" takes one
+    # TF32 pass at every size, so its graph holds TF32 kernels.
+    data = load_kin40k()
+    gpu = kin40k_replicate_split(data, 0, device=dev)
+    sched = SCHEDULES[("kin40k_fitc", "crps")]
+    loss = make_objective("crps", model="fitc")
+    p_fitc = kin40k_fitc20_init(dev)
+    top = fit_gd(loss, p_fitc, gpu.train_x, gpu.train_y, GRAPH_STEPS, sched.lr, sched.lr_inducing,
+                 graph=False)
+    for mode in ("high", "fast"):
+        with precision.matmul_mode(mode):
+            runs = [fit_gd(loss, p_fitc, gpu.train_x, gpu.train_y, GRAPH_STEPS, sched.lr,
+                           sched.lr_inducing, record_params=True, graph=g) for g in (False, True)]
+        differ = fits_equal(runs[1], runs[0])
+        check(not differ, mode, "replayed vs eager", differ, first_parting(runs[1], runs[0]))
+        if mode == "fast":
+            check(first_parting(runs[0], top) is not None, mode, "no TF32 pass in the fit")
+        h = runs[1].loss_history
+        log(f"[precision] FITC-20 crps under {mode}, {GRAPH_STEPS} steps replayed against eager: "
+            f"{'equal bit for bit' if not differ else 'DIFFERENT'} (histories, final parameters, "
+            f"stall_iters); loss {float(h[0]):.6f} -> {float(h[-1]):.6f}, first step apart from "
+            f"the highest fit: {first_parting(runs[0], top)}")
+    assert not PREC_FAILED, PREC_FAILED
+    return launches, gemm
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs a CUDA card")
@@ -1344,9 +1754,10 @@ def main():
     phase_pool(dev)
     launches["exact"] = phase_exact(dev)
     phase_drivers(dev)
-    launches["large_n"] = phase_large_n(dev)
+    launches["large_n"], crps_fit = phase_large_n(dev)
     launches["large_n_folds"] = phase_folds(dev)
     launches["graph"] = phase_graph(dev)
+    launches["precision"], _ = phase_precision(dev, crps_fit, times)
     kernels = []
     for name, key in KERNELS:
         on_path = times[(name, *TIMED_SHAPES[0])]
@@ -1357,9 +1768,11 @@ def main():
                         "max_abs_err": err[name], "ms": on_path["ms"],
                         "plain_ms": on_path["plain_ms"], "bound_ms": on_path["bound_ms"],
                         "bound_by": on_path["bound_by"], "library_ms": None,
-                        "shapes": {"x".join(map(str, s)): times[(name, *s)]
-                                   for s in TIMED_SHAPES + FWD_SHAPES
-                                   if (name, *s) in times}})
+                        "shapes": {**{"x".join(map(str, s)): times[(name, *s)]
+                                      for s in TIMED_SHAPES + FWD_SHAPES
+                                      if (name, *s) in times},
+                                   **{"x".join(map(str, k[1:4])) + "/" + k[4]: t
+                                      for k, t in times.items() if k[0] == name and len(k) == 5}}})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

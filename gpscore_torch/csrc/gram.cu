@@ -22,10 +22,13 @@
 //   fwd_plan, bwd_rows_plan, bwd_cols_plan), which size them from the card's
 //   SM count; every call is one launch.
 //
-// All arrays are row-major, contiguous fp32; sig is a device scalar, so no
-// launch needs a host sync. Every entry point launches on the caller's stream
-// and returns cudaGetLastError().
+// All arrays are row-major, contiguous fp32 (gram_fwd's output may also be
+// bfloat16 or float16); sig is a device scalar, so no launch needs a host
+// sync. Every entry point launches on the caller's stream and returns
+// cudaGetLastError().
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -159,11 +162,62 @@ __device__ __forceinline__ void stage_tile(float* dst, int dst_pitch, const floa
 // What bounds it now (H100 SXM, 700 W, chip_smoke.py phase 3): at 8192 x 8192
 // x 8 the bytes, 97 us against the 80 us bound (the first version took 295);
 // at the main path's shapes the launch, 1.6-2.7 us of device time.
-template <int RT>
+//
+// The output type OutT is float, or a 2-byte storage type (__nv_bfloat16,
+// __half) for the large-n cores' reduced-precision modes, where K_hat is
+// written straight into the 2-byte n x n buffer (the semantics of the JAX
+// package's _gram_khat_full, potri_inplace.py:274-290: an fp32 Gram, the noise
+// added, rounded once to the storage type). Each value is computed in fp32 as
+// for the float output, diag (a device scalar; null for none) is added with
+// one IEEE fp32 add where the global row equals the global column, and the
+// sum is rounded once to nearest. The four outputs of a row go out as one
+// store of 4 * sizeof(OutT) bytes where aligned: 16 bytes for float, 8 for
+// the 2-byte types. The output bytes halve, so does the bound at 30720^2.
+template <typename OutT>
+struct Out4;
+
+template <>
+struct Out4<float> {
+  static constexpr bool kDiag = false;  // an fp32 K takes its diagonal after the launch
+  __device__ __forceinline__ static float one(float v) { return v; }
+  __device__ __forceinline__ static void store(float* o, const float* v) {
+    *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+
+template <>
+struct Out4<__nv_bfloat16> {
+  static constexpr bool kDiag = true;
+  __device__ __forceinline__ static __nv_bfloat16 one(float v) { return __float2bfloat16_rn(v); }
+  __device__ __forceinline__ static void store(__nv_bfloat16* o, const float* v) {
+    __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+    __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+    uint2 u;
+    u.x = *reinterpret_cast<unsigned*>(&lo);
+    u.y = *reinterpret_cast<unsigned*>(&hi);
+    *reinterpret_cast<uint2*>(o) = u;
+  }
+};
+
+template <>
+struct Out4<__half> {
+  static constexpr bool kDiag = true;
+  __device__ __forceinline__ static __half one(float v) { return __float2half_rn(v); }
+  __device__ __forceinline__ static void store(__half* o, const float* v) {
+    __half2 lo = __floats2half2_rn(v[0], v[1]);
+    __half2 hi = __floats2half2_rn(v[2], v[3]);
+    uint2 u;
+    u.x = *reinterpret_cast<unsigned*>(&lo);
+    u.y = *reinterpret_cast<unsigned*>(&hi);
+    *reinterpret_cast<uint2*>(o) = u;
+  }
+};
+
+template <int RT, typename OutT>
 __global__ void __launch_bounds__(kThreads)
 gram_fwd_kernel(const float* __restrict__ xs, const float* __restrict__ xps,
-                const float* __restrict__ sig, float* __restrict__ out,
-                int n, int m, int d, int col_threads) {
+                const float* __restrict__ sig, const float* __restrict__ diag,
+                OutT* __restrict__ out, int n, int m, int d, int col_threads) {
   extern __shared__ __align__(16) float smem[];
   const int row_groups = kThreads / col_threads;
   const int rows_tile = row_groups * RT;
@@ -211,7 +265,8 @@ gram_fwd_kernel(const float* __restrict__ xs, const float* __restrict__ xps,
     }
   }
   const float s = *sig;
-  const bool vec = (m & 3) == 0 && aligned16(out);
+  const bool vec = (m & 3) == 0 &&
+                   (reinterpret_cast<uintptr_t>(out) & (kFwdColsPerThread * sizeof(OutT) - 1)) == 0;
 #pragma unroll
   for (int r = 0; r < RT; ++r) {
     const int ri = ty + r * row_groups;
@@ -219,13 +274,24 @@ gram_fwd_kernel(const float* __restrict__ xs, const float* __restrict__ xps,
     float v[kFwdColsPerThread];
 #pragma unroll
     for (int q = 0; q < kFwdColsPerThread; ++q) v[q] = s * expf(-0.5f * d2[r][q]);
-    float* o = out + (size_t)(i0 + ri) * m + j0 + c;
+    if constexpr (Out4<OutT>::kDiag) {
+      if (diag != nullptr) {
+        const int q = i0 + ri - (j0 + c);  // the column of this row's diagonal, if it is ours
+        if (q >= 0 && q < kFwdColsPerThread) {
+#pragma unroll
+          for (int u = 0; u < kFwdColsPerThread; ++u) {
+            if (u == q) v[u] = __fadd_rn(v[u], *diag);
+          }
+        }
+      }
+    }
+    OutT* o = out + (size_t)(i0 + ri) * m + j0 + c;
     if (vec) {  // then w % 4 == 0, so all four columns are in the tile
-      *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+      Out4<OutT>::store(o, v);
     } else {
 #pragma unroll
       for (int q = 0; q < kFwdColsPerThread; ++q) {
-        if (c + q < w) o[q] = v[q];
+        if (c + q < w) o[q] = Out4<OutT>::one(v[q]);
       }
     }
   }
@@ -715,17 +781,31 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <int RT>
-cudaError_t launch_fwd(const float* xs, const float* xps, const float* sig, float* out, int n,
-                       int m, int d, int col_threads, cudaStream_t stream) {
+template <int RT, typename OutT>
+cudaError_t launch_fwd(const float* xs, const float* xps, const float* sig, const float* diag,
+                       void* out, int n, int m, int d, int col_threads, cudaStream_t stream) {
   const int rows_tile = kThreads / col_threads * RT;
   const int col_tile = kFwdColsPerThread * col_threads;
   const size_t smem = fwd_smem_floats(rows_tile, col_tile, d) * sizeof(float);
-  const cudaError_t err = allow_smem(gram_fwd_kernel<RT>, smem);
+  const cudaError_t err = allow_smem(gram_fwd_kernel<RT, OutT>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((m + col_tile - 1) / col_tile, (n + rows_tile - 1) / rows_tile);
-  gram_fwd_kernel<RT><<<grid, kThreads, smem, stream>>>(xs, xps, sig, out, n, m, d, col_threads);
+  gram_fwd_kernel<RT, OutT><<<grid, kThreads, smem, stream>>>(
+      xs, xps, sig, diag, static_cast<OutT*>(out), n, m, d, col_threads);
   return cudaGetLastError();
+}
+
+template <typename OutT>
+cudaError_t launch_fwd_rt(int rows_per_thread, const float* xs, const float* xps,
+                          const float* sig, const float* diag, void* out, int n, int m, int d,
+                          int col_threads, cudaStream_t stream) {
+  switch (rows_per_thread) {
+    case 1: return launch_fwd<1, OutT>(xs, xps, sig, diag, out, n, m, d, col_threads, stream);
+    case 2: return launch_fwd<2, OutT>(xs, xps, sig, diag, out, n, m, d, col_threads, stream);
+    case 4: return launch_fwd<4, OutT>(xs, xps, sig, diag, out, n, m, d, col_threads, stream);
+    case 8: return launch_fwd<8, OutT>(xs, xps, sig, diag, out, n, m, d, col_threads, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <int DMAX>
@@ -766,25 +846,35 @@ bool bad_shape(int n, int m, int d) { return n < 0 || m < 0 || d < 1 || d > kMax
 
 extern "C" {
 
-// out[n, m] = sig * exp(-1/2 |xs_i - xps_j|^2); xs [n, d], xps [m, d], sig [1].
+// out[n, m] = sig * exp(-1/2 |xs_i - xps_j|^2) (+ *diag where i == j, when
+// diag is not null), rounded once to the output type out_type: 0 float, 1
+// bfloat16, 2 float16. xs [n, d], xps [m, d], sig [1], diag [1] or null;
+// diag only with a 2-byte output (the float instantiation carries no
+// diagonal code, so an fp32 K adds its diagonal after the launch).
 // col_threads (8, 16, 32 or 64) and rows_per_thread (1, 2, 4 or 8) are the
 // plan's (ops/gram_cuda.py::fwd_plan).
-int gram_fwd(const float* xs, const float* xps, const float* sig, float* out,
-             int n, int m, int d, int col_threads, int rows_per_thread, void* stream) {
+int gram_fwd(const float* xs, const float* xps, const float* sig, const float* diag, void* out,
+             int n, int m, int d, int col_threads, int rows_per_thread, int out_type,
+             void* stream) {
   if (bad_shape(n, m, d) || (col_threads != 8 && col_threads != 16 && col_threads != 32 &&
                              col_threads != 64))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0 || m == 0) return static_cast<int>(cudaSuccess);
-  decltype(&launch_fwd<1>) launch;
-  switch (rows_per_thread) {
-    case 1: launch = launch_fwd<1>; break;
-    case 2: launch = launch_fwd<2>; break;
-    case 4: launch = launch_fwd<4>; break;
-    case 8: launch = launch_fwd<8>; break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (out_type) {
+    case 0:
+      if (diag != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+      return static_cast<int>(launch_fwd_rt<float>(rows_per_thread, xs, xps, sig, diag, out, n,
+                                                   m, d, col_threads, st));
+    case 1:
+      return static_cast<int>(launch_fwd_rt<__nv_bfloat16>(rows_per_thread, xs, xps, sig, diag,
+                                                           out, n, m, d, col_threads, st));
+    case 2:
+      return static_cast<int>(launch_fwd_rt<__half>(rows_per_thread, xs, xps, sig, diag, out, n,
+                                                    m, d, col_threads, st));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(
-      launch(xs, xps, sig, out, n, m, d, col_threads, static_cast<cudaStream_t>(stream)));
 }
 
 // d_xs[n, d] = sum_j W_ij (xps_j - xs_i), rowsum[n] = sum_j W_ij, W = g * K,

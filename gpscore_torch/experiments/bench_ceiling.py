@@ -1,8 +1,10 @@
 """One exact objective's value-and-grad at large n, measured (port of
 `experiments/bench_ceiling.py`, minimal).
 
-    python -m gpscore_torch.experiments.bench_ceiling --n 65536 --rule crps [--block 0]
+    python -m gpscore_torch.experiments.bench_ceiling --n 65536 --rule crps [--block 0] \\
+        [--matmul highest|high|fast|bf16|f16]
     python -m gpscore_torch.experiments.bench_ceiling --crossover 2048 4096 8192
+    python -m gpscore_torch.experiments.bench_ceiling --ceiling 98304 8192 --rule crps --matmul high
 
 The step is ``make_objective(rule, model="exact")``'s: the fused cores from
 the objectives' threshold on, the dense path below; es draws from a seeded
@@ -16,14 +18,23 @@ generator on the device. Prints one JSON line on a CUDA card:
   over torch.profiler's CUDA events, and the share of that step's wall time
   the card is idle;
   ``busy_by_kind``: that time by kind of kernel (:func:`kernel_kind`);
-- ``tflops``: the step's FLOP (:func:`step_flop`) over ``step_s``;
+- ``tflops``: the step's FLOP (:func:`step_flop`, the "highest" count in
+  every mode, so that the modes compare) over ``step_s``;
 - the card's ``nvidia-smi`` name and power limit.
+
+The step runs under ``--matmul`` (:mod:`gpscore_torch.utils.precision`).
 
 With ``--device cpu`` the device fields are null.
 
 ``--crossover`` instead times the dense and the fused step of crps and dss
 at each given n (:func:`crossover`) and prints one JSON line per n, rule and
 path: the table the objectives' threshold ``_FUSED_LOO_MIN_N`` is set from.
+
+``--ceiling FROM STEP`` takes one value-and-grad of ``--rule`` at n = FROM,
+FROM + STEP, ... under ``--matmul`` (:func:`ceiling`), one JSON line each,
+until the card runs out of memory or a step takes longer than
+``CEILING_MAX_S``; the last line names the largest n that fitted: the
+fp32-storage ceilings of ``fit.train._FP32_STORAGE_CEILING_N`` come from it.
 """
 
 from __future__ import annotations
@@ -40,9 +51,13 @@ from gpscore_torch.experiments.common import resolve_device, synchronize
 from gpscore_torch.fit import make_objective, objectives
 from gpscore_torch.ops.loo_fused import auto_block
 from gpscore_torch.utils.params import GPParams
+from gpscore_torch.utils.precision import MODES, matmul_mode
 
 RULES = ("crps", "logs", "interval", "nlml", "dss", "kc", "es")
 FOLD_RULES = ("dss", "kc", "es")
+# The --ceiling search stops after a step this long (seconds): a few minutes
+# of chip time per size at most.
+CEILING_MAX_S = 180.0
 
 
 def make_data(n: int, d: int, seed: int = 0):
@@ -91,7 +106,7 @@ def value_and_grad(loss, params, x, y, **kw):
 KERNEL_KINDS = (("gram", ("gram_",)),
                 ("solver", ("potrf", "potf2", "getrf", "trsm", "trsv", "trtri", "syrk",
                             "chol")),
-                ("gemm", ("gemm", "gemv", "xmma", "cutlass")))
+                ("gemm", ("gemm", "gemv", "xmma", "cutlass", "nvjet")))
 
 
 def kernel_kind(name: str) -> str:
@@ -178,6 +193,42 @@ def crossover(sizes, d: int, repeats: int, device, rules=("crps", "dss")):
     return records
 
 
+def ceiling(start: int, step: int, rule: str, d: int, device, max_s: float = CEILING_MAX_S):
+    """One value-and-grad of ``rule`` at n = start, start + step, ... on the
+    card, under the current precision mode: a record per n with ``step_s``
+    (host clock, synchronized, including the first call's set-up) and
+    ``peak_n2``, or ``"oom": true`` for the first n that ran out of device
+    memory, where the search stops; it stops too after a step longer than
+    ``max_s`` seconds. Returns (records, the largest n that fitted or None)."""
+    records, fitted, n = [], None, start
+    while True:
+        torch.cuda.empty_cache()
+        rec = {"n": n, "rule": rule}
+        try:
+            x, y = (t.to(device) for t in make_data(n, d))
+            loss = make_objective(rule, model="exact")
+            kw = {"generator": torch.Generator(device=device).manual_seed(0)} \
+                if rule == "es" else {}
+            torch.cuda.reset_peak_memory_stats(device)
+            synchronize(device)
+            t0 = time.perf_counter()
+            value, _ = value_and_grad(loss, _params(0, d, device), x, y, **kw)
+            synchronize(device)
+            rec.update(step_s=time.perf_counter() - t0, loss=float(value),
+                       peak_n2=torch.cuda.max_memory_allocated(device) / (4.0 * n * n),
+                       oom=False)
+        except torch.cuda.OutOfMemoryError as e:
+            rec.update(oom=True, error=str(e).splitlines()[0][:200])
+        records.append(rec)
+        if rec["oom"]:
+            return records, fitted
+        fitted = n
+        if rec["step_s"] > max_s:
+            return records, fitted
+        del x, y
+        n += step
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=30720)
@@ -189,9 +240,30 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", help="torch device (default cuda)")
     ap.add_argument("--crossover", type=int, nargs="+", default=None, metavar="N",
                     help="time the dense and the fused crps and dss step at each N instead")
+    ap.add_argument("--matmul", default="highest", choices=list(MODES),
+                    help="precision mode of the step (gpscore_torch.utils.precision)")
+    ap.add_argument("--ceiling", type=int, nargs=2, default=None, metavar=("FROM", "STEP"),
+                    help="one step at n = FROM, FROM + STEP, ... until the card runs out of "
+                         "memory instead")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    with matmul_mode(args.matmul):
+        return _run(args, device)
+
+
+def _run(args, device):
+    if args.ceiling:
+        if device.type != "cuda":
+            raise SystemExit("--ceiling measures the card's memory: it needs --device cuda")
+        records, fitted = ceiling(*args.ceiling, args.rule, args.d, device)
+        smi = nvidia_smi_line()
+        for rec in records:
+            print(json.dumps(dict(rec, matmul=args.matmul, nvidia_smi=smi), sort_keys=True),
+                  flush=True)
+        print(json.dumps({"rule": args.rule, "matmul": args.matmul, "ceiling_n": fitted,
+                          "nvidia_smi": smi}), flush=True)
+        return records
     if args.crossover:
         records = crossover(args.crossover, args.d, args.repeats, device)
         smi = nvidia_smi_line() if device.type == "cuda" else "cpu"
@@ -203,7 +275,7 @@ def main(argv=None):
     loss = make_objective(args.rule, model="exact", block=block)
     kw = {"generator": torch.Generator(device=device).manual_seed(0)} if args.rule == "es" else {}
 
-    rec = {"rule": args.rule, "n": args.n, "d": args.d, "block": block}
+    rec = {"rule": args.rule, "n": args.n, "d": args.d, "block": block, "matmul": args.matmul}
     t0 = time.perf_counter()
     value, _ = value_and_grad(loss, _params(0, args.d, device), x, y, **kw)
     synchronize(device)

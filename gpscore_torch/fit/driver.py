@@ -16,6 +16,7 @@ from gpscore_torch.models.exact import exact_predictive
 from gpscore_torch.models.fitc import fitc_predictive
 from gpscore_torch.ops.kernels import gram
 from gpscore_torch.utils.params import GPParams
+from gpscore_torch.utils.precision import matmul_mode
 
 
 def eval_predictive_metrics(
@@ -23,10 +24,11 @@ def eval_predictive_metrics(
 ) -> EvalMetrics:
     """The six-metric suite of the test predictive at fitted params. The exact
     GP builds its three Grams (train x train, test x train, test x test)
-    through the Gram kernel."""
+    through the Gram kernel. Always in the "highest" precision mode: a
+    reduced mode is for the fit's iterations only, as in the JAX package."""
     if model not in ("exact", "fitc"):
         raise ValueError(f"unknown model {model!r}")
-    with torch.no_grad():
+    with torch.no_grad(), matmul_mode("highest"):
         if model == "exact":
             sig, ll = p.log_signal_sq, p.log_length
             k_ff = gram(train_x, train_x, sig, ll, kind=kernel)

@@ -104,31 +104,92 @@ def exact_predictive_diag_large(x, y, x_test, params, *, block=None,
     (700 W) (1.4e-3 at n = 8192 against an fp64 solve on the CPU, where the
     factor's sum of squares is 5e-7).
 
+    ``storage`` (bfloat16 or float16) keeps L in 2 bytes, for fits beyond
+    the fp32 buffer's ceiling: the solves are then blocked substitutions
+    (:func:`~gpscore_torch.ops.potri_inplace.tri_solve_stored`), and the
+    metrics are 2-byte grade. ``refine`` > 0 (with ``storage``) runs that
+    many iterations of the JAX function's safeguarded preconditioned CG on
+    every solve (`exact.py:136-181`): the preconditioner M = L^-T L^-1
+    through the 2-byte factor, the operator the exact K_hat, recomputed in
+    fp32 panels (:func:`~gpscore_torch.ops.potri_inplace.ard_khat_matmul_streamed`),
+    steps whose curvature pq is not positive and finite masked per column,
+    and the iterate of the least residual returned; the variance is then
+    noise + signal - k*^T (K_hat^-1 k*) off the refined solve. Without
+    ``storage``, ``refine`` is ignored, as in the JAX function.
+
     ``block`` is the Cholesky's panel width (None: ``auto_block``, as the
-    fused cores take it). Peak ~n^2 + O(n chunk). Not differentiable. Only
-    fp32 storage is ported:
-    ``storage`` and ``refine`` (the 2-byte-stored inverse and its refinement)
-    raise ``NotImplementedError``."""
-    if refine:
-        raise NotImplementedError(
-            "refine serves the 2-byte-stored inverse, which is not ported (ROADMAP.md, "
-            "queue 1, item 1: the precision modes)")
-    potri_inplace.check_storage(storage)
+    fused cores take it). Peak ~n^2 (half of it with ``storage``) +
+    O(n chunk); refinement holds six fp32 [n, chunk] iterates. Not
+    differentiable."""
+    st = torch.float32 if storage is None else storage
     with torch.no_grad():
-        L, _ = potri_inplace.ard_gram_chol_inplace(
-            params.log_signal_sq, params.log_length, params.log_noise_sq, x,
-            loo_fused._resolve_block(x, block))
-        alpha = linalg.chol_solve_from_factor(L, y.reshape(-1, 1))[:, 0]
+        block = loo_fused._resolve_block(x, block)
+        lp = (params.log_signal_sq, params.log_length, params.log_noise_sq, x)
+        L, _ = potri_inplace.ard_gram_chol_inplace(*lp, block, storage=st)
         xs = gram_cuda.scale_inputs(x, params.log_length)
         sig = params.signal_sq
+        if st == torch.float32:
+            def half_solve(B):
+                return linalg.tri_solve(L, B)
+
+            def solve(B):
+                return linalg.chol_solve_from_factor(L, B)
+        else:
+            def half_solve(B):
+                return potri_inplace.tri_solve_stored(L, B, block)
+
+            def precond(R):
+                return potri_inplace.tri_solve_stored(L, half_solve(R), block, trans=True)
+
+            def solve(B):
+                return _pcg(precond, lambda V: potri_inplace.ard_khat_matmul_streamed(
+                    *lp[:3], x, V, block), B, refine)
+        alpha = solve(y.reshape(-1, 1))[:, 0]
         means, variances = [], []
         for c0 in range(0, x_test.shape[0], chunk):
             xt = gram_cuda.scale_inputs(x_test[c0:c0 + chunk], params.log_length)
             ks = gram_cuda.gram_fwd(xs, xt, sig)  # [n, chunk]
             means.append(matmul(alpha[None, :], ks)[0])
-            V = linalg.tri_solve(L, ks)
-            variances.append(params.noise_sq + sig - torch.sum(V * V, dim=0))
+            if st != torch.float32 and refine > 0:
+                quad = torch.sum(ks * solve(ks), dim=0)
+            else:
+                V = half_solve(ks)
+                quad = torch.sum(V * V, dim=0)
+            variances.append(params.noise_sq + sig - quad)
         return Gaussian(torch.cat(means), torch.cat(variances))
+
+
+def _pcg(precond, khat_mul, B, iters: int):
+    """K_hat^-1 B [n, c] by ``iters`` steps of preconditioned CG from X =
+    M B, batched over columns, safeguarded as the JAX function is
+    (`exact.py:136-181`): a step whose pq is not positive and finite (a
+    converged column's roundoff) is masked for that column, and the iterate
+    of the least residual norm is returned, never worse than M B."""
+    X = precond(B)
+    if iters <= 0:
+        return X
+    R = B - khat_mul(X)
+    Z = precond(R)
+    P, Xb, rb = Z, X, torch.sum(R * R, dim=0)
+    for _ in range(iters):
+        Q = khat_mul(P)
+        rz = torch.sum(R * Z, dim=0)
+        pq = torch.sum(P * Q, dim=0)
+        ok = (pq > 1e-30) & torch.isfinite(pq) & torch.isfinite(rz)
+        a = torch.where(ok, rz / torch.where(ok, pq, torch.ones_like(pq)), torch.zeros_like(pq))
+        X = X + a * P
+        R = R - a * Q
+        Z = precond(R)
+        rz2 = torch.sum(R * Z, dim=0)
+        okb = ok & (rz.abs() > 1e-30) & torch.isfinite(rz2)
+        beta = torch.where(okb, rz2 / torch.where(okb, rz, torch.ones_like(rz)),
+                           torch.zeros_like(rz))
+        P = Z + beta * P
+        rn = torch.sum(R * R, dim=0)
+        better = rn < rb
+        Xb = torch.where(better, X, Xb)
+        rb = torch.where(better, rn, rb)
+    return Xb
 
 
 def loo_exact(k_ff, y, noise_sq) -> Gaussian:

@@ -49,6 +49,16 @@ and es backward two; every stream holds one. The JAX module forms the
 explicit factor inverse and its own in-place fold stages, pads the blocks to
 a panel grid and sums the rank-1 term through a separate Gram pass, for XLA
 and its chip; here the folds go to cuSOLVER and cuBLAS trsm as they are.
+
+Precision (:mod:`gpscore_torch.utils.precision`): in the "bf16"/"f16" modes
+K^-1 is 2-byte (`fold_stream.py:162-192`). Each fold's block is upcast to
+fp32 and factored there by cuSOLVER, one fp32 fold transient at a time (the
+JAX package's "per-fold fp32 upcast transients only"); everything per fold
+is fp32. The fold cotangent is rounded to the storage dtype before the
+sandwich, whose two products are native 2-byte passes with fp32 output, the
+first rounded again (`:245-253`); the es normals are rounded to the storage
+dtype (`:523`, `:561`). In fp32 storage the code is the same, with every
+rounding a no-op.
 """
 
 from __future__ import annotations
@@ -56,7 +66,7 @@ from __future__ import annotations
 import torch
 
 from gpscore_torch.ops import linalg, loo_fused
-from gpscore_torch.utils.precision import matmul
+from gpscore_torch.utils.precision import TWO_BYTE, matmul, matmul_acc32, upcast
 
 
 def _check_folds(n: int, fold_k: int) -> int:
@@ -86,18 +96,19 @@ def _stream_folds(ctx, a_bar, fold_cot):
     tensor; u [nb]); ``a_bar`` [n] is the cotangent of the
     output a, and is updated in place."""
     Kinv, a, xs, sig, log_noise_sq, log_length = ctx.saved_tensors[:6]
-    k = ctx.fold_k
+    k, st = ctx.fold_k, Kinv.dtype
     nb = a.shape[0] // k
     sums, w = None, None
     for f in range(k):
         s = slice(f * nb, (f + 1) * nb)
-        S, u = fold_cot(f, Kinv[s, s])
+        S, u = fold_cot(f, upcast(Kinv[s, s]))
+        S = S.to(st)  # rounded once before the sandwich
         a_bar[s] += u
         if f == k - 1:  # a_bar is complete: the rank-1 term rides this pass
-            w = matmul(Kinv, a_bar.reshape(-1, 1))[:, 0]
+            w = loo_fused._w(Kinv, a_bar)
 
         def extra_rows(Kinv_b):  # rows of -K^-1[:, f] A_bar_f K^-1[f, :]
-            return matmul(matmul(Kinv_b[:, s], S), Kinv[s])
+            return matmul_acc32(matmul_acc32(Kinv_b[:, s], S).to(st), Kinv[s])
 
         part = loo_fused._stream_param_grads(Kinv, a, w, extra_rows, xs, sig, ctx.block)
         sums = part if sums is None else tuple(p + q for p, q in zip(sums, part))
@@ -120,7 +131,7 @@ class ArdFoldStatsStream(torch.autograd.Function):
         inv_diag = a.new_zeros((fold_k, nb))
         for f in range(fold_k):
             s = slice(f * nb, (f + 1) * nb)
-            La = linalg.chol_factor(Kinv[s, s])
+            La = linalg.chol_factor(upcast(Kinv[s, s]))
             hld[f] = linalg.half_logdet(La)
             e[f] = linalg.chol_solve_from_factor(La, a[s, None])[:, 0]
             if want_inv_diag:
@@ -168,11 +179,13 @@ class ArdFoldEsStream(torch.autograd.Function):
         nb = _check_folds(x.shape[0], fold_k)
         saved, _ = loo_fused._forward(ctx, log_signal_sq, log_length, log_noise_sq, x, y, block)
         Kinv, a = saved[:2]
+        if Kinv.dtype in TWO_BYTE:
+            eps = eps.to(Kinv.dtype).to(eps.dtype)  # the normals in the storage dtype
         e = a.new_empty((fold_k, nb))
         scores = a.new_empty((fold_k,))
         for f in range(fold_k):
             s = slice(f * nb, (f + 1) * nb)
-            La = linalg.chol_factor(Kinv[s, s])
+            La = linalg.chol_factor(upcast(Kinv[s, s]))
             e[f] = linalg.chol_solve_from_factor(La, a[s, None])[:, 0]
             zT = linalg.tri_solve(La, eps[f], trans=True)
             scores[f] = _es_from_cols(zT, e[f], num_sim, beta)

@@ -82,26 +82,31 @@ class Roofline(NamedTuple):
     bound_by: str  # "bytes" or "operations"
 
 
-def roofline(kernel: str, n: int, m: int, d: int) -> Roofline:
+def roofline(kernel: str, n: int, m: int, d: int, out_bytes: int = 4,
+             diag: bool = False) -> Roofline:
     """Roofline bound of one call of ``kernel`` ("gram_fwd", "gram_bwd_rows"
     or "gram_bwd_cols") at K of n x m on d inputs.
 
     Bytes: xs [n, d], xps [m, d] and sig are read by all three; the backward
-    kernels also read g [n, m]; outputs are K [n, m] (forward), d_xs [n, d]
-    and rowsum [n] (rows), d_xps [m, d] (columns). FLOPs per element of K:
-    3d + 3 for the forward (d differences and d FMAs, the scale, the exp and
-    sig), 6d + 6 for either backward half (the forward's, W = g * K, the sum
-    of W, d more differences and d more FMAs)."""
+    kernels also read g [n, m]; outputs are K [n, m] (forward, ``out_bytes``
+    an element: 2 for a bfloat16 or float16 K; with ``diag`` it also reads
+    the diagonal's scalar), d_xs [n, d] and rowsum [n] (rows), d_xps [m, d]
+    (columns). FLOPs per element of K: 3d + 3 for the forward (d differences
+    and d FMAs, the scale, the exp and sig), 6d + 6 for either backward half
+    (the forward's, W = g * K, the sum of W, d more differences and d more
+    FMAs)."""
     inputs = n * d + m * d + 1
+    out = 0
     if kernel == "gram_fwd":
-        floats, flops = inputs + n * m, (3 * d + 3) * n * m
+        floats, flops = inputs + int(diag), (3 * d + 3) * n * m
+        out = out_bytes * n * m
     elif kernel == "gram_bwd_rows":
         floats, flops = inputs + n * m + n * d + n, (6 * d + 6) * n * m
     elif kernel == "gram_bwd_cols":
         floats, flops = inputs + n * m + m * d, (6 * d + 6) * n * m
     else:
         raise ValueError(f"no roofline for kernel {kernel!r}")
-    nbytes = 4 * floats
+    nbytes = 4 * floats + out
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_FP32_FLOP_PER_S
     return Roofline(nbytes, flops, max(t_bytes, t_ops) * 1e6,
                     "bytes" if t_bytes >= t_ops else "operations")
@@ -237,15 +242,20 @@ def bwd_cols_plan(n: int, m: int, d: int, sms: int) -> BwdColsPlan:
 # ---- plain versions (CPU path, and the kernels' oracle on the card) ---------
 
 
-def gram_fwd_plain(xs, xps, sig):
+def gram_fwd_plain(xs, xps, sig, out_dtype=None, diag_add=None):
     """sig * exp(0.5 (2 xs.xps^T - |xs|^2 - |xps|^2)): the cross-term form of
-    the JAX ``ard_gram`` on pre-scaled inputs."""
+    the JAX ``ard_gram`` on pre-scaled inputs; with ``diag_add`` that scalar
+    added where i == j, then rounded once to ``out_dtype`` (None: the
+    inputs' dtype)."""
     neg_d2 = (
         2.0 * torch.matmul(xs, xps.T)
         - torch.sum(xs * xs, dim=-1, keepdim=True)
         - torch.sum(xps * xps, dim=-1, keepdim=True).T
     )
-    return sig * torch.exp(0.5 * neg_d2)
+    K = sig * torch.exp(0.5 * neg_d2)
+    if diag_add is not None:
+        K.diagonal().add_(diag_add)
+    return K if out_dtype is None else K.to(out_dtype)
 
 
 def gram_bwd_rows_plain(xs, xps, sig, g):
@@ -341,23 +351,41 @@ def _workspace(device, stream, tiles, scratch_shape):
     return ws
 
 
-def gram_fwd_cuda(xs, xps, sig):
-    """K [n, m] from the forward kernel, tiled by :func:`fwd_plan`."""
+# gram_fwd's output types, as csrc/gram.cu numbers them.
+OUT_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def gram_fwd_cuda(xs, xps, sig, out_dtype=None, diag_add=None):
+    """K [n, m] from the forward kernel, tiled by :func:`fwd_plan`, in
+    ``out_dtype`` (float32, None, bfloat16 or float16), with the scalar
+    tensor ``diag_add`` added where i == j before the one rounding: inside
+    the kernel for a 2-byte K, by one fp32 add after it for an fp32 K (the
+    fp32 kernel carries no diagonal code)."""
     _require_cuda(xs)
     _check(xs, xps, sig)
+    out_dtype = torch.float32 if out_dtype is None else out_dtype
+    if out_dtype not in OUT_TYPES:
+        raise TypeError(f"gram_fwd writes {sorted(map(str, OUT_TYPES))}, not {out_dtype}")
+    if diag_add is not None:
+        _check(xs, xps, diag_add)
     lib = _build.load_library()
     n, d = xs.shape
     m = xps.shape[0]
     plan = _device_plan(fwd_plan, xs.device, n, m, d)
-    out = torch.empty((n, m), dtype=torch.float32, device=xs.device)
+    out = torch.empty((n, m), dtype=out_dtype, device=xs.device)
     if not plan.launches:  # an empty K
         return out
+    in_kernel = diag_add is not None and out_dtype != torch.float32
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.gram_fwd(xs.data_ptr(), xps.data_ptr(), sig.data_ptr(), out.data_ptr(),
-                          n, m, d, plan.col_threads, plan.rows_per_thread, stream)
+        rc = lib.gram_fwd(xs.data_ptr(), xps.data_ptr(), sig.data_ptr(),
+                          diag_add.data_ptr() if in_kernel else None, out.data_ptr(),
+                          n, m, d, plan.col_threads, plan.rows_per_thread, OUT_TYPES[out_dtype],
+                          stream)
     _raise_if_failed("gram_fwd", rc)
     LAUNCHES["fwd"] += 1
+    if diag_add is not None and not in_kernel:
+        out.diagonal().add_(diag_add)
     return out
 
 
@@ -415,11 +443,12 @@ def gram_bwd_cuda(xs, xps, sig, g):
     return d_xs, gram_bwd_cols_cuda(xs, xps, sig, g), row
 
 
-def gram_fwd(xs, xps, sig):
-    """K of pre-scaled inputs: the kernel on CUDA, the plain version on CPU."""
+def gram_fwd(xs, xps, sig, out_dtype=None, diag_add=None):
+    """K of pre-scaled inputs (in ``out_dtype``, with ``diag_add`` on the
+    diagonal): the kernel on CUDA, the plain version on CPU."""
     if xs.device.type == "cpu":
-        return gram_fwd_plain(xs, xps, sig)
-    return gram_fwd_cuda(xs, xps, sig)
+        return gram_fwd_plain(xs, xps, sig, out_dtype, diag_add)
+    return gram_fwd_cuda(xs, xps, sig, out_dtype, diag_add)
 
 
 def gram_bwd(xs, xps, sig, g):

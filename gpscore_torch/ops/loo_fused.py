@@ -28,6 +28,16 @@ d_xps_b the kernels' outputs (as in :class:`~gpscore_torch.ops.gram_cuda.ArdGram
 
 The gradients go to the three log-parameters and to y; x gets none, as in
 the JAX package.
+
+Precision (:mod:`gpscore_torch.utils.precision`): the forward runs at
+``storage_dtype()``, so in the "bf16"/"f16" modes K^-1 is a 2-byte n x n
+buffer (`loo_fused.py:127-141`). Everything of size O(n) stays fp32: a =
+matmul_acc32(K^-1, y rounded to the storage dtype), the diagonal upcast. The
+backward's [b, n] products read K^-1 through ``matmul_acc32`` with the
+left operand rounded to the storage dtype (`:380-384`), so the cotangent
+rows that reach the Gram backward kernels are fp32 in every mode
+(`:169-172`). In "high"/"fast" the products are the modes' TF32 passes on the
+fp32 K^-1, split one [n, 1024] column panel of K^-1 at a time.
 """
 
 from __future__ import annotations
@@ -37,7 +47,8 @@ import math
 import torch
 
 from gpscore_torch.ops import gram_cuda, linalg, potri_inplace
-from gpscore_torch.utils.precision import matmul
+from gpscore_torch.utils.precision import (TWO_BYTE, matmul, matmul_acc32, storage_dtype,
+                                           upcast)
 
 # ~4 fp32 [n, block] temporaries are live at the backward's peak (the K^-1
 # row block scaled by the cotangent, its product with K^-1, and the kernels'
@@ -58,19 +69,22 @@ def _device_budget(device) -> float:
     return free + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
 
 
-def auto_block(n: int, budget_bytes=None, device=None) -> int:
+def auto_block(n: int, budget_bytes=None, device=None, storage_bytes=None) -> int:
     """Panel and stream width for the fused cores at size ``n``
     (`loo_fused.py:86-106`): the widest of 2048, 1024 and 512 that divides n
     and whose ~4 fp32 [n, block] temporaries fit in the budget next to the
-    n^2 fp32 inverse; the narrowest divisor when none fits; 2048 (a ragged
-    last panel) when none divides. ``budget_bytes`` defaults to what
-    ``device`` has left (:func:`_device_budget`)."""
+    n^2 inverse of ``storage_bytes`` an entry (None: the mode's storage
+    dtype's); the narrowest divisor when none fits; 2048 (a ragged last
+    panel) when none divides. ``budget_bytes`` defaults to what ``device``
+    has left (:func:`_device_budget`)."""
     cands = [c for c in (2048, 1024, 512) if n % c == 0]
     if not cands:
         return 2048
     if budget_bytes is None:
         budget_bytes = _device_budget(device)
-    free = budget_bytes - 4.0 * n * n
+    if storage_bytes is None:
+        storage_bytes = storage_dtype().itemsize
+    free = budget_bytes - float(storage_bytes) * n * n
     for c in cands:
         if _STREAM_TEMP_ROWS * 4.0 * n * c <= free:
             return c
@@ -100,9 +114,15 @@ def _stream_param_grads(Kinv, a, w, extra_rows, xs, sig, block: int):
         trace = trace + torch.sum(torch.diagonal(g[:, r0:r1]))
         xs_b = xs[r0:r1]
         d_xs, d_xps, row = gram_cuda.gram_bwd(xs_b, xs, sig, g)
+        del g  # before the next block's rows exist
         sig_bar = sig_bar + torch.sum(row)
         len_bar = len_bar - torch.sum(d_xs * xs_b, dim=0) - torch.sum(d_xps * xs, dim=0)
     return sig_bar, len_bar, trace
+
+
+def _w(Kinv, a_bar):
+    """K^-1 a_bar [n] (fp32), a_bar rounded to K^-1's storage dtype."""
+    return matmul_acc32(Kinv, a_bar.reshape(-1, 1).to(Kinv.dtype))[:, 0]
 
 
 def _length_grad(len_bar, log_length):
@@ -119,9 +139,10 @@ def _forward(ctx, log_signal_sq, log_length, log_noise_sq, x, y, block, half_log
     scaled inputs, the signal variance and two log-parameters; the half
     log-det or None)."""
     out = potri_inplace.ard_gram_inverse_inplace(log_signal_sq, log_length, log_noise_sq, x,
-                                                 block, return_half_logdet=half_logdet)
+                                                 block, return_half_logdet=half_logdet,
+                                                 storage=storage_dtype())
     Kinv = out[0] if half_logdet else out
-    a = matmul(Kinv, y.reshape(-1, 1))[:, 0]
+    a = matmul_acc32(Kinv, y.reshape(-1, 1).to(Kinv.dtype))[:, 0]
     xs = gram_cuda.scale_inputs(x, log_length)
     ctx.block = block
     saved = (Kinv, a, xs, torch.exp(log_signal_sq), log_noise_sq, log_length)
@@ -152,15 +173,17 @@ class ArdLooSolveDiag(torch.autograd.Function):
         saved, _ = _forward(ctx, log_signal_sq, log_length, log_noise_sq, x, y, block)
         ctx.save_for_backward(*saved)
         Kinv, a = saved[:2]
-        return a, torch.diagonal(Kinv).clone()
+        return a, upcast(torch.diagonal(Kinv)).clone()
 
     @staticmethod
     def backward(ctx, a_bar, d_bar):
         Kinv = ctx.saved_tensors[0]
-        w = matmul(Kinv, a_bar.reshape(-1, 1))[:, 0]
+        w = _w(Kinv, a_bar)
 
         def extra_rows(Kinv_b):  # rows of -K^-1 diag(d_bar) K^-1
-            return matmul(Kinv_b * d_bar[None, :], Kinv).neg_()
+            # The left factor in K^-1's dtype: a 2-byte one rounded once, no fp32 block.
+            M = torch.mul(Kinv_b, d_bar[None, :], out=torch.empty_like(Kinv_b))
+            return matmul_acc32(M, Kinv).neg_()
 
         s_bar, l_bar, n_bar = _backward(ctx, w, extra_rows)
         return s_bar, l_bar, n_bar, None, w, None
@@ -180,18 +203,26 @@ class ArdKfoldSolveBlocks(torch.autograd.Function):
         ctx.save_for_backward(*saved)
         ctx.fold_k = fold_k
         Kinv, a = saved[:2]
-        return a, linalg._fold_blocks(Kinv, fold_k).contiguous()
+        return a, upcast(linalg._fold_blocks(Kinv, fold_k)).contiguous()
 
     @staticmethod
     def backward(ctx, a_bar, A_bar):
         Kinv = ctx.saved_tensors[0]
         n, k = Kinv.shape[0], ctx.fold_k
-        w = matmul(Kinv, a_bar.reshape(-1, 1))[:, 0]
+        w = _w(Kinv, a_bar)
+        st = Kinv.dtype
+        A_st = A_bar.to(st)
 
         def extra_rows(Kinv_b):  # rows of -K^-1 blockdiag(A_bar) K^-1
             size = Kinv_b.shape[0]
-            M = torch.einsum("sfi,fij->sfj", Kinv_b.reshape(size, k, n // k), A_bar)
-            return matmul(M.reshape(size, n), Kinv).neg_()
+            if st not in TWO_BYTE:
+                M = torch.einsum("sfi,fij->sfj", Kinv_b.reshape(size, k, n // k), A_bar)
+                return matmul(M.reshape(size, n), Kinv).neg_()
+            # Fold by fold, rounded once to the storage dtype (`loo_fused.py:359-384`).
+            nb = n // k
+            M = torch.cat([matmul_acc32(Kinv_b[:, f * nb:(f + 1) * nb], A_st[f])
+                           for f in range(k)], dim=1)
+            return matmul_acc32(M.to(st), Kinv).neg_()
 
         s_bar, l_bar, n_bar = _backward(ctx, w, extra_rows)
         return s_bar, l_bar, n_bar, None, w, None, None
@@ -215,6 +246,8 @@ class ArdNlml(torch.autograd.Function):
         a = ctx.saved_tensors[1]
 
         def extra_rows(Kinv_b):
+            if Kinv_b.dtype in TWO_BYTE:
+                return Kinv_b.float().mul_(half)
             return half * Kinv_b
 
         s_bar, l_bar, n_bar = _backward(ctx, half * a, extra_rows)
@@ -242,7 +275,11 @@ def ard_nlml(log_signal_sq, log_length, log_noise_sq, x, y, block=None):
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (log_signal_sq, log_length, log_noise_sq, y)):
         return ArdNlml.apply(log_signal_sq, log_length, log_noise_sq, x, y, block)
+    st = storage_dtype()
     L, hld = potri_inplace.ard_gram_chol_inplace(log_signal_sq, log_length, log_noise_sq, x,
-                                                 block)
-    z = linalg.tri_solve(L, y.reshape(-1, 1))
+                                                 block, storage=st)
+    if st not in TWO_BYTE:
+        z = linalg.tri_solve(L, y.reshape(-1, 1))
+    else:
+        z = potri_inplace.tri_solve_stored(L, upcast(y.reshape(-1, 1).to(st)), block)
     return 0.5 * x.shape[0] * math.log(2.0 * math.pi) + hld + 0.5 * torch.sum(z * z)

@@ -512,3 +512,53 @@ else:
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
                           text=True, timeout=600)
     assert "RAISED" in proc.stdout, proc.stdout + proc.stderr
+
+
+# ---- the precision modes ---------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("n,m,d,diag", [(500, 500, 8, True), (257, 33, 1, True),
+                                        (1031, 70, 12, False), (4099, 1031, 8, True)])
+def test_2_byte_gram_is_the_fp32_kernel_rounded(dev, dtype, n, m, d, diag):
+    """Every tiling and both store paths (m % 4 == 0: one 8-byte store; else
+    scalar): the 2-byte output equals the fp32 kernel's output (plus the noise
+    diagonal) rounded once, bit for bit, and counts one launch."""
+    xs, xps, sig, _ = _scaled(n + m + 3 * d, n, m, d, dev)
+    if n == m:
+        xps = xs
+    noise = torch.tensor(0.25, device=dev) if diag else None
+    K = gram_cuda.gram_fwd_cuda(xs, xps, sig)
+    if diag:
+        K.diagonal().add_(noise)
+    # An fp32 K takes the diagonal after the launch: the same values.
+    assert torch.equal(gram_cuda.gram_fwd_cuda(xs, xps, sig, diag_add=noise), K)
+    gram_cuda.reset_launches()
+    got = gram_cuda.gram_fwd_cuda(xs, xps, sig, out_dtype=dtype, diag_add=noise)
+    assert gram_cuda.LAUNCHES["fwd"] == 1
+    assert got.dtype == dtype and torch.equal(got, K.to(dtype))
+
+
+def test_mm_dtype_and_the_modes_products_on_the_card(dev):
+    """aten::mm.dtype exists (the 2-byte modes take it); the reduced fp32
+    modes against float64 relative to max(|A| |B|) at an inner dimension of
+    4096, where "high" splits: 3 x TF32 in chunks within 1e-6, one pass
+    within its 2.5e-3 grade; TF32 is off after."""
+    from gpscore_torch.utils import precision
+
+    assert hasattr(torch.ops.aten.mm, "dtype")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    A = torch.randn((1024, 4096), generator=gen, device=dev)
+    B = torch.randn((4096, 1536), generator=gen, device=dev)
+    want = A.double() @ B.double()
+    scale = float((A.double().abs() @ B.double().abs()).max())
+    for mode, tol in (("highest", 1e-6), ("high", 1e-6), ("fast", 2.5e-3)):
+        with precision.matmul_mode(mode):
+            err = float((precision.matmul(A, B).double() - want).abs().max()) / scale
+        assert err <= tol, (mode, err)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    for st in (torch.bfloat16, torch.float16):
+        got = precision.matmul_acc32(A.to(st), B.to(st))
+        ref = A.to(st).double() @ B.to(st).double()
+        assert got.dtype == torch.float32
+        assert float((got.double() - ref).abs().max()) <= 1e-5 * scale

@@ -115,16 +115,22 @@ def test_params_round_trip_and_helpers():
 
 
 def test_precision_is_ieee_fp32_and_reduced_modes_raise():
+    """IEEE fp32 by default, TF32 off; the reduced modes are selectable (the
+    five of the JAX package) and leave TF32 off outside their products; an
+    unknown mode raises."""
     assert precision.get_matmul_mode() == "highest"
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
     assert torch.get_float32_matmul_precision() == "highest"
     precision.set_matmul_mode("highest")
     for mode in ("high", "fast", "bf16", "f16"):
-        with pytest.raises(NotImplementedError):
-            precision.set_matmul_mode(mode)
+        precision.set_matmul_mode(mode)
+        assert precision.get_matmul_mode() == mode
+        assert not torch.backends.cuda.matmul.allow_tf32
+        precision.set_matmul_mode("highest")
     with pytest.raises(ValueError):
         precision.set_matmul_mode("tf32")
+    assert precision.get_matmul_mode() == "highest"
 
 
 def test_import_pulls_in_neither_jax_nor_gpscore_nor_triton():
@@ -134,7 +140,9 @@ def test_import_pulls_in_neither_jax_nor_gpscore_nor_triton():
             "gpscore_torch.experiments.large_n, "
             "gpscore_torch.experiments.bench_ceiling, gpscore_torch.bench_gram, "
             "gpscore_torch.bench, gpscore_torch.data.xlsx_lite, "
-            "gpscore_torch.utils.profiling, gpscore_torch.fit.train; "
+            "gpscore_torch.utils.profiling, gpscore_torch.fit.train, "
+            "gpscore_torch.utils.precision, gpscore_torch.models.exact, "
+            "gpscore_torch.experiments.common, gpscore_torch.fit.driver; "
             "bad = [m for m in ('jax', 'gpscore', 'triton') if m in sys.modules]; "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -324,3 +324,68 @@ def test_kfold_stats_fused_returns_fold_shaped_pieces():
         t(y), torch.exp(t(p["log_noise_sq"])), fold_k)
     close(y_b - stats.e, dense.mean.numpy(), RTOL, ATOL)
     close(stats.half_logdet, tlinalg.half_logdet(dense.chol_prec).numpy(), RTOL)
+
+
+# ---- (d) the precision modes ----------------------------------------------------
+
+
+@pytest.mark.parametrize("mode", ["high", "fast", "bf16", "f16"])
+@pytest.mark.parametrize("rule", ["dss", "kc", "es"])
+def test_fold_cores_in_each_mode_match_jax(monkeypatch, rule, mode):
+    """Both cores under each reduced mode against the JAX primitives (in
+    place, block 16) under the same matmul_mode: in "bf16"/"f16" K^-1 is
+    2-byte on both sides, each fold factored on an fp32 upcast here. "high":
+    the fp32 tolerances of (a); "fast" and the 2-byte modes: value rtol 2e-2
+    and gradient cosine > 0.999 per leaf (`tests/test_fold_stream.py:124`,
+    `:235`). es in "bf16" is held against the JAX core in "highest": XLA's
+    CPU backend has no bfloat16 x bfloat16 -> float32 dot for its sample
+    products."""
+    from gpscore.utils.precision import matmul_mode as jax_matmul_mode
+    from gpscore_torch.utils import precision
+    from gpscore_torch.utils.precision import matmul_mode
+
+    monkeypatch.setattr(precision, "_SPLIT_MIN_K", 0)  # "high" splits at every size
+    n, block, fold_k = 64, 16, 4
+    nb = n // fold_k
+    x, y, p = _problem(6, n)
+    xj, key_data = jnp.asarray(x), jax.random.key_data(KEY)
+    eps = jax_stream_eps(KEY, fold_k, nb, NUM_SIM)
+    if rule == "es":
+        (wts,) = _weights(7, [(fold_k,)])
+
+        def jf(s, ell, nu, yy):
+            return jnp.sum(jnp.asarray(wts) * jfold.ard_fold_es_stream(
+                s, ell, nu, xj, yy, key_data, fold_k, NUM_SIM, 1.0, block, True))
+
+        def tf(s, ell, nu, yy):
+            return torch.sum(t(wts) * tfold.ard_fold_es_stream(
+                s, ell, nu, t(x), yy, fold_k, NUM_SIM, 1.0, block, eps=eps))
+    else:
+        want_inv_diag = rule == "kc"
+        wts = _weights(7, [(fold_k, nb), (fold_k,), (fold_k, nb), (n,)])
+
+        def jf(s, ell, nu, yy):
+            return _weighted(jfold.ard_fold_stats_stream(s, ell, nu, xj, yy, fold_k,
+                                                         want_inv_diag, block, True), wts, jnp)
+
+        def tf(s, ell, nu, yy):
+            return _weighted(tfold.ard_fold_stats_stream(s, ell, nu, t(x), yy, fold_k,
+                                                         want_inv_diag, block),
+                             [t(w) for w in wts], torch)
+
+    jargs = [jnp.asarray(v) for v in (*_leaves(p), y)]
+    with jax_matmul_mode("highest" if (rule, mode) == ("es", "bf16") else mode):
+        want, want_g = jax.jit(jax.value_and_grad(jf, argnums=(0, 1, 2, 3)))(*jargs)
+    targs = _torch_args(p, y)
+    with matmul_mode(mode):
+        got = tf(*targs)
+        grads = torch.autograd.grad(got, targs)
+    assert got.dtype == torch.float32
+    if mode == "high":
+        close(got, float(want), RTOL, ATOL)
+        grads_close(grads, want_g)
+        return
+    close(got, float(want), 2e-2)
+    for g, w in zip(grads, want_g):
+        g, w = g.double().numpy().ravel(), np.asarray(w, np.float64).ravel()
+        assert np.dot(g, w) / (np.linalg.norm(g) * np.linalg.norm(w)) > 0.999

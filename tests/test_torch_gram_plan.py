@@ -68,8 +68,13 @@ def test_bwd_cols_plan_constants_match_the_kernel_source():
     # The column-thread counts and rows per thread the C entry point takes.
     entry = src[src.index("int gram_fwd("):]
     assert all(f"col_threads != {c}" in entry for c in FWD_COL_THREADS)
-    assert all(f"case {r}: launch = launch_fwd<{r}>;" in entry
+    assert all(f"case {r}: return launch_fwd<{r}, OutT>(" in src
                for r in gram_cuda.FWD_ROWS_PER_THREAD)
+    # The output types it takes, numbered as the wrapper numbers them.
+    assert all(re.search(rf"case {v}:\n(.*\n)?      return static_cast<int>\(launch_fwd_rt<{t}>\(",
+                         entry)
+               for v, t in ((0, "float"), (1, "__nv_bfloat16"), (2, "__half")))
+    assert gram_cuda.OUT_TYPES == {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
     # The row kernel's widest step is a warp's lanes times the block's warps.
     assert ROWS_MAX_STEP == 32 * const("kWarpsPerBlock")
     rows_entry = src[src.index("int gram_bwd_rows("):]

@@ -107,11 +107,22 @@ def test_failed_leaf_factor_is_nan_and_does_not_raise():
 
 
 def test_only_fp32_storage_is_ported():
+    """The storage dtypes the pipeline takes: fp32 (None the same, bit for
+    bit), bfloat16 and float16 (tests/test_torch_precision.py holds them
+    against JAX); any other raises. The predictive takes ``refine`` and
+    ``storage`` too."""
     x, y, p = _problem(3, 16)
-    with pytest.raises(NotImplementedError, match="queue 1, item 1"):
-        tpotri.ard_gram_inverse_inplace(*_torch_args(p), t(x), 8, storage=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="queue 1, item 1"):
-        texact.exact_predictive_diag_large(t(x), t(y), t(x), torch_params(p), refine=2)
+    fp32 = tpotri.ard_gram_inverse_inplace(*_torch_args(p), t(x), 8)
+    assert torch.equal(fp32, tpotri.ard_gram_inverse_inplace(*_torch_args(p), t(x), 8,
+                                                             storage=torch.float32))
+    for st in (torch.bfloat16, torch.float16):
+        got = tpotri.ard_gram_inverse_inplace(*_torch_args(p), t(x), 8, storage=st)
+        assert got.dtype == st and torch.isfinite(got.float()).all()
+    with pytest.raises(TypeError, match="storage"):
+        tpotri.ard_gram_inverse_inplace(*_torch_args(p), t(x), 8, storage=torch.float64)
+    pred = texact.exact_predictive_diag_large(t(x), t(y), t(x), torch_params(p), block=8,
+                                              storage=torch.float16, refine=2)
+    assert torch.isfinite(pred.mean).all() and torch.isfinite(pred.cov).all()
 
 
 # ---- the fused cores ----------------------------------------------------------
@@ -321,3 +332,77 @@ def test_bench_ceiling_crossover_times_both_paths_and_restores_the_threshold():
         for path in ("dense", "fused")]
     assert all(r["step_s"] > 0 and r["peak_n2"] is None for r in recs)
     assert tobjectives._FUSED_LOO_MIN_N == before
+
+
+# ---- the precision modes through the objectives and the large_n experiment -------
+
+
+@pytest.mark.parametrize("mode", ["high", "fast", "bf16", "f16"])
+@pytest.mark.parametrize("rule", ["crps", "nlml"])
+def test_fused_objectives_in_each_mode_match_jax(monkeypatch, rule, mode):
+    """make_objective under each reduced mode on both sides (fused threshold
+    at 1, in place, block 16, a ragged n): "high" at the fp32 tolerances,
+    the others at value rtol 2e-2 and gradient cosine > 0.999 per leaf
+    (`tests/test_potri_inplace.py:141-173`)."""
+    from gpscore.utils.precision import matmul_mode as jax_matmul_mode
+    from gpscore_torch.utils import precision
+    from gpscore_torch.utils.precision import matmul_mode
+
+    monkeypatch.setattr(precision, "_SPLIT_MIN_K", 0)  # "high" splits at every size
+    n, block = 52, 16
+    x, y, p = _problem(10, n)
+    monkeypatch.setattr(jobjectives, "_FUSED_LOO_MIN_N", 1)
+    monkeypatch.setattr(jloo, "_INPLACE_MIN_N", 1)
+    monkeypatch.setattr(jloo, "auto_block", lambda n, storage_bytes=None: block)
+    monkeypatch.setattr(tobjectives, "_FUSED_LOO_MIN_N", 1)
+    with jax_matmul_mode(mode):  # read when jax.jit traces
+        want, want_g = jax.jit(jax.value_and_grad(jax_make_objective(rule, model="exact")))(
+            jax_params(p), jnp.asarray(x), jnp.asarray(y), None)
+    tp = torch_params(p, requires_grad=True)
+    leaves = tp.leaves()
+    with matmul_mode(mode):
+        got = make_objective(rule, model="exact", block=block)(tp, t(x), t(y))
+        grads = dict(zip(leaves, torch.autograd.grad(got, list(leaves.values()))))
+    for f, g in grads.items():
+        w = np.asarray(getattr(want_g, f), np.float64).ravel()
+        if mode == "high":
+            close(g, w, RTOL, ATOL)
+        else:
+            g = g.double().numpy().ravel()
+            assert np.dot(g, w) / (np.linalg.norm(g) * np.linalg.norm(w)) > 0.999, f
+    close(got, float(want), 1e-5 if mode == "high" else 2e-2)
+
+
+def test_large_n_driver_runs_each_precision_flag_on_the_cpu(monkeypatch):
+    """--matmul bf16 through fit_gd_recovering (the fused cores, threshold
+    lowered), --polish-iters, and an f16-stored refined evaluation: the
+    recovery trail and the evaluation's storage land in the record; the
+    refined f16 evaluation agrees with the fp32 one."""
+    monkeypatch.setattr(tobjectives, "_FUSED_LOO_MIN_N", 64)
+    common = ["--n", "128", "--n-test", "40", "--block", "48", "--eval-chunk", "16",
+              "--device", "cpu", "--iters", "2", "--rules", "crps", "dss"]
+    res = large_n.main(common + ["--matmul", "bf16", "--polish-iters", "1",
+                                 "--eval-storage", "f16", "--eval-refine", "8"])
+    ref = large_n.main(common + ["--matmul", "high", "--eval-storage", "f32"])
+    for rule in ("crps", "dss"):
+        rec = res[rule]
+        assert rec["matmul"] == "bf16" and rec["recovery"] == [] and rec["stall_iters"] == 0
+        assert rec["eval_storage"] == "f16" and rec["eval_refine"] == 8
+        assert ref[rule]["eval_storage"] == "f32" and ref[rule]["eval_refine"] == 0
+        assert all(math.isfinite(rec[k]) for k in ("loss_first", "loss_last", "crps", "mse"))
+        assert rec["loss_first"] == pytest.approx(ref[rule]["loss_first"], rel=2e-2)
+    with pytest.raises(SystemExit):
+        large_n.main(common + ["--matmul", "tf32"])
+
+
+def test_bench_ceiling_takes_the_precision_modes_on_the_cpu(monkeypatch):
+    monkeypatch.setattr(tobjectives, "_FUSED_LOO_MIN_N", 64)
+    recs = {mode: bench_ceiling.main(["--n", "96", "--block", "32", "--repeats", "1",
+                                      "--device", "cpu", "--rule", "crps", "--matmul", mode])
+            for mode in ("highest", "high", "f16")}
+    for mode, rec in recs.items():
+        assert rec["matmul"] == mode and rec["flop"] == 3.0 * 96 ** 3
+    assert recs["high"]["loss"] == pytest.approx(recs["highest"]["loss"], rel=1e-5)
+    assert recs["f16"]["loss"] == pytest.approx(recs["highest"]["loss"], rel=2e-2)
+    with pytest.raises(SystemExit):
+        bench_ceiling.main(["--ceiling", "64", "32", "--device", "cpu"])

@@ -162,8 +162,19 @@ def test_eval_predictive_metrics_matches_jax():
     got = eval_predictive_metrics("fitc", torch_params(p), t(x), t(y), t(xs), t(ys))
     for f in want._fields:
         close(getattr(got, f), getattr(want, f), 1e-5, 1e-6)
-    # What is not ported yet: the reduced-precision sweeps.
-    with pytest.raises(NotImplementedError):
+    # The evaluation runs in "highest" whatever the mode around it, and the
+    # sweep takes every mode for its fits (an unknown one raises).
+    from gpscore_torch.utils.precision import matmul_mode
+
+    with matmul_mode("fast"):
+        again = eval_predictive_metrics("fitc", torch_params(p), t(x), t(y), t(xs), t(ys))
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+    for mode in ("high", "bf16"):
+        res = run_sweep(["crps"], "fitc", {"crps": Schedule("crps", 1, 1.0)},
+                        lambda j: (x, y, xs, ys), lambda g, d: torch_params(p), replicates=1,
+                        d=3, matmul=mode, device="cpu", verbose=False)
+        assert res["crps"]["num_failed"] == 0 and np.isfinite(res["crps"]["crps"])
+    with pytest.raises(ValueError):
         run_sweep(["crps"], "fitc", {"crps": Schedule("crps", 1, 1.0)},
                   lambda j: (x, y, xs, ys), lambda g, d: torch_params(p), replicates=1, d=3,
-                  matmul="high", device="cpu")
+                  matmul="tf32", device="cpu")

@@ -252,3 +252,190 @@ def test_max_reduce_matches_jax(values):
     got = max_reduce([torch.tensor(v) for v in values])
     want = jax_max_reduce([jnp.float32(v) for v in values])
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ---- fit_gd_recovering: the precision-mode recovery ladder ----------------------
+# Mirrors tests/test_fit.py::TestStallRecovery case by case. The stall is a
+# toy objective that reads the precision mode as the step runs and goes NaN
+# past a parameter threshold in the 2-byte modes only, as the large-n cores'
+# factorizations do once the lengthscales grow.
+
+
+def _recovery_params(lib):
+    if lib == "jax":
+        from gpscore.utils.params import GPParams as JaxParams
+
+        return JaxParams(jnp.float32(0.0), jnp.ones((1,), jnp.float32), jnp.float32(1.0))
+    return torch_params({"log_signal_sq": np.float32(0.0),
+                         "log_length": np.ones((1,), np.float32),
+                         "log_noise_sq": np.float32(1.0), "inducing": None})
+
+
+def _stalling_loss(modes=("bf16", "f16")):
+    from gpscore_torch.utils.precision import get_matmul_mode
+
+    def loss(params, x, y, generator=None):
+        # The other leaves enter with weight 0: autograd.grad wants every leaf used.
+        base = (params.log_signal_sq - 1.0) ** 2 + 0.0 * (
+            params.log_length.sum() + params.log_noise_sq)
+        if get_matmul_mode() in modes:
+            base = torch.where(params.log_signal_sq > 0.55, torch.full_like(base, float("nan")),
+                               base)
+        return base
+
+    return loss
+
+
+def _jax_stalling_loss(params, x, y, key=None):
+    from gpscore.utils.precision import get_matmul_mode
+
+    base = (params.log_signal_sq - 1.0) ** 2
+    if get_matmul_mode() in ("bf16", "f16"):
+        base = jnp.where(params.log_signal_sq > 0.55, jnp.nan, base)
+    return base
+
+
+def _data():
+    return torch.zeros((16, 1)), torch.zeros(16)
+
+
+def test_stall_iters_counts_trailing_skips():
+    from gpscore_torch.utils.precision import matmul_mode
+
+    x, y = _data()
+    with matmul_mode("f16"):
+        res = fit_gd(_stalling_loss(), _recovery_params("torch"), x, y, 8, 0.25)
+    # 0 -> 0.5 (finite) -> 0.75 -> NaN, frozen for the rest.
+    assert int(res.stall_iters) == 6
+    close(res.params.log_signal_sq, 0.75, 1e-6)
+    res2 = fit_gd(_stalling_loss(), _recovery_params("torch"), x, y, 8, 0.25)
+    assert int(res2.stall_iters) == 0
+
+
+def test_fit_gd_recovering_completes_as_jax_does():
+    from gpscore.fit import fit_gd_recovering as jax_recovering
+    from gpscore.utils.precision import matmul_mode as jax_matmul_mode
+    from gpscore_torch.fit import fit_gd_recovering
+    from gpscore_torch.utils.precision import matmul_mode
+
+    x, y = _data()
+    with matmul_mode("f16"):
+        res, info = fit_gd_recovering(_stalling_loss(), _recovery_params("torch"), x, y, 8, 0.25)
+    with jax_matmul_mode("f16"):
+        want, want_info = jax_recovering(_jax_stalling_loss, _recovery_params("jax"),
+                                         jnp.asarray(x.numpy()), jnp.asarray(y.numpy()), 8, 0.25)
+    # The auto ladder at small n: f16 -> high; the 6 lost iterations re-run.
+    assert info["stall_iters"] == want_info["stall_iters"] == 6
+    assert info["recovery"] == want_info["recovery"] == [
+        {"mode": "high", "iters": 6, "stall_after": 0}]
+    assert [s["mode"] for s in info["segments"]] == ["f16", "high"]
+    assert int(res.stall_iters) == 0 and res.loss_history.shape == (8,)
+    assert torch.isfinite(res.loss_history).all() and bool(res.ok)
+    close(res.loss_history, want.loss_history, 1e-6, 1e-7)
+    close(res.params.log_signal_sq, want.params.log_signal_sq, 1e-6)
+    assert float(res.params.log_signal_sq) > 0.95
+
+
+def test_fit_gd_recovering_no_stall_is_single_leg():
+    from gpscore_torch.fit import fit_gd_recovering
+
+    x, y = _data()
+    res, info = fit_gd_recovering(_stalling_loss(), _recovery_params("torch"), x, y, 5, 0.25)
+    assert info["stall_iters"] == 0 and info["recovery"] == [] and len(info["segments"]) == 1
+    assert float(res.params.log_signal_sq) > 0.9
+
+
+def test_auto_recover_mode_ladder():
+    from gpscore_torch.fit import auto_recover_mode
+    from gpscore_torch.fit.train import _FP32_STORAGE_CEILING_N
+
+    above = _FP32_STORAGE_CEILING_N["loo"] + 8192
+    assert auto_recover_mode("bf16", 30_720) == "high"
+    assert auto_recover_mode("bf16", above) == "f16"
+    assert auto_recover_mode("f16", 30_720) == "high"
+    assert auto_recover_mode("f16", above) is None  # nothing safer
+    assert auto_recover_mode("highest", 30_720) is None
+    assert auto_recover_mode("fast", 30_720) is None
+
+
+def test_auto_recover_mode_fold_family(monkeypatch):
+    """In a gap where the fold rules' fp32 buffers no longer fit and the LOO
+    rules' still do, the fold family falls to "f16", not to a "high" that
+    would run out of memory."""
+    from gpscore_torch.fit import auto_recover_mode, objective_family
+    from gpscore_torch.fit import train as train_mod
+
+    monkeypatch.setattr(train_mod, "_FP32_STORAGE_CEILING_N", {"loo": 61_440, "fold": 59_392})
+    lo, hi = 59_392, 61_440
+    gap_n = lo + 1024
+    assert lo < gap_n <= hi
+    assert auto_recover_mode("bf16", gap_n, "fold") == "f16"
+    assert auto_recover_mode("f16", gap_n, "fold") is None
+    assert auto_recover_mode("bf16", lo, "fold") == "high"
+    assert auto_recover_mode("bf16", gap_n, "loo") == "high"
+    assert [objective_family(r) for r in ("dss", "es", "kc", "crps", None)] == [
+        "fold", "fold", "fold", "loo", "loo"]
+
+
+def test_fold_rule_stall_recovers_via_f16_in_the_gap(monkeypatch):
+    from gpscore_torch.fit import fit_gd_recovering
+    from gpscore_torch.fit import train as train_mod
+    from gpscore_torch.utils.precision import matmul_mode
+
+    x, y = _data()
+    n = x.shape[0]
+    monkeypatch.setattr(train_mod, "_FP32_STORAGE_CEILING_N", {"loo": 10 * n, "fold": n // 2})
+    with matmul_mode("bf16"):
+        res, info = fit_gd_recovering(_stalling_loss(("bf16",)), _recovery_params("torch"), x, y,
+                                      8, 0.25, rule="dss")
+    assert info["recovery"] == [{"mode": "f16", "iters": 6, "stall_after": 0}]
+    assert float(res.params.log_signal_sq) > 0.95
+
+
+@pytest.mark.parametrize("error", ["oom", "other"])
+def test_a_recovery_leg_out_of_memory_falls_to_f16_and_other_errors_propagate(monkeypatch,
+                                                                              error):
+    """A "high" leg that runs out of device memory is recorded and the ladder
+    falls to "f16"; any other error of a leg propagates (the JAX function
+    catches every RuntimeError there)."""
+    from gpscore_torch.fit import fit_gd_recovering
+    from gpscore_torch.fit import train as train_mod
+    from gpscore_torch.utils.precision import get_matmul_mode, matmul_mode
+
+    real_fit_gd = train_mod.fit_gd
+
+    def fit_gd_high_fails(loss_fn, params, *a, **kw):
+        if get_matmul_mode() == "high":
+            if error == "oom":
+                raise torch.cuda.OutOfMemoryError("CUDA out of memory. Tried to allocate ...")
+            raise RuntimeError("cuBLAS failure")
+        return real_fit_gd(loss_fn, params, *a, **kw)
+
+    monkeypatch.setattr(train_mod, "fit_gd", fit_gd_high_fails)
+    x, y = _data()
+    with matmul_mode("bf16"):
+        if error == "other":
+            with pytest.raises(RuntimeError, match="cuBLAS failure"):
+                fit_gd_recovering(_stalling_loss(("bf16",)), _recovery_params("torch"), x, y,
+                                  8, 0.25)
+            return
+        res, info = fit_gd_recovering(_stalling_loss(("bf16",)), _recovery_params("torch"), x,
+                                      y, 8, 0.25)
+    assert info["recovery"][0]["mode"] == "high" and info["recovery"][0]["iters"] == 0
+    assert "out of memory" in info["recovery"][0]["error"]
+    assert info["recovery"][1] == {"mode": "f16", "iters": 6, "stall_after": 0}
+    assert "unrecovered_iters" not in info
+    assert float(res.params.log_signal_sq) > 0.95
+
+
+def test_an_unrecoverable_stall_is_reported():
+    """An explicit recover_mode that stalls too leaves unrecovered_iters."""
+    from gpscore_torch.fit import fit_gd_recovering
+    from gpscore_torch.utils.precision import matmul_mode
+
+    x, y = _data()
+    with matmul_mode("bf16"):
+        res, info = fit_gd_recovering(_stalling_loss(), _recovery_params("torch"), x, y, 8,
+                                      0.25, recover_mode="f16")
+    assert info["recovery"] == [{"mode": "f16", "iters": 6, "stall_after": 6}]
+    assert info["unrecovered_iters"] == 6 and int(res.stall_iters) == 6
