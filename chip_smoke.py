@@ -125,19 +125,42 @@ Phases, none of whose failures is caught:
    float64). (8) The large_n experiment at n = 8192, --matmul bf16 and high,
    crps and dss. (6) A 200-step FITC crps fit under "high" and under "fast"
    (TF32 kernels in the graph), replayed == eager bit for bit. Phase 11 runs to its end and then fails on any failed check.
+12. Restarts and replicates as one batched fit (the Gram kernels' batch grid
+   axis, gpscore_torch/parallel/sweeps.py). (1) The three kernels batched, at
+   16x500x20x8 and 16x20x20x8 (multi_restart's FITC K_fu and K_uu),
+   10x500x500x8 (ten replicates' exact K_ff) and 3x20x8193x12 (a ragged batch
+   whose row kernel takes column chunks), against their batched plain
+   versions; a batch of one bitwise today's unbatched launch; every batch
+   against its unbatched launch (bitwise where the plan tiles it alike); two
+   calls bitwise equal; each timed beside a loop of B unbatched launches and
+   the batched roofline bound. (2) restart_sweep of 16 FITC-20 restarts, crps
+   and nlml, 200 steps: replayed == eager bit for bit; at the 16 solo fits'
+   recorded parameters the batched loss (1e-4) and gradient (per leaf, phase
+   4's 1e-3; the log-signal leaf 5e-2) against the solo ones and against a
+   float64 witness on the CPU, where the batched and solo forms must agree
+   to 1e-9. (3) multi_restart.main() at its defaults, launch counters zeroed
+   just before and read just after (the "sweeps" path: two Gram launches a
+   step for all 16 restarts), beside the same 16 crps restarts as solo fits.
+   (4) kin40k_full --replicates 10, the replicates batched (the
+   "sweeps_replicates" path), beside the per-replicate loop of fit_and_eval.
+   (5) The host syncs of a batched replayed fit: none after the capture.
+   (6) The replayed step at 1, 4, 16 and 64 restarts for FITC crps and nlml
+   and exact crps: time, device ops, idle share, warm-up and capture.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit;
 before it, one JSON line describes every kernel: ``ms``, ``plain_ms``,
 ``bound_ms`` and ``bound_by`` at the FITC path's 500x20x8 (``library_ms`` is
 null: no single PyTorch call computes the ARD Gram or either half of its
-VJP), ``launches`` summed over the FITC, exact, large-n, large-n fold, graph and
-precision paths (each path's count under ``launches_by_path``; a graph's
-replays are counted, gram_fwd's 2-byte launches under gram_fwd), and under
-``shapes`` the per-call and device
+VJP), ``launches`` summed over the FITC, exact, large-n, large-n fold, graph,
+precision and two sweep paths (each path's count under ``launches_by_path``; a
+graph's replays are counted, gram_fwd's 2-byte launches under gram_fwd), and
+under ``shapes`` the per-call and device
 times, the bound and the roofline share at every timed shape, with
 ``timed_by`` naming the source of the share's time (``torch.profiler``:
 ``device_ms``; ``cuda_events``: ``ms``, and no ``device_ms``); gram_fwd's
-2-byte shapes end in ``/bf16`` or ``/f16``. The last line is
+2-byte shapes end in ``/bf16`` or ``/f16``, the batched ones are keyed
+``BxNxMxD`` (``16x500x20x8``) and add ``loop_ms``, a loop of B unbatched
+launches. The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -159,17 +182,17 @@ from gpscore_torch import bench
 from gpscore_torch.bench_gram import (cuda_ms, device_ms, kernel_inputs, kernel_pairs,
                                      nvidia_smi_line, time_shapes)
 from gpscore_torch.data import kin40k_fitc20_init, kin40k_replicate_split, load_kin40k
-from gpscore_torch.experiments import bench_ceiling, large_n
-from gpscore_torch.fit import (SCHEDULES, eval_predictive_metrics, fit_gd, fit_optim,
-                               make_objective, train)
+from gpscore_torch.experiments import bench_ceiling, common, kin40k_full, large_n, multi_restart
+from gpscore_torch.fit import (SCHEDULES, eval_predictive_metrics, fit_and_eval, fit_gd,
+                               fit_gd_batch, fit_optim, make_objective, train)
 from gpscore_torch.metrics import evaluate_predictive
 from gpscore_torch.models import exact as exact_mod
 from gpscore_torch.ops import _build, gram_cuda, linalg, loo_fused, potri_inplace
 from gpscore_torch.ops.kernels import gram
 from gpscore_torch.ops.loo_fused import auto_block
 from gpscore_torch.scoring import rules
-from gpscore_torch.utils import (init_rand_params, init_unit_params, params_from_numpy,
-                                 params_to_numpy, precision)
+from gpscore_torch.utils import (batch_size, init_rand_params, init_unit_params,
+                                 params_from_numpy, params_to_numpy, precision, select_params)
 
 RULES = ["crps", "nlml", "logs", "dss", "kc"]
 SOURCE = "gpscore_torch/csrc/gram.cu"
@@ -201,8 +224,8 @@ TIMED_SHAPES = [(500, 20, 8), (20, 20, 8), (500, 500, 8), (9700, 20, 8), (120, 1
 FWD_SHAPES = [(30720, 30720, 8), (30720, 2048, 8)]
 KERNELS = [("gram_fwd", "fwd"), ("gram_bwd_rows", "bwd_rows"), ("gram_bwd_cols", "bwd_cols")]
 # Per kernel: gram_fwd's rows per thread times its three output types, the
-# backward's DMAX buckets.
-INSTANTIATIONS = {"gram_fwd": 12, "gram_bwd_rows": 4, "gram_bwd_cols": 4}
+# backward's DMAX buckets, each unbatched and batched.
+INSTANTIATIONS = {"gram_fwd": 24, "gram_bwd_rows": 8, "gram_bwd_cols": 8}
 # The plain forward uses the cross-term form, whose cancellation leaves
 # ~1e-7 * |xs|^2 in the exponent; K <= sig = e here.
 FWD_ATOL = 2e-5
@@ -277,9 +300,10 @@ GRAPH_SYNC_STEPS = 50
 # item 3), beside which the replayed fit's are printed.
 EAGER_FINAL_LOSS = {"crps": 0.208145, "nlml": 285.691650, "logs": 0.447697,
                     "dss": 222.006165, "kc": 0.832610}
-# A Gram backward whose column kernel needs more scratch (5 chunks of 1031 x 8)
-# than any shape of the fits (500 x 500 x 8: 8 chunks of 500 x 8).
-GROW_SHAPE = (4099, 1031, 8)
+# A Gram backward whose column kernel needs more scratch (5 chunks of 1031 x
+# 64, 329,920 floats) than any shape of the fits before phase 10 (the largest:
+# phase 7's two batched kin40k_full replicates, 2 x 8 chunks of 500 x 8).
+GROW_SHAPE = (4099, 1031, 64)
 # Phase 11.
 PREC_MODES = ["high", "fast", "bf16", "f16"]  # the reduced modes; "highest" is phases 1-10's
 PREC_SMALL_RULES = ["crps", "nlml", "dss", "es"]
@@ -307,6 +331,28 @@ TF32X3_CHUNKS = [16384, 4096, 1024, 512]
 # "highest" one: the n x n buffer halves (0.5), 0.05 left for new transients.
 PEAK_SAVE_N2 = 0.45
 RECOVER_ITERS = 3  # fit_gd_recovering's iterations from "bf16" at n = 30,720
+# Phase 12.
+SWEEP_R = 16  # multi_restart's default restarts
+# Batched kernel shapes (B, n, m, d): the multi-restart FITC-20 K_fu and K_uu,
+# the ten replicates' exact K_ff, and a ragged batch whose row kernel takes
+# column chunks (2 a row tile, tickets and scratch per batch; DMAX = 16).
+SWEEP_SHAPES = [(16, 500, 20, 8), (16, 20, 20, 8), (10, 500, 500, 8), (3, 20, 8193, 12)]
+SWEEP_SQUARE = [(20, 20), (500, 500)]  # K(u, u) and K(x, x): xps = xs
+SWEEP_STEPS = 200  # the batched eager and replayed fits that must be equal bit for bit
+SWEEP_CHECK_EVERY = 20  # steps of the solo fits at which the batched step is held to them
+SWEEP_F64_EVERY = 40  # of those, the steps also held to a float64 witness on the CPU
+# Per leaf, batched against solo and against float64, relative to the leaf's
+# largest entry: phase 4's GRAD_RTOL, except the log-signal gradient of the
+# random restarts, a sum of large terms that cancel (0.037 from terms of ~1
+# for nlml), whose fp32 value reads up to 5.8e-3 (solo crps) and 1.7e-2
+# (batched nlml) off float64 on the CPU at these points while the batched and
+# the solo forms in float64 agree to 5e-12: fp32 rounding, no fault.
+SWEEP_GRAD_RTOL = {"log_signal_sq": 5e-2}
+SWEEP_REPLICATES = 10  # kin40k_full --replicates
+SWEEP_STEP_CASES = [("fitc", "crps"), ("fitc", "nlml"), ("exact", "crps")]
+SWEEP_STEP_RS = (1, 4, 16, 64)
+SWEEP_LONG = 200  # replays of the fit that times the batched replayed step
+SWEEP_PROFILED = 100  # replays of the profiled fit
 
 
 def log(*a):
@@ -1736,6 +1782,355 @@ def phase_precision(dev, crps_fit, times):
     return launches, gemm
 
 
+def batched_kernel_inputs(B, n, m, d, dev, seed, square=False):
+    """B sets of kernel_inputs stacked: xs [B, n, d], xps [B, m, d], g
+    [B, n, m], and sig [B] = e (1 - 0.02 b), so the batch strides of every
+    array, sig's included, are exercised."""
+    sets = [kernel_inputs(n, m, d, dev, seed=seed * 1000 + b, square=square) for b in range(B)]
+    xs, xps, _, g = (torch.stack([st[i] for st in sets]) for i in (0, 1, 2, 3))
+    sig = np.e * (1.0 - 0.02 * torch.arange(B, dtype=torch.float32, device=dev))
+    return xs.contiguous(), xps.contiguous(), sig, g.contiguous()
+
+
+def tiled_alike(plan, B, n, m, d, sms):
+    """Whether ``plan`` tiles one of B Grams as it tiles the Gram alone (then
+    the backward's sums run in the same order)."""
+    batched, alone = plan(n, m, d, sms, B), plan(n, m, d, sms)
+    extra = {"blocks": alone.blocks} if hasattr(alone, "blocks") else {}
+    return batched._replace(batch=1, **extra) == alone
+
+
+def sweep_kernels(dev, err):
+    """Phase 12 (1): the batched kernels against their batched plain
+    versions, bitwise the unbatched launch at B = 1, a second call bitwise
+    equal; timed beside a loop of B unbatched launches and the batched
+    roofline bound. Returns {shape key: {kernel: times}}."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for s, (B, n, m, d) in enumerate(SWEEP_SHAPES):
+        square = (n, m) in SWEEP_SQUARE
+        xs, xps, sig, g = batched_kernel_inputs(B, n, m, d, dev, seed=s, square=square)
+        calls = {"gram_fwd": lambda a, b, c, _: (gram_cuda.gram_fwd_cuda(a, b, c),),
+                 "gram_bwd_rows": gram_cuda.gram_bwd_rows_cuda,
+                 "gram_bwd_cols": lambda *a: (gram_cuda.gram_bwd_cols_cuda(*a),)}
+        plains = {"gram_fwd": lambda a, b, c, _: (gram_cuda.gram_fwd_plain(a, b, c),),
+                  "gram_bwd_rows": gram_cuda.gram_bwd_rows_plain,
+                  "gram_bwd_cols": lambda *a: (gram_cuda.gram_bwd_cols_plain(*a),)}
+        alike = {"gram_fwd": True,
+                 "gram_bwd_rows": tiled_alike(gram_cuda.bwd_rows_plan, B, n, m, d, sms),
+                 "gram_bwd_cols": tiled_alike(gram_cuda.bwd_cols_plan, B, n, m, d, sms)}
+        key = f"{B}x{n}x{m}x{d}"
+        errs, per_batch = {}, {}
+        for name, call in calls.items():
+            got = call(xs, xps, sig, g)
+            assert all(torch.equal(a, b) for a, b in zip(got, call(xs, xps, sig, g))), \
+                (key, name, "two calls on the same inputs differ")
+            worst = 0.0
+            for a, want in zip(got, plains[name](xs, xps, sig, g)):
+                e = float((a - want).abs().max())
+                tol = (FWD_ATOL if name == "gram_fwd"
+                       else BWD_ATOL + BWD_RTOL * float(want.abs().max()))
+                assert torch.isfinite(a).all() and e <= tol, (key, name, e, tol)
+                worst = max(worst, e)
+            errs[name] = worst
+            err[name] = max(err[name], worst)
+            # B = 1: a batch of one against today's unbatched launch, bit for bit.
+            one = call(xs[:1], xps[:1], sig[:1], g[:1])
+            solo = call(xs[0], xps[0], sig[0:1].reshape(()), g[0])
+            assert all(torch.equal(a[0], b) for a, b in zip(one, solo)), (key, name, "B = 1")
+            # Every batch against its unbatched launch: bitwise where tiled alike.
+            gap = 0.0
+            for b in range(B):
+                alone = call(xs[b], xps[b], sig[b], g[b])
+                for a, v in zip(got, alone):
+                    if alike[name]:
+                        assert torch.equal(a[b], v), (key, name, b)
+                    gap = max(gap, float((a[b] - v).abs().max()))
+            per_batch[name] = "bitwise" if alike[name] else f"tiled otherwise, max abs {gap:.3g}"
+        torch.cuda.synchronize()
+        log(f"[sweeps] {key}: errors against the batched plain versions "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+            + f" (tol fwd {FWD_ATOL}, bwd {BWD_ATOL} + {BWD_RTOL} * max|ref|); B = 1 bitwise "
+            f"the unbatched launch; second call bitwise equal; each batch against its unbatched "
+            f"launch: " + ", ".join(f"{k} {v}" for k, v in per_batch.items()))
+        # Times: the batched launch, a loop of B unbatched launches, the plain
+        # version; plain, kernel, loop, loop, kernel, plain.
+        out[key] = {}
+        for name, call in calls.items():
+            def kern():
+                return call(xs, xps, sig, g)
+
+            def loop():
+                return [call(xs[b], xps[b], sig[b], g[b]) for b in range(B)]
+
+            def plain():
+                return plains[name](xs, xps, sig, g)
+
+            p1, k1, l1, l2, k2, p2 = (cuda_ms(f, reps=50, warmup=5)
+                                      for f in (plain, kern, loop, loop, kern, plain))
+            bound = gram_cuda.roofline(name, n, m, d, batch=B)
+            dev_ms = device_ms(kern, floor_ms=bound.bound_us / 1e3)[0]
+            t = {"ms": (k1 + k2) / 2, "loop_ms": (l1 + l2) / 2, "plain_ms": (p1 + p2) / 2,
+                 "device_ms": dev_ms, "bound_ms": bound.bound_us / 1e3,
+                 "bound_by": bound.bound_by, "roofline_share": bound.bound_us / 1e3 / dev_ms,
+                 "timed_by": "torch.profiler"}
+            out[key][name] = t
+            log(f"[sweeps-time] {name} {key}: per call batched {t['ms']:.5f} ms, a loop of {B} "
+                f"unbatched launches {t['loop_ms']:.5f} ms ({t['loop_ms'] / t['ms']:.2f}x), plain "
+                f"{t['plain_ms']:.5f} ms; device {dev_ms:.5f} ms; bound {bound.bound_us:.4f} us "
+                f"by {bound.bound_by} ({bound.bytes} bytes, {bound.flops} FLOP), share "
+                f"{t['roofline_share']:.3f}")
+    return out
+
+
+def batched_loss_and_grad(loss_fn, params, leaves, x, y):
+    """The R losses [R] at ``leaves`` ([R, ...] each) and the gradient of
+    each restart's own loss (of their sum)."""
+    cur = {f: t.detach().clone().requires_grad_() for f, t in leaves.items()}
+    loss = loss_fn(params.replace(**cur), x, y)
+    return loss.detach(), dict(zip(cur, torch.autograd.grad(loss.sum(), list(cur.values()))))
+
+
+def sweep_start(dev, R, model="fitc"):
+    """R restarts as multi_restart draws them (uniform, CPU generator seeded
+    0, all at once), moved to the card."""
+    p = init_rand_params(torch.Generator().manual_seed(0), 8,
+                         num_inducing=20 if model == "fitc" else 0, batch=R)
+    return p.replace(**{f: t.to(dev) for f, t in p.leaves().items()})
+
+
+def phase_sweeps(dev):
+    """Phase 12: restarts and replicates as one batched fit. Returns the
+    launches of the multi_restart and of the replicate sweep, the kernels'
+    errors and the batched shapes' times."""
+    err = {k: 0.0 for k in REPLACES}
+    shapes = sweep_kernels(dev, err)
+    gpu = kin40k_replicate_split(load_kin40k(), 0, device=dev)
+    pb = sweep_start(dev, SWEEP_R)
+    sweep_restarts(gpu.train_x, gpu.train_y, pb)
+    launches = sweep_multi_restart(gpu.train_x, gpu.train_y, pb)
+    replicate_launches = sweep_replicates(dev)
+    sweep_syncs(gpu.train_x, gpu.train_y, pb)
+    sweep_steps(dev, gpu.train_x, gpu.train_y)
+    return launches, replicate_launches, err, shapes
+
+
+def sweep_restarts(x, y, pb):
+    """Phase 12 (2)."""
+    R = batch_size(pb)
+    # 2. restart_sweep of R FITC-20 restarts: replayed == eager, and at the
+    # solo fits' recorded parameters the batched loss and gradient: against
+    # the solo ones on the card, and both against a float64 witness on the
+    # CPU, where the batched and the solo forms must also agree.
+    x64, y64 = x.cpu().double(), y.cpu().double()
+    for rule in ("crps", "nlml"):
+        sched = SCHEDULES[("kin40k_fitc", rule)]
+        loss = make_objective(rule, model="fitc")
+
+        def fit(graph):
+            return fit_gd_batch(loss, pb, x, y, SWEEP_STEPS, sched.lr, sched.lr_inducing,
+                                record_params=True, graph=graph)
+
+        eager, replayed = fit(False), fit(True)
+        differ = fits_equal(replayed, eager)
+        assert not differ, (rule, differ)
+        solo = [fit_gd(loss, select_params(pb, r), x, y, SWEEP_STEPS, sched.lr,
+                       sched.lr_inducing, record_params=True) for r in range(R)]
+        leaves = list(pb.leaves())
+        worst = {"loss": 0.0, "f64 identity": 0.0}
+        vs_solo, b64, s64 = ({f: 0.0 for f in leaves} for _ in range(3))
+        finite = 0
+        for i in range(0, SWEEP_STEPS, SWEEP_CHECK_EVERY):
+            at = {f: torch.stack([st.param_history.leaves()[f][i] for st in solo])
+                  for f in leaves}
+            lb, gb = batched_loss_and_grad(loss, pb, at, x, y)
+            witness = i % SWEEP_F64_EVERY == 0
+            if witness:
+                at64 = {f: t.cpu().double() for f, t in at.items()}
+                lb64, gb64 = batched_loss_and_grad(loss, pb, at64, x64, y64)
+            for r, st in enumerate(solo):
+                want = float(st.loss_history[i])
+                assert np.isfinite(float(lb[r])) == np.isfinite(want), (rule, i, r)
+                if not np.isfinite(want):
+                    continue
+                finite += 1
+                worst["loss"] = max(worst["loss"], abs(float(lb[r]) - want) / abs(want))
+                _, gs = loss_and_grad(loss, pb, {f: t[r] for f, t in at.items()}, x, y)
+                for f in gs:
+                    vs_solo[f] = max(vs_solo[f], float((gb[f][r] - gs[f]).abs().max())
+                                     / float(gs[f].abs().max()))
+                if not witness:
+                    continue
+                l64, g64 = loss_and_grad(loss, pb, {f: t[r] for f, t in at64.items()}, x64, y64)
+                worst["f64 identity"] = max(worst["f64 identity"],
+                                            abs(float(lb64[r] - l64)) / abs(float(l64)),
+                                            *(float((gb64[f][r] - g64[f]).abs().max())
+                                              / float(g64[f].abs().max()) for f in g64))
+                for f in g64:
+                    scale = float(g64[f].abs().max())
+                    b64[f] = max(b64[f], float((gb[f][r].cpu().double() - g64[f]).abs().max())
+                                 / scale)
+                    s64[f] = max(s64[f], float((gs[f].cpu().double() - g64[f]).abs().max())
+                                 / scale)
+        solo_hist = torch.stack([st.loss_history for st in solo])
+        rel = ((replayed.loss_history - solo_hist).abs() / solo_hist.abs()).nan_to_num(0.0)
+        limit = {f: SWEEP_GRAD_RTOL.get(f, GRAD_RTOL) for f in leaves}
+        log(f"[sweeps] restart_sweep fitc {rule}, R = {R}, {SWEEP_STEPS} steps: replayed == "
+            f"eager bit for bit (loss and parameter histories [R, iters], final parameters, "
+            f"stall_iters); final losses {float(replayed.loss_history[:, -1].min()):.6f} .. "
+            f"{float(replayed.loss_history[:, -1].max()):.6f}, {int((~replayed.ok).sum())} "
+            f"failed; at the solo fits' parameters (every {SWEEP_CHECK_EVERY}th step, {finite} "
+            f"finite points) batched vs solo loss rel {worst['loss']:.3g} (tol {LOSS_RTOL}), "
+            f"grad rel per leaf " + ", ".join(f"{f} {v:.3g}" for f, v in vs_solo.items())
+            + f"; against float64 (every {SWEEP_F64_EVERY}th step) batched / solo "
+            + ", ".join(f"{f} {b64[f]:.3g} / {s64[f]:.3g}" for f in leaves)
+            + f" (tol {limit}); the batched and solo forms in float64 agree to "
+            f"{worst['f64 identity']:.3g}; free-running batched vs solo max rel "
+            f"{float(rel.max()):.3g}")
+        assert worst["loss"] <= LOSS_RTOL and worst["f64 identity"] <= 1e-9, (rule, worst)
+        for f in leaves:
+            assert vs_solo[f] <= limit[f] and b64[f] <= limit[f], (rule, f, vs_solo, b64)
+
+
+def sweep_multi_restart(x, y, pb):
+    """Phase 12 (3): returns the sweeps path's launches."""
+    R = batch_size(pb)
+    # 3. multi_restart at its defaults: the sweeps path, counted.
+    torch.cuda.synchronize()
+    gram_cuda.reset_launches()
+    t0 = time.perf_counter()
+    res = multi_restart.main([])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(gram_cuda.LAUNCHES)
+    iters = sum(SCHEDULES[("kin40k_fitc", r)].iters for r in ("crps", "nlml"))
+    # Two Grams a step (K_uu, K_fu) for all R restarts, four in each evaluation.
+    want = {"fwd": 2 * iters + 8, "bwd_rows": 2 * iters, "bwd_cols": 2 * iters}
+    assert launches == want, (launches, want)
+    for tag, rec in res.items():
+        assert rec["num_restarts"] == R and np.isfinite(rec["best_final_loss"]), (tag, rec)
+        assert all(np.isfinite(rec[f]) for f in METRICS), (tag, rec)
+    sched = SCHEDULES[("kin40k_fitc", "crps")]
+    loss = make_objective("crps", model="fitc")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solo = [fit_gd(loss, select_params(pb, r), x, y, sched.iters, sched.lr, sched.lr_inducing)
+            for r in range(R)]
+    solo_final = torch.stack([s.loss_history[-1] for s in solo]).cpu()
+    solo_wall = time.perf_counter() - t0
+    log(f"[sweeps] multi_restart.main() at its defaults ({R} restarts, crps and nlml, FITC m = "
+        f"20): {wall:.3f} s; kernel launches {launches} (one per Gram for all {R} restarts); "
+        + "; ".join(f"{tag}: best restart {rec['best_restart']} final loss "
+                    f"{rec['best_final_loss']:.6f}, worst {rec['worst_final_loss']:.6f}, "
+                    f"{rec['num_failed']} failed, test crps {rec['crps']:.5f}"
+                    for tag, rec in res.items())
+        + f"; the same {R} crps restarts as {R} solo fit_gd fits: {solo_wall:.3f} s, best "
+        f"final loss {float(solo_final.nan_to_num(float('inf')).min()):.6f}, "
+        f"{int((~torch.isfinite(solo_final)).sum())} failed")
+    return launches
+
+
+def sweep_replicates(dev):
+    """Phase 12 (4): returns the batched replicate sweep's launches."""
+    # 4. kin40k_full --replicates 10: batched against the per-replicate loop.
+    torch.cuda.synchronize()
+    gram_cuda.reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        batched = kin40k_full.main(["--replicates", str(SWEEP_REPLICATES), "--device", str(dev)])
+    replicate_launches = dict(gram_cuda.LAUNCHES)
+    data = load_kin40k()
+    splits = [kin40k_replicate_split(data, j, device=dev) for j in range(SWEEP_REPLICATES)]
+    looped = {}
+    for rule in EXACT_RULES:
+        sched = SCHEDULES[("kin40k_full", rule)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        crps = []
+        for j, sp in enumerate(splits):
+            p0 = init_rand_params(common.replicate_generator(0, j), 8,
+                                  unit_scalars=(rule != "crps"))
+            m, _ = fit_and_eval(rule, "exact", sched,
+                                p0.replace(**{f: t.to(dev) for f, t in p0.leaves().items()}),
+                                sp.train_x, sp.train_y, sp.test_x, sp.test_y,
+                                generator=common.replicate_generator(0, j, 1, device=dev))
+            crps.append(m.crps)
+        crps = float(torch.stack(crps).mean())
+        torch.cuda.synchronize()
+        looped[rule] = (time.perf_counter() - t0, crps)
+    for rule, rec in batched.items():
+        assert rec["num_failed"] == 0 and np.isfinite(rec["crps"]), (rule, rec)
+        for k, v in replicate_launches.items():
+            assert v > 0, (k, "not launched by the batched replicate sweep")
+    total, loop_total = (sum(rec["wall_s"] for rec in batched.values()),
+                         sum(v[0] for v in looped.values()))
+    log(f"[sweeps] kin40k_full --replicates {SWEEP_REPLICATES} batched: summed wall_s "
+        f"{total:.3f} s (" + ", ".join(f"{r} {rec['wall_s']:.3f}" for r, rec in batched.items())
+        + f"); kernel launches {replicate_launches}; the per-replicate loop of fit_and_eval: "
+        f"{loop_total:.3f} s (" + ", ".join(f"{r} {v[0]:.3f}" for r, v in looped.items())
+        + f"), {loop_total / total:.2f}x; test crps batched / loop: "
+        + ", ".join(f"{r} {rec['crps']:.5f} / {looped[r][1]:.5f}" for r, rec in batched.items()))
+    return replicate_launches
+
+
+def sweep_syncs(x, y, pb):
+    """Phase 12 (5)."""
+    R = batch_size(pb)
+    loss = make_objective("crps", model="fitc")
+    # 5. Host syncs of a batched replayed fit: none once the step is captured.
+    sched = SCHEDULES[("kin40k_fitc", "crps")]
+    marks = []
+    with sync_warnings() as caught:
+        def marking(params, xx, yy, generator=None):
+            marks.append(len(sync_sites(caught)))
+            return loss(params, xx, yy, generator)
+
+        fit_gd_batch(marking, pb, x, y, GRAPH_SYNC_STEPS, sched.lr, sched.lr_inducing,
+                     graph=True)
+    sites = sync_sites(caught)
+    assert len(marks) == train.GRAPH_WARMUP + 1, marks
+    after = sites[marks[-1]:]
+    log(f"[sweeps] host syncs of a batched replayed {GRAPH_SYNC_STEPS}-step fit (R = {R}): "
+        f"{marks[-1]} before the captured step, {len(after)} from the captured step to the "
+        f"return {after}")
+    assert not after, after
+
+
+def sweep_steps(dev, x, y):
+    """Phase 12 (6)."""
+    # 6. The replayed step at R = 1, 4, 16 and 64: time, device ops, idle share.
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    warm = train.GRAPH_WARMUP
+    for model, rule in SWEEP_STEP_CASES:
+        sched = SCHEDULES[("kin40k_fitc" if model == "fitc" else "kin40k_full", rule)]
+        loss = make_objective(rule, model=model)
+        for r in SWEEP_STEP_RS:
+            start = sweep_start(dev, r, model)
+
+            def fit(iters, graph=True):
+                return fit_gd_batch(loss, start, x, y, iters, sched.lr, sched.lr_inducing,
+                                    graph=graph)
+
+            fit(warm, False)
+            # The fastest of a few: one host hiccup in a long fit read 3.3x once.
+            short_s = min(timed(lambda: fit(warm + 1)) for _ in range(3))
+            long_s = min(timed(lambda: fit(warm + 1 + SWEEP_LONG)) for _ in range(2))
+            step_us = (long_s - short_s) / SWEEP_LONG * 1e6
+            ops, busy_us = bench.profile_replayed(fit, steps=SWEEP_PROFILED)
+            setup_s = short_s - step_us / 1e6
+            fit_s = setup_s + sched.iters * step_us / 1e6
+            log(f"[sweeps-step] {model} {rule}, R = {r}: replayed step {step_us:.1f} us "
+                f"({step_us / r:.1f} us a restart); {ops:.1f} device ops, busy {busy_us:.1f} us, "
+                f"idle share {1 - busy_us / step_us:.3f}; warm-up and capture {setup_s * 1e3:.2f} "
+                f"ms, {setup_s / fit_s:.4f} of a {sched.iters}-iteration fit, "
+                f"{r / fit_s:.2f} restarts per second")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs a CUDA card")
@@ -1749,15 +2144,25 @@ def main():
     report = _build.build_report()
     log(report.rstrip())
     check_spills(report)
-    err, times = phase_kernels(dev)
-    launches = {"fitc": phase_slice(dev)}
-    phase_pool(dev)
-    launches["exact"] = phase_exact(dev)
-    phase_drivers(dev)
-    launches["large_n"], crps_fit = phase_large_n(dev)
-    launches["large_n_folds"] = phase_folds(dev)
-    launches["graph"] = phase_graph(dev)
-    launches["precision"], _ = phase_precision(dev, crps_fit, times)
+    def phase(number, fn, *args):
+        """Run a phase; log its wall time (the smoke runs under a time limit)."""
+        t = time.perf_counter()
+        out = fn(*args)
+        log(f"[phase {number}] {fn.__name__}: {time.perf_counter() - t:.1f} s")
+        return out
+
+    err, times = phase(3, phase_kernels, dev)
+    launches = {"fitc": phase(4, phase_slice, dev)}
+    phase(5, phase_pool, dev)
+    launches["exact"] = phase(6, phase_exact, dev)
+    phase(7, phase_drivers, dev)
+    launches["large_n"], crps_fit = phase(8, phase_large_n, dev)
+    launches["large_n_folds"] = phase(9, phase_folds, dev)
+    launches["graph"] = phase(10, phase_graph, dev)
+    launches["precision"], _ = phase(11, phase_precision, dev, crps_fit, times)
+    launches["sweeps"], launches["sweeps_replicates"], err12, btimes = phase(12, phase_sweeps,
+                                                                             dev)
+    log(f"[phases] 1-12 in {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, key in KERNELS:
         on_path = times[(name, *TIMED_SHAPES[0])]
@@ -1765,14 +2170,15 @@ def main():
                         "replaces": REPLACES[name],
                         "launches": sum(c[key] for c in launches.values()),
                         "launches_by_path": {p: c[key] for p, c in launches.items()},
-                        "max_abs_err": err[name], "ms": on_path["ms"],
+                        "max_abs_err": max(err[name], err12[name]), "ms": on_path["ms"],
                         "plain_ms": on_path["plain_ms"], "bound_ms": on_path["bound_ms"],
                         "bound_by": on_path["bound_by"], "library_ms": None,
                         "shapes": {**{"x".join(map(str, s)): times[(name, *s)]
                                       for s in TIMED_SHAPES + FWD_SHAPES
                                       if (name, *s) in times},
                                    **{"x".join(map(str, k[1:4])) + "/" + k[4]: t
-                                      for k, t in times.items() if k[0] == name and len(k) == 5}}})
+                                      for k, t in times.items() if k[0] == name and len(k) == 5},
+                                   **{shape: t[name] for shape, t in btimes.items()}}})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -26,6 +26,24 @@
 // bfloat16 or float16); sig is a device scalar, so no launch needs a host
 // sync. Every entry point launches on the caller's stream and returns
 // cudaGetLastError().
+//
+// The batch axis (a sweep's restarts or replicates; gpscore_torch/parallel/
+// sweeps.py): every kernel takes B independent Grams in one launch, the batch
+// on blockIdx.z (at most 65,535), and each array its batch stride in
+// elements (struct Batch; 0 for an input that every batch shares). Each
+// kernel has a batched instantiation (kBatched), launched for B > 1, whose
+// blocks offset their pointers by blockIdx.z times the strides and then run
+// the unbatched code unchanged; B = 1 launches the unbatched one, whose code
+// is the kernel's without a batch axis (the offsets, though zero, cost the
+// fp32 forward 5% at 8192^2 and the column kernel 20% at 9700 x 20 x 8 on an
+// NVIDIA H100 80GB HBM3 at 700 W, measured beside the unbatched build in one
+// call). So batch b's output is bitwise what an unbatched launch on b's
+// inputs writes under the same plan (K under any plan; the
+// backward's sums follow the plan's tiling, which counts every batch's tiles
+// when it fills the card, ops/gram_cuda.py). Tickets and scratch are per
+// (batch, tile): batch b's tickets follow its gridDim.x row or column tiles,
+// its scratch its gridDim.y chunks, so no two batches share either, and the
+// last block of every (batch, tile) sets its own ticket back to 0.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -67,6 +85,13 @@ __device__ __forceinline__ void cp_async_wait() {
 __host__ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
+
+// Batch strides in elements, one per array (0: the array is shared by every
+// batch). out0 and out1 are the kernel's outputs in its argument order
+// (gram_fwd: K; gram_bwd_rows: d_xs, rowsum; gram_bwd_cols: d_xps).
+struct Batch {
+  long long xs, xps, sig, g, out0, out1;
+};
 
 // Copy count contiguous floats to shared memory, every thread of the block
 // taking a share; dst is 16-byte aligned.
@@ -213,12 +238,19 @@ struct Out4<__half> {
   }
 };
 
-template <int RT, typename OutT>
+template <int RT, typename OutT, bool kBatched>
 __global__ void __launch_bounds__(kThreads)
 gram_fwd_kernel(const float* __restrict__ xs, const float* __restrict__ xps,
                 const float* __restrict__ sig, const float* __restrict__ diag,
-                OutT* __restrict__ out, int n, int m, int d, int col_threads) {
+                OutT* __restrict__ out, int n, int m, int d, int col_threads, Batch bs) {
   extern __shared__ __align__(16) float smem[];
+  if constexpr (kBatched) {
+    const long long b = blockIdx.z;
+    xs += b * bs.xs;
+    xps += b * bs.xps;
+    sig += b * bs.sig;
+    out += b * bs.out0;
+  }
   const int row_groups = kThreads / col_threads;
   const int rows_tile = row_groups * RT;
   const int col_tile = kFwdColsPerThread * col_threads;
@@ -383,16 +415,30 @@ __host__ __device__ inline RowsSmem rows_smem(int d, int rows_tile, int lanes, i
   return s;
 }
 
-template <int DMAX>
+template <int DMAX, bool kBatched>
 __global__ void __launch_bounds__(kThreads, DMAX <= 16 ? 2 : 1)
 gram_bwd_rows_kernel(const float* __restrict__ xs, const float* __restrict__ xps,
                      const float* __restrict__ sig, const float* __restrict__ g,
                      float* __restrict__ d_xs, float* __restrict__ rowsum,
                      float* __restrict__ scratch, int* __restrict__ ticket,
                      int n, int m, int d, int lanes_per_row, int slices, int stage_cols,
-                     int chunk_cols) {
+                     int chunk_cols, Batch bs) {
   extern __shared__ __align__(16) float smem[];
   __shared__ int is_last;
+  bool vec_base = true;
+  if constexpr (kBatched) {
+    // Decided on the batch's base pointer, as the launch sizes shared memory.
+    vec_base = aligned16(xps) && (bs.xps & 3) == 0;
+    const long long b = blockIdx.z;
+    xs += b * bs.xs;
+    xps += b * bs.xps;
+    sig += b * bs.sig;
+    g += b * bs.g;
+    d_xs += b * bs.out0;
+    rowsum += b * bs.out1;
+    scratch += b * gridDim.y * (long long)n * (d + 1);
+    ticket += b * gridDim.x;
+  }
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int log_l = __ffs(lanes_per_row) - 1;  // both counts are powers of two
@@ -408,7 +454,7 @@ gram_bwd_rows_kernel(const float* __restrict__ xs, const float* __restrict__ xps
   const int col0 = chunk * chunk_cols;
   const int col_end = min(m, col0 + chunk_cols);
   const int stages = (max(col_end - col0, 0) + stage_cols - 1) / stage_cols;
-  const bool vec = (d & 3) == 0 && aligned16(xps);
+  const bool vec = (d & 3) == 0 && (kBatched ? vec_base : aligned16(xps));
   const RowsSmem lay = rows_smem(d, rows_tile, lanes_per_row, slices, stage_cols,
                                  chunk_cols > stage_cols ? 2 : 1, vec);
   // With m and stage_cols multiples of 4, every stage's g rows start 16-byte
@@ -641,14 +687,24 @@ __host__ __device__ constexpr int bwd_cols_smem_floats(int d) {
 
 // minBlocksPerSM = 1: without it ptxas aims at 64 registers and spills at
 // d <= 8; the grids here put one or two blocks on an SM.
-template <int DMAX>
+template <int DMAX, bool kBatched>
 __global__ void __launch_bounds__(kThreads, 1)
 gram_bwd_cols_kernel(const float* __restrict__ xs, const float* __restrict__ xps,
                      const float* __restrict__ sig, const float* __restrict__ g,
                      float* __restrict__ d_xps, float* __restrict__ scratch,
-                     int* __restrict__ ticket, int n, int m, int d, int chunk_rows) {
+                     int* __restrict__ ticket, int n, int m, int d, int chunk_rows, Batch bs) {
   extern __shared__ __align__(16) float smem[];
   __shared__ int is_last;
+  if constexpr (kBatched) {
+    const long long b = blockIdx.z;
+    xs += b * bs.xs;
+    xps += b * bs.xps;
+    sig += b * bs.sig;
+    g += b * bs.g;
+    d_xps += b * bs.out0;
+    scratch += b * gridDim.y * (long long)m * d;
+    ticket += b * gridDim.x;
+  }
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int j0 = blockIdx.x * kColsTile;
@@ -783,27 +839,34 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 
 template <int RT, typename OutT>
 cudaError_t launch_fwd(const float* xs, const float* xps, const float* sig, const float* diag,
-                       void* out, int n, int m, int d, int col_threads, cudaStream_t stream) {
+                       void* out, int n, int m, int d, int col_threads, int batch,
+                       const Batch& bs, cudaStream_t stream) {
   const int rows_tile = kThreads / col_threads * RT;
   const int col_tile = kFwdColsPerThread * col_threads;
   const size_t smem = fwd_smem_floats(rows_tile, col_tile, d) * sizeof(float);
-  const cudaError_t err = allow_smem(gram_fwd_kernel<RT, OutT>, smem);
+  const auto kernel = batch > 1 ? gram_fwd_kernel<RT, OutT, true>
+                                : gram_fwd_kernel<RT, OutT, false>;
+  const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((m + col_tile - 1) / col_tile, (n + rows_tile - 1) / rows_tile);
-  gram_fwd_kernel<RT, OutT><<<grid, kThreads, smem, stream>>>(
-      xs, xps, sig, diag, static_cast<OutT*>(out), n, m, d, col_threads);
+  const dim3 grid((m + col_tile - 1) / col_tile, (n + rows_tile - 1) / rows_tile, batch);
+  kernel<<<grid, kThreads, smem, stream>>>(xs, xps, sig, diag, static_cast<OutT*>(out), n, m, d,
+                                           col_threads, bs);
   return cudaGetLastError();
 }
 
 template <typename OutT>
 cudaError_t launch_fwd_rt(int rows_per_thread, const float* xs, const float* xps,
                           const float* sig, const float* diag, void* out, int n, int m, int d,
-                          int col_threads, cudaStream_t stream) {
+                          int col_threads, int batch, const Batch& bs, cudaStream_t stream) {
   switch (rows_per_thread) {
-    case 1: return launch_fwd<1, OutT>(xs, xps, sig, diag, out, n, m, d, col_threads, stream);
-    case 2: return launch_fwd<2, OutT>(xs, xps, sig, diag, out, n, m, d, col_threads, stream);
-    case 4: return launch_fwd<4, OutT>(xs, xps, sig, diag, out, n, m, d, col_threads, stream);
-    case 8: return launch_fwd<8, OutT>(xs, xps, sig, diag, out, n, m, d, col_threads, stream);
+    case 1: return launch_fwd<1, OutT>(xs, xps, sig, diag, out, n, m, d, col_threads, batch, bs,
+                                       stream);
+    case 2: return launch_fwd<2, OutT>(xs, xps, sig, diag, out, n, m, d, col_threads, batch, bs,
+                                       stream);
+    case 4: return launch_fwd<4, OutT>(xs, xps, sig, diag, out, n, m, d, col_threads, batch, bs,
+                                       stream);
+    case 8: return launch_fwd<8, OutT>(xs, xps, sig, diag, out, n, m, d, col_threads, batch, bs,
+                                       stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -812,66 +875,80 @@ template <int DMAX>
 cudaError_t launch_bwd_rows(const float* xs, const float* xps, const float* sig, const float* g,
                             float* d_xs, float* rowsum, float* scratch, int* ticket, int n, int m,
                             int d, int lanes_per_row, int slices, int stage_cols, int chunk_cols,
-                            int n_chunks, cudaStream_t stream) {
+                            int n_chunks, int batch, const Batch& bs, cudaStream_t stream) {
   const int rows_tile = kThreads / (lanes_per_row * slices);
-  const bool vec = (d & 3) == 0 && aligned16(xps);  // as the kernel decides it
+  // As the kernel decides it.
+  const bool vec = (d & 3) == 0 && aligned16(xps) && (batch == 1 || (bs.xps & 3) == 0);
   const size_t smem = rows_smem(d, rows_tile, lanes_per_row, slices, stage_cols,
                                 chunk_cols > stage_cols ? 2 : 1, vec).total * sizeof(float);
-  const cudaError_t err = allow_smem(gram_bwd_rows_kernel<DMAX>, smem);
+  const auto kernel = batch > 1 ? gram_bwd_rows_kernel<DMAX, true>
+                                : gram_bwd_rows_kernel<DMAX, false>;
+  const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + rows_tile - 1) / rows_tile, n_chunks);
-  gram_bwd_rows_kernel<DMAX><<<grid, kThreads, smem, stream>>>(
-      xs, xps, sig, g, d_xs, rowsum, scratch, ticket, n, m, d, lanes_per_row, slices, stage_cols,
-      chunk_cols);
+  const dim3 grid((n + rows_tile - 1) / rows_tile, n_chunks, batch);
+  kernel<<<grid, kThreads, smem, stream>>>(xs, xps, sig, g, d_xs, rowsum, scratch, ticket, n, m,
+                                           d, lanes_per_row, slices, stage_cols, chunk_cols, bs);
   return cudaGetLastError();
 }
 
 template <int DMAX>
 cudaError_t launch_bwd_cols(const float* xs, const float* xps, const float* sig, const float* g,
                             float* d_xps, float* scratch, int* ticket, int n, int m, int d,
-                            int chunk_rows, int n_chunks, cudaStream_t stream) {
-  const cudaError_t err =
-      allow_smem(gram_bwd_cols_kernel<DMAX>, bwd_cols_smem_floats(DMAX) * sizeof(float));
+                            int chunk_rows, int n_chunks, int batch, const Batch& bs,
+                            cudaStream_t stream) {
+  const auto kernel = batch > 1 ? gram_bwd_cols_kernel<DMAX, true>
+                                : gram_bwd_cols_kernel<DMAX, false>;
+  const cudaError_t err = allow_smem(kernel, bwd_cols_smem_floats(DMAX) * sizeof(float));
   if (err != cudaSuccess) return err;
-  const dim3 grid((m + kColsTile - 1) / kColsTile, n_chunks);
+  const dim3 grid((m + kColsTile - 1) / kColsTile, n_chunks, batch);
   const size_t smem = bwd_cols_smem_floats(d) * sizeof(float);
-  gram_bwd_cols_kernel<DMAX><<<grid, kThreads, smem, stream>>>(
-      xs, xps, sig, g, d_xps, scratch, ticket, n, m, d, chunk_rows);
+  kernel<<<grid, kThreads, smem, stream>>>(xs, xps, sig, g, d_xps, scratch, ticket, n, m, d,
+                                           chunk_rows, bs);
   return cudaGetLastError();
 }
 
 bool bad_shape(int n, int m, int d) { return n < 0 || m < 0 || d < 1 || d > kMaxD; }
 
+bool bad_batch(int batch, const Batch& bs) {
+  return batch < 0 || batch > 65535 || bs.xs < 0 || bs.xps < 0 || bs.sig < 0 || bs.g < 0 ||
+         bs.out0 < 0 || bs.out1 < 0;
+}
+
 }  // namespace
 
 extern "C" {
 
-// out[n, m] = sig * exp(-1/2 |xs_i - xps_j|^2) (+ *diag where i == j, when
-// diag is not null), rounded once to the output type out_type: 0 float, 1
-// bfloat16, 2 float16. xs [n, d], xps [m, d], sig [1], diag [1] or null;
-// diag only with a 2-byte output (the float instantiation carries no
-// diagonal code, so an fp32 K adds its diagonal after the launch).
-// col_threads (8, 16, 32 or 64) and rows_per_thread (1, 2, 4 or 8) are the
-// plan's (ops/gram_cuda.py::fwd_plan).
+// out[b, n, m] = sig_b * exp(-1/2 |xs_bi - xps_bj|^2) (+ *diag where i == j,
+// when diag is not null), rounded once to the output type out_type: 0 float,
+// 1 bfloat16, 2 float16, for b < batch. xs [n, d], xps [m, d], sig [1] and
+// out [n, m] per batch, at batch strides xs_bs, xps_bs, sig_bs and out_bs
+// (elements; 0 for a shared input); diag [1] or null, shared, and only with
+// a 2-byte output (the float instantiation carries no diagonal code, so an
+// fp32 K adds its diagonal after the launch). col_threads (8, 16, 32 or 64)
+// and rows_per_thread (1, 2, 4 or 8) are the plan's
+// (ops/gram_cuda.py::fwd_plan).
 int gram_fwd(const float* xs, const float* xps, const float* sig, const float* diag, void* out,
-             int n, int m, int d, int col_threads, int rows_per_thread, int out_type,
+             int n, int m, int d, int col_threads, int rows_per_thread, int out_type, int batch,
+             long long xs_bs, long long xps_bs, long long sig_bs, long long out_bs,
              void* stream) {
-  if (bad_shape(n, m, d) || (col_threads != 8 && col_threads != 16 && col_threads != 32 &&
-                             col_threads != 64))
+  const Batch bs{xs_bs, xps_bs, sig_bs, 0, out_bs, 0};
+  if (bad_shape(n, m, d) || bad_batch(batch, bs) ||
+      (col_threads != 8 && col_threads != 16 && col_threads != 32 && col_threads != 64))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0 || m == 0) return static_cast<int>(cudaSuccess);
+  if (n == 0 || m == 0 || batch == 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (out_type) {
     case 0:
       if (diag != nullptr) return static_cast<int>(cudaErrorInvalidValue);
       return static_cast<int>(launch_fwd_rt<float>(rows_per_thread, xs, xps, sig, diag, out, n,
-                                                   m, d, col_threads, st));
+                                                   m, d, col_threads, batch, bs, st));
     case 1:
       return static_cast<int>(launch_fwd_rt<__nv_bfloat16>(rows_per_thread, xs, xps, sig, diag,
-                                                           out, n, m, d, col_threads, st));
+                                                           out, n, m, d, col_threads, batch, bs,
+                                                           st));
     case 2:
       return static_cast<int>(launch_fwd_rt<__half>(rows_per_thread, xs, xps, sig, diag, out, n,
-                                                    m, d, col_threads, st));
+                                                    m, d, col_threads, batch, bs, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -882,18 +959,23 @@ int gram_fwd(const float* xs, const float* xps, const float* sig, const float* d
 // slices (1, 2, 4, 8), stage_cols (the columns a shared-memory stage holds)
 // and chunk_cols (the columns of K a block reduces, a multiple of stage_cols)
 // are the plan's (ops/gram_cuda.py::bwd_rows_plan). With more than one
-// chunk, scratch holds [ceil(m / chunk_cols), n, d + 1] floats and ticket one
-// int per row tile, 0 at the launch and 0 again after it; calls that share a
-// ticket array must be ordered (one stream).
+// chunk, scratch holds [batch, ceil(m / chunk_cols), n, d + 1] floats and
+// ticket one int per (batch, row tile), 0 at the launch and 0 again after it;
+// calls that share a ticket array must be ordered (one stream). The batch
+// strides of xs, xps, sig, g, d_xs and rowsum as in gram_fwd.
 int gram_bwd_rows(const float* xs, const float* xps, const float* sig, const float* g,
                   float* d_xs, float* rowsum, float* scratch, int* ticket, int n, int m, int d,
-                  int lanes_per_row, int slices, int stage_cols, int chunk_cols, void* stream) {
+                  int lanes_per_row, int slices, int stage_cols, int chunk_cols, int batch,
+                  long long xs_bs, long long xps_bs, long long sig_bs, long long g_bs,
+                  long long d_xs_bs, long long rowsum_bs, void* stream) {
+  const Batch bs{xs_bs, xps_bs, sig_bs, g_bs, d_xs_bs, rowsum_bs};
   const bool pow2 = lanes_per_row > 0 && (lanes_per_row & (lanes_per_row - 1)) == 0 &&
                     slices > 0 && (slices & (slices - 1)) == 0;
-  if (bad_shape(n, m, d) || !pow2 || lanes_per_row > 32 || slices > kWarpsPerBlock ||
-      stage_cols < 1 || chunk_cols < stage_cols || chunk_cols % stage_cols != 0)
+  if (bad_shape(n, m, d) || bad_batch(batch, bs) || !pow2 ||
+      lanes_per_row > 32 || slices > kWarpsPerBlock || stage_cols < 1 ||
+      chunk_cols < stage_cols || chunk_cols % stage_cols != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0) return static_cast<int>(cudaSuccess);
+  if (n == 0 || batch == 0) return static_cast<int>(cudaSuccess);
   const int n_chunks = m > 0 ? (m - 1) / chunk_cols + 1 : 1;
   if (n_chunks > 65535 || (n_chunks > 1 && (scratch == nullptr || ticket == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -902,21 +984,25 @@ int gram_bwd_rows(const float* xs, const float* xps, const float* sig, const flo
                       : d <= 32 ? launch_bwd_rows<32>
                       : launch_bwd_rows<64>;
   return static_cast<int>(launch(xs, xps, sig, g, d_xs, rowsum, scratch, ticket, n, m, d,
-                                 lanes_per_row, slices, stage_cols, chunk_cols, n_chunks,
-                                 static_cast<cudaStream_t>(stream)));
+                                 lanes_per_row, slices, stage_cols, chunk_cols, n_chunks, batch,
+                                 bs, static_cast<cudaStream_t>(stream)));
 }
 
 // d_xps[m, d] = sum_i W_ij (xs_i - xps_j), W = g * K, in one launch.
 // chunk_rows (a multiple of 64) is the rows of K a block reduces. With more
-// than one chunk, scratch holds [ceil(n / chunk_rows), m, d] floats and ticket
-// ceil(m / 32) ints that are 0 at the launch and are 0 again after it; calls
-// that share a ticket array must be ordered (one stream).
+// than one chunk, scratch holds [batch, ceil(n / chunk_rows), m, d] floats and
+// ticket batch * ceil(m / 32) ints that are 0 at the launch and are 0 again
+// after it; calls that share a ticket array must be ordered (one stream). The
+// batch strides of xs, xps, sig, g and d_xps as in gram_fwd.
 int gram_bwd_cols(const float* xs, const float* xps, const float* sig, const float* g,
                   float* d_xps, float* scratch, int* ticket, int n, int m, int d,
-                  int chunk_rows, void* stream) {
-  if (bad_shape(n, m, d) || chunk_rows < 1 || chunk_rows % kColsStageRows != 0)
+                  int chunk_rows, int batch, long long xs_bs, long long xps_bs,
+                  long long sig_bs, long long g_bs, long long d_xps_bs, void* stream) {
+  const Batch bs{xs_bs, xps_bs, sig_bs, g_bs, d_xps_bs, 0};
+  if (bad_shape(n, m, d) || bad_batch(batch, bs) || chunk_rows < 1 ||
+      chunk_rows % kColsStageRows != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (m == 0) return static_cast<int>(cudaSuccess);
+  if (m == 0 || batch == 0) return static_cast<int>(cudaSuccess);
   const int n_chunks = n > 0 ? (n - 1) / chunk_rows + 1 : 1;
   if (n_chunks > 65535 || (n_chunks > 1 && (scratch == nullptr || ticket == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -925,7 +1011,7 @@ int gram_bwd_cols(const float* xs, const float* xps, const float* sig, const flo
                       : d <= 32 ? launch_bwd_cols<32>
                       : launch_bwd_cols<64>;
   return static_cast<int>(launch(xs, xps, sig, g, d_xps, scratch, ticket, n, m, d, chunk_rows,
-                                 n_chunks, static_cast<cudaStream_t>(stream)));
+                                 n_chunks, batch, bs, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -1,9 +1,11 @@
 """One (rule, replicate) fit, then the test-set metrics (port of
-`experiments/common.py::{fit_and_eval, eval_predictive_metrics}`)."""
+`experiments/common.py::{fit_and_eval, eval_predictive_metrics}`), and the
+same for a batch of replicates as one batched fit (the JAX sweep's
+``jax.vmap`` of ``fit_and_eval``)."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
@@ -15,7 +17,8 @@ from gpscore_torch.metrics import EvalMetrics, evaluate_predictive
 from gpscore_torch.models.exact import exact_predictive
 from gpscore_torch.models.fitc import fitc_predictive
 from gpscore_torch.ops.kernels import gram
-from gpscore_torch.utils.params import GPParams
+from gpscore_torch.parallel.sweeps import restart_sweep
+from gpscore_torch.utils.params import GPParams, batch_size, select_params
 from gpscore_torch.utils.precision import matmul_mode
 
 
@@ -77,4 +80,45 @@ def fit_and_eval(
     metrics = eval_predictive_metrics(
         model, res.params, train_x, train_y, test_x, test_y, kernel=kernel
     )
+    return metrics, res
+
+
+def fit_and_eval_batch(
+    rule: str,
+    model: str,
+    schedule: Schedule,
+    params0: GPParams,
+    train_x,
+    train_y,
+    test_x,
+    test_y,
+    generator: Optional[torch.Generator] = None,
+    kernel: str = "ard",
+    fold_k: int = 4,
+    num_sim: int = 300,
+) -> tuple[List[EvalMetrics], FitResult]:
+    """:func:`fit_and_eval` for R replicates at once: params0 with leaves
+    [R, ...], the data [R, ...] per replicate (train_x [R, n, d], train_y
+    [R, n], test_x [R, t, d], test_y [R, t]) or shared (without the [R]).
+
+    The fit is :func:`~gpscore_torch.parallel.sweeps.restart_sweep`: one
+    batched fit below the exact GP's fused sizes (replayed from one CUDA
+    graph on a card), the replicates one after another above. The
+    evaluation runs once per replicate, so it loops over them. Returns the
+    R replicates' metrics and the batched FitResult ([R, ...] fields);
+    ``generator`` draws every replicate's es normals."""
+    R = batch_size(params0)
+    loss = make_objective(rule, model=model, kernel=kernel, fold_k=fold_k, num_sim=num_sim)
+    res = restart_sweep(loss, params0, train_x, train_y, schedule.iters, schedule.lr,
+                        schedule.lr_inducing, generator=generator)
+
+    def rep(a, r, rank):
+        return a[r] if a.dim() > rank else a
+
+    metrics = [
+        eval_predictive_metrics(model, select_params(res.params, r), rep(train_x, r, 2),
+                                rep(train_y, r, 1), rep(test_x, r, 2), rep(test_y, r, 1),
+                                kernel=kernel)
+        for r in range(R)
+    ]
     return metrics, res

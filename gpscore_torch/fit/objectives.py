@@ -6,6 +6,13 @@ Each objective is ``loss(params, x, y, generator=None, eps=None) -> scalar``.
 only the ``es`` rule; every objective accepts them so that they share one
 signature.
 
+A batch of R restarts or replicates (``jax.vmap``'s semantics, with an
+explicit axis): parameters whose leaves carry a leading [R] (log_signal_sq
+[R]), with x [n, d] and y [n] shared or x [R, n, d] and y [R, n], give the
+R losses [R], each restart's exactly its own; nothing reduces across the
+batch. A batch always takes the dense or FITC path, below the fused cores
+(``fit.train.fit_gd_batch``, ``parallel.restart_sweep``).
+
 Rules:
 - ``crps``  CRPS on the LOO predictive (`SIMPLE-DATA FULL-comapre.py:204-213`)
 - ``logs``  log score on the LOO predictive, with the reference's FITC variance
@@ -94,8 +101,17 @@ def make_objective(
         raise ValueError(f"unknown model {model!r}")
     exact = model == "exact"
 
-    def _fused(x):
-        return exact and x.shape[0] >= _FUSED_LOO_MIN_N
+    def _batch_dims(params, x):
+        return int(params.log_signal_sq.dim() > 0 or x.dim() > 2)
+
+    def _fused(x, params=None):
+        return (exact and x.dim() == 2 and x.shape[0] >= _FUSED_LOO_MIN_N
+                and (params is None or params.log_signal_sq.dim() == 0))
+
+    def _fold_y(y, mean):
+        """y split into the folds of ``mean`` [..., k, nb]."""
+        k, nb = mean.shape[-2:]
+        return y.reshape(k, nb) if y.numel() == k * nb else y.reshape(-1, k, nb)
 
     def _k_ff(params, x):
         return gram(x, x, params.log_signal_sq, params.log_length, kind=kernel)
@@ -105,7 +121,7 @@ def make_objective(
                                            fold_k, want_inv_diag, block)
 
     def _loo(params, x, y):
-        if _fused(x):
+        if _fused(x, params):
             return exact_mod.loo_exact_fused(x, y, _fused_params(params, kernel, x.shape[1]),
                                              block)
         if exact:
@@ -123,24 +139,25 @@ def make_objective(
 
         def loss(params, x, y, generator=None, eps=None):
             p = _loo(params, x, y)
-            return rules.crps_gaussian(p.mean, p.cov, y)
+            return rules.crps_gaussian(p.mean, p.cov, y, batch_dims=_batch_dims(params, x))
 
     elif rule == "logs":
 
         def loss(params, x, y, generator=None, eps=None):
             p = _loo(params, x, y)
-            return rules.logs_gaussian(p.mean, p.cov, y)
+            return rules.logs_gaussian(p.mean, p.cov, y, batch_dims=_batch_dims(params, x))
 
     elif rule == "interval":
 
         def loss(params, x, y, generator=None, eps=None):
             p = _loo(params, x, y)
-            return rules.interval_score(p.mean, p.cov, y, alpha=interval_alpha)
+            return rules.interval_score(p.mean, p.cov, y, alpha=interval_alpha,
+                                        batch_dims=_batch_dims(params, x))
 
     elif rule == "nlml":
 
         def loss(params, x, y, generator=None, eps=None):
-            if _fused(x):
+            if _fused(x, params):
                 return exact_mod.nlml_exact_fused(
                     x, y, _fused_params(params, kernel, x.shape[1]), block)
             if exact:
@@ -150,7 +167,7 @@ def make_objective(
     elif rule == "dss":
 
         def loss(params, x, y, generator=None, eps=None):
-            if _fused(x):
+            if _fused(x, params):
                 # DSS_b = nb/2 log 2pi - hld_b + e_b^T a_b / 2: hld is the half
                 # log-det of the fold precision, and the quadratic r^T A r
                 # with r = e collapses since A e = a_b.
@@ -158,44 +175,45 @@ def make_objective(
                 return (0.5 * a_b.numel() * math.log(2.0 * math.pi)
                         - torch.sum(stats.half_logdet) + 0.5 * torch.sum(stats.e * a_b))
             p = _kfold(params, x, y)
-            y_b = y.reshape(p.mean.shape)
+            y_b = _fold_y(y, p.mean)
             if exact:
-                return torch.sum(rules.dss_precision(p.mean, p.chol_prec, y_b))
-            nb = y_b.shape[1]
+                return torch.sum(rules.dss_precision(p.mean, p.chol_prec, y_b), dim=-1)
+            nb = y_b.shape[-1]
             r = y_b - p.mean
             per_fold = (
                 0.5 * nb * math.log(2.0 * math.pi)
                 + 0.5 * fitc_mod.lowrank_fold_logdet_cov(p)
                 + 0.5 * fitc_mod.lowrank_fold_quad(p, r)
             )
-            return torch.sum(per_fold)
+            return torch.sum(per_fold, dim=-1)
 
     elif rule == "es":
 
         def loss(params, x, y, generator=None, eps=None):
-            if _fused(x):
+            if _fused(x, params):
                 return exact_mod.kfold_es_fused(
                     x, y, _fused_params(params, kernel, x.shape[1]), fold_k, num_sim, es_beta,
                     block, generator, None if eps is None else torch.cat(eps, dim=-1))
             p = _kfold(params, x, y)
-            y_b = y.reshape(p.mean.shape)
+            y_b = _fold_y(y, p.mean)
             if exact:
                 return torch.sum(rules.energy_score_precision(
-                    p.mean, p.chol_prec, y_b, num_sim, es_beta, generator=generator, eps=eps))
+                    p.mean, p.chol_prec, y_b, num_sim, es_beta, generator=generator, eps=eps),
+                    dim=-1)
             eps_z, eps_zp = (None, None) if eps is None else eps
             z = fitc_mod.lowrank_fold_sample(p, num_sim, generator=generator, eps=eps_z)
             zp = fitc_mod.lowrank_fold_sample(p, num_sim, generator=generator, eps=eps_zp)
             r = p.mean - y_b
-            return torch.sum(rules.energy_score_core(z, zp, r, num_sim, es_beta))
+            return torch.sum(rules.energy_score_core(z, zp, r, num_sim, es_beta), dim=-1)
 
     elif rule == "kc":
 
         def loss(params, x, y, generator=None, eps=None):
-            if _fused(x):
+            if _fused(x, params):
                 stats, _, y_b = _fold_stats(params, x, y, want_inv_diag=True)
                 return rules.crps_kfold(y_b - stats.e, stats.inv_diag, y_b)
             p = _kfold(params, x, y)
-            y_b = y.reshape(p.mean.shape)
+            y_b = _fold_y(y, p.mean)
             if exact:
                 # var = diag(A^-1) straight from the factor, no inverse formed
                 var_b = linalg.inv_diag_from_chol(p.chol_prec)

@@ -22,6 +22,14 @@ device value) makes a graphed fit raise PyTorch's capture error; nothing
 drops back to the eager loop by itself. A caller that needs the eager loop
 passes ``graph=False``.
 
+:func:`fit_gd_batch` runs R independent fits as one, the counterpart of
+``jax.vmap(fit_gd)`` (``gpscore.parallel.restart_sweep``): the leaves carry
+a leading [R], one step function computes the R losses [R] and the gradient
+of their sum (restart r's gradient is its own loss's: nothing reduces across
+the batch), and the probe, the NaN-masked update and the stall counter are
+per restart, so a restart that fails leaves the others as its solo fit
+would. The same ``_run`` drives it: one capture, R restarts in every launch.
+
 Fault tolerance as in the JAX package: an iteration whose loss or gradient is
 not finite (a failed Cholesky gives NaN, see
 :func:`gpscore_torch.ops.linalg.chol_factor`) skips its update, and
@@ -38,7 +46,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from gpscore_torch.ops import gram_cuda
-from gpscore_torch.utils.params import GPParams
+from gpscore_torch.utils.params import GPParams, batch_size
 from gpscore_torch.utils.precision import get_matmul_mode, matmul_mode
 
 # Fewest iterations that the default (``graph=None``) captures on a card. The
@@ -58,6 +66,9 @@ _CAPTURE_STREAMS = {}  # device -> the side stream every capture on it uses
 
 
 class FitResult(NamedTuple):
+    """One fit's result; a batch of R fits (:func:`fit_gd_batch`) has every
+    field in ``jax.vmap``'s layout, a leading [R] before each."""
+
     params: GPParams
     loss_history: torch.Tensor  # [iters]
     ok: torch.Tensor  # scalar bool: True if any iteration produced a finite loss
@@ -80,30 +91,56 @@ class _Buffers:
     """The static buffers every loop shares: the parameter leaves (copies,
     updated in place), the evaluation point built on them, the loss history,
     the device step counter and, with ``record_params``, the parameter
-    histories."""
+    histories. With ``batch`` R the leaves are [R, ...] and the histories
+    [R, iters, ...]: the iteration axis is 1."""
 
-    def __init__(self, params: GPParams, x, iters: int, record_params: bool = False):
+    def __init__(self, params: GPParams, x, iters: int, record_params: bool = False,
+                 batch: Optional[int] = None):
+        self.lead = () if batch is None else (batch,)
+        self.axis = len(self.lead)  # the iteration axis of the histories
         self.leaves = {f: t.detach().clone().requires_grad_()
                        for f, t in params.leaves().items()}
         self.point = params.replace(**self.leaves)
-        self.losses = torch.empty((iters,), dtype=x.dtype, device=x.device)
+        self.losses = torch.empty((*self.lead, iters), dtype=x.dtype, device=x.device)
         self.i = torch.zeros((1,), dtype=torch.int64, device=x.device)
         self.history = None
         if record_params:
-            self.history = {f: torch.empty((iters, *t.shape), dtype=t.dtype, device=t.device)
+            self.history = {f: torch.empty((*self.lead, iters, *t.shape[self.axis:]),
+                                           dtype=t.dtype, device=t.device)
                             for f, t in self.leaves.items()}
 
     def value_and_grad(self, loss_fn, x, y, generator):
+        """The loss (R losses for a batch) and the gradient of the loss (of
+        their sum) with respect to every leaf."""
         loss = loss_fn(self.point, x, y, generator)
-        return loss, torch.autograd.grad(loss, list(self.leaves.values()))
+        if not self.lead:
+            return loss, torch.autograd.grad(loss, list(self.leaves.values()))
+        if tuple(loss.shape) != self.lead:
+            raise ValueError(f"the objective returned shape {tuple(loss.shape)}, expected "
+                             f"{self.lead}: one loss per restart, none reduced across them")
+        return loss, torch.autograd.grad(loss.sum(), list(self.leaves.values()))
+
+    def abs_max(self, g):
+        """max |g| per restart (NaN-propagating): over the whole leaf, or
+        over every axis but the batch's."""
+        if not self.lead:
+            return torch.max(torch.abs(g))
+        if g.dim() == 1:
+            return torch.abs(g)
+        return torch.amax(torch.abs(g), dim=tuple(range(1, g.dim())))
+
+    def per_leaf(self, mask, t):
+        """A per-restart mask [R] shaped to broadcast against leaf ``t``."""
+        return mask if not self.lead else mask.reshape(*self.lead, *([1] * (t.dim() - 1)))
 
     def record(self, loss) -> None:
         """Write the loss and the evaluation point at the device counter, then
         advance it. Call before the update, under ``no_grad``."""
-        self.losses.index_copy_(0, self.i, loss.detach().reshape(1).to(self.losses.dtype))
+        self.losses.index_copy_(self.axis, self.i,
+                                loss.detach().reshape(*self.lead, 1).to(self.losses.dtype))
         if self.history is not None:
             for f, t in self.leaves.items():
-                self.history[f].index_copy_(0, self.i, t.detach().unsqueeze(0))
+                self.history[f].index_copy_(self.axis, self.i, t.detach().unsqueeze(self.axis))
         self.i.add_(1)
 
     def final(self, params: GPParams) -> GPParams:
@@ -210,29 +247,85 @@ def fit_gd(
     the step runs: an eager step under the mode of its call, a replayed fit
     under the mode its step was captured in, which is the mode of this call
     (a graph keeps the kernels it captured, TF32 ones included).
+
+    ``params`` is one parameter set; a batch of them goes to
+    :func:`fit_gd_batch`.
     """
+    if batch_size(params) is not None:
+        raise ValueError("fit_gd takes one parameter set (a scalar log_signal_sq); "
+                         "fit a batch with fit_gd_batch")
+    return _gd(loss_fn, params, x, y, iters, lr, lr_inducing, generator, skip_nonfinite,
+               record_params, graph, None)
+
+
+def fit_gd_batch(
+    loss_fn,
+    params: GPParams,
+    x,
+    y,
+    iters: int,
+    lr: float,
+    lr_inducing: Optional[float] = None,
+    generator: Optional[torch.Generator] = None,
+    skip_nonfinite: bool = True,
+    record_params: bool = False,
+    graph: Optional[bool] = None,
+) -> FitResult:
+    """R independent :func:`fit_gd` fits as one: ``jax.vmap(fit_gd)`` with an
+    explicit axis.
+
+    ``params``' leaves carry a leading [R]; x [n, d] and y [n] are shared by
+    every restart, or x [R, n, d] and y [R, n] give each its own data (a
+    sweep's replicates). ``loss_fn`` must return the R losses [R] (the
+    objectives of :func:`gpscore_torch.fit.objectives.make_objective` do for
+    batched parameters). One step computes them, the gradient of their sum
+    and R masked updates; restart r's loss history, update, stall counter
+    and parameters are those of its solo fit from its start (up to the
+    order in which batched cuBLAS and cuSOLVER kernels sum). A restart whose
+    loss or gradient is not finite skips its own update only.
+
+    Returns a FitResult in ``jax.vmap``'s layout: params [R, ...],
+    loss_history [R, iters], ok [R], param_history [R, iters, ...] and
+    stall_iters [R]. ``generator`` draws the es normals of all R restarts
+    at once, [R, ...] a step. ``graph`` as in :func:`fit_gd`: on a card the
+    fit is three eager steps and one captured step at the batch's shapes,
+    then replays, each launch serving all R restarts.
+    """
+    R = batch_size(params)
+    if R is None:
+        raise ValueError("fit_gd_batch takes parameters whose leaves carry a leading [R]")
+    if any(t.shape[0] != R for t in params.leaves().values()):
+        raise ValueError(f"every leaf must lead with the batch of {R}: "
+                         f"{ {f: tuple(t.shape) for f, t in params.leaves().items()} }")
+    return _gd(loss_fn, params, x, y, iters, lr, lr_inducing, generator, skip_nonfinite,
+               record_params, graph, R)
+
+
+def _gd(loss_fn, params, x, y, iters, lr, lr_inducing, generator, skip_nonfinite,
+        record_params, graph, batch) -> FitResult:
+    """The GD loop of :func:`fit_gd` (``batch`` None) and :func:`fit_gd_batch`."""
     if lr_inducing is None:
         lr_inducing = lr
-    buf = _Buffers(params, x, iters, record_params)
+    buf = _Buffers(params, x, iters, record_params, batch)
     rates = {f: (lr_inducing if f == "inducing" else lr) for f in buf.leaves}
-    stall = torch.zeros((), dtype=torch.int32, device=x.device)
+    stall = torch.zeros(buf.lead, dtype=torch.int32, device=x.device)
 
     def step():
         loss, grads = buf.value_and_grad(loss_fn, x, y, generator)
         with torch.no_grad():
-            # One scalar probe: max(|.|) propagates NaN and surfaces Inf, and
-            # cannot overflow on large finite gradients as a sum could.
-            probe = max_reduce([torch.abs(loss)] + [torch.max(torch.abs(g)) for g in grads])
+            # One probe per restart: max(|.|) propagates NaN and surfaces Inf,
+            # and cannot overflow on large finite gradients as a sum could.
+            probe = max_reduce([torch.abs(loss)] + [buf.abs_max(g) for g in grads])
             finite = torch.isfinite(probe)
             stall.copy_(torch.where(finite, torch.zeros_like(stall), stall + 1))
             buf.record(loss)
             for (f, t), g in zip(buf.leaves.items(), grads):
                 upd = t - rates[f] * g
-                t.copy_(torch.where(finite, upd, t) if skip_nonfinite else upd)
+                t.copy_(torch.where(buf.per_leaf(finite, t), upd, t) if skip_nonfinite else upd)
 
     _run(step, iters, x.device, graph, generator)
     param_history = None if buf.history is None else params.replace(**buf.history)
-    ok = torch.any(torch.isfinite(buf.losses))
+    ok = torch.any(torch.isfinite(buf.losses), dim=-1)
     return FitResult(buf.final(params), buf.losses, ok, param_history, stall)
 
 

@@ -3,7 +3,11 @@
 
 Every quantity of one training step derives from one Cholesky factorization
 of K_hat = K_ff + sigma^2 I. Folds ride a leading [k, ...] dimension instead
-of ``vmap``. The fold blocks are factored with
+of ``vmap``; the small-n functions (:func:`loo_exact`, :func:`kfold_exact`,
+:func:`kfold_exact_precision`, :func:`nlml_exact`, :func:`exact_predictive`)
+also take a batch of restarts or replicates before it: K_ff [R, n, n],
+noise_sq [R] and y [n] or [R, n] give [R, ...] results, each batch's its
+own. The fused forms stay unbatched. The fold blocks are factored with
 :func:`gpscore_torch.ops.linalg.chol_factor`, which gives NaN where JAX's
 ``jnp.linalg.cholesky`` does (``torch.linalg.cholesky`` would raise, and wait
 on the host every step to find out), so ``fit_gd``'s masked update can skip a
@@ -26,6 +30,7 @@ from typing import NamedTuple
 import torch
 
 from gpscore_torch.ops import fold_stream, gram_cuda, linalg, loo_fused, potri_inplace
+from gpscore_torch.ops.kernels import per_batch
 from gpscore_torch.utils.precision import matmul
 
 
@@ -58,9 +63,14 @@ class FoldStats(NamedTuple):
     inv_diag: torch.Tensor  # [k, nb]
 
 
+def _sites(y, n: int):
+    """y as [n], or [R, n] for per-replicate targets."""
+    return y.reshape(n) if y.numel() == n else y.reshape(-1, n)
+
+
 def _k_hat(k_ff, noise_sq):
     eye = torch.eye(k_ff.shape[-1], dtype=k_ff.dtype, device=k_ff.device)
-    return k_ff + noise_sq * eye
+    return k_ff + per_batch(noise_sq, 2) * eye
 
 
 def exact_predictive(k_star_f, k_ff, k_ss, y, noise_sq, *, L=None) -> Gaussian:
@@ -70,14 +80,14 @@ def exact_predictive(k_star_f, k_ff, k_ss, y, noise_sq, *, L=None) -> Gaussian:
         mu*  = K*f (Kff + s^2 I)^-1 y
         Cov* = s^2 I + K** - K*f (Kff + s^2 I)^-1 Kf*
     """
-    n = k_ff.shape[0]
+    n = k_ff.shape[-1]
     if L is None:
         L = linalg.chol_factor(_k_hat(k_ff, noise_sq))
-    alpha = linalg.chol_solve_from_factor(L, y.reshape(n, 1))
-    mean = matmul(k_star_f, alpha)[:, 0]
-    V = linalg.tri_solve(L, k_star_f.T)  # [n, t]
-    eye_t = torch.eye(k_ss.shape[0], dtype=k_ss.dtype, device=k_ss.device)
-    cov = noise_sq * eye_t + k_ss - matmul(V.T, V)
+    alpha = linalg.chol_solve_from_factor(L, _sites(y, n)[..., None])
+    mean = matmul(k_star_f, alpha)[..., 0]
+    V = linalg.tri_solve(L, k_star_f.mT)  # [..., n, t]
+    eye_t = torch.eye(k_ss.shape[-1], dtype=k_ss.dtype, device=k_ss.device)
+    cov = per_batch(noise_sq, 2) * eye_t + k_ss - matmul(V.mT, V)
     return Gaussian(mean, cov)
 
 
@@ -202,8 +212,7 @@ def loo_exact(k_ff, y, noise_sq) -> Gaussian:
     K_hat^-1 y and diag(K_hat^-1) come from
     :func:`~gpscore_torch.ops.linalg.loo_solve_diag` and its closed-form
     backward. A diagonal Gaussian over the n training points."""
-    n = k_ff.shape[0]
-    y = y.reshape(n)
+    y = _sites(y, k_ff.shape[-1])
     kinv_y, kinv_diag = linalg.loo_solve_diag(_k_hat(k_ff, noise_sq), y)
     return Gaussian(y - kinv_y / kinv_diag, 1.0 / kinv_diag)
 
@@ -223,13 +232,15 @@ def loo_exact_fused(x, y, params, block=None) -> Gaussian:
 def _kfold_blocks(k_ff, y, noise_sq, fold_k: int):
     """Shared k-fold preamble (reference `kin40k-FULL-compare.py:500-530`): the
     diagonal blocks A_b = [K_hat^-1]_bb [k, nb, nb], the fold targets y_b
-    [k, nb] and [K_hat^-1 y]_b [k, nb, 1]. Raises ``ValueError`` unless fold_k
-    divides n (:class:`~gpscore_torch.ops.linalg.KfoldSolveBlocks` checks)."""
-    n = k_ff.shape[0]
+    [k, nb] and [K_hat^-1 y]_b [k, nb, 1] (each after the batch's [R]). Raises
+    ``ValueError`` unless fold_k divides n
+    (:class:`~gpscore_torch.ops.linalg.KfoldSolveBlocks` checks)."""
+    n = k_ff.shape[-1]
     nb = n // fold_k
-    y = y.reshape(n)
+    y = _sites(y, n)
     kinv_y, A = linalg.kfold_solve_blocks(_k_hat(k_ff, noise_sq), y, fold_k)
-    return A, y.reshape(fold_k, nb), kinv_y.reshape(fold_k, nb, 1)
+    return (A, y.reshape(*y.shape[:-1], fold_k, nb),
+            kinv_y.reshape(*kinv_y.shape[:-1], fold_k, nb, 1))
 
 
 def kfold_exact(k_ff, y, noise_sq, fold_k: int, *, diag_only: bool = False) -> Gaussian:
@@ -319,8 +330,8 @@ def nlml_exact(k_ff, y, noise_sq):
 
         0.5 n log 2pi + sum log diag(chol(K_hat)) + 0.5 y^T K_hat^-1 y
     """
-    n = k_ff.shape[0]
-    y = y.reshape(n, 1)
+    n = k_ff.shape[-1]
+    y = _sites(y, n)[..., None]
     L = linalg.chol_factor(_k_hat(k_ff, noise_sq))
-    quad = 0.5 * torch.sum(y * linalg.chol_solve_from_factor(L, y))
+    quad = 0.5 * torch.sum(y * linalg.chol_solve_from_factor(L, y), dim=(-2, -1))
     return 0.5 * n * math.log(2.0 * math.pi) + linalg.half_logdet(L) + quad

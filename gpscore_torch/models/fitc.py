@@ -10,7 +10,11 @@ predictive) goes through the Woodbury identity in O(n m^2):
 
     B^-1 = G^-1 - W W^T,   W = G^-1 V L_M^{-T},   M = I + V^T G^-1 V.
 
-``jax.vmap`` over folds becomes a leading [k, ...] fold dimension. The JAX
+``jax.vmap`` over folds becomes a leading [k, ...] fold dimension, and
+``jax.vmap`` over restarts or replicates a leading [R, ...] batch dimension
+before it: parameters with leaves [R, ...] (inducing [R, m, d]), x [n, d]
+shared or [R, n, d], y [n] or [R, n]; every term then carries the batch
+([R, n, m], [R, k, nb, m], ...), each restart's its own. The JAX
 package's parity-only forms (``fitc_dense_cov``, ``kfold_fitc``,
 ``kfold_fitc_precision``, ``loo_fitc(method="dense")``) are not ported: the
 JAX copies are their oracle.
@@ -23,9 +27,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from gpscore_torch.models.exact import Gaussian
+from gpscore_torch.models.exact import Gaussian, _sites
 from gpscore_torch.ops import linalg
-from gpscore_torch.ops.kernels import gram, kernel_diag
+from gpscore_torch.ops.kernels import gram, kernel_diag, per_batch
 from gpscore_torch.utils.precision import matmul
 
 KUU_JITTER = 1e-3  # reference `Q`, `SIMPLE-DATA FULL-comapre.py:53`
@@ -34,12 +38,12 @@ KUU_JITTER = 1e-3  # reference `Q`, `SIMPLE-DATA FULL-comapre.py:53`
 class FITCTerms(NamedTuple):
     """Everything needed about B = Q_ff + G, in low-rank form."""
 
-    V: torch.Tensor  # [n, m]   Qff = V V^T
-    g: torch.Tensor  # [n]      diagonal of G
-    kff_diag: torch.Tensor  # [n]
-    L_uu: torch.Tensor  # [m, m]  chol(K_uu + jitter I)
-    L_M: torch.Tensor  # [m, m]  chol(I + V^T G^-1 V)
-    W: torch.Tensor  # [n, m]   B^-1 = diag(1/g) - W W^T
+    V: torch.Tensor  # [..., n, m]   Qff = V V^T
+    g: torch.Tensor  # [..., n]      diagonal of G
+    kff_diag: torch.Tensor  # [..., n]
+    L_uu: torch.Tensor  # [..., m, m]  chol(K_uu + jitter I)
+    L_M: torch.Tensor  # [..., m, m]  chol(I + V^T G^-1 V)
+    W: torch.Tensor  # [..., n, m]   B^-1 = diag(1/g) - W W^T
 
 
 def _eye(m, like):
@@ -49,44 +53,44 @@ def _eye(m, like):
 def fitc_terms(x, params, *, kind: str = "ard") -> FITCTerms:
     """Build the Woodbury decomposition of B = Q_ff + G from data + params."""
     u = params.inducing
-    m = u.shape[0]
+    m = u.shape[-2]
     K_uu = gram(u, u, params.log_signal_sq, params.log_length, kind=kind)
     K_uu = K_uu + KUU_JITTER * _eye(m, K_uu)
     K_fu = gram(x, u, params.log_signal_sq, params.log_length, kind=kind)
     L_uu = linalg.chol_factor(K_uu)
-    V = linalg.tri_solve(L_uu, K_fu.T).T  # [n, m]
+    V = linalg.tri_solve(L_uu, K_fu.mT).mT  # [..., n, m]
     kff_diag = kernel_diag(x, params.log_signal_sq)
-    qff_diag = torch.sum(V * V, dim=1)
-    g = kff_diag - qff_diag + params.noise_sq
-    Vg = V / g[:, None]
-    M = _eye(m, V) + matmul(V.T, Vg)
+    qff_diag = torch.sum(V * V, dim=-1)
+    g = kff_diag - qff_diag + per_batch(params.noise_sq, 1)
+    Vg = V / g[..., None]
+    M = _eye(m, V) + matmul(V.mT, Vg)
     L_M = linalg.chol_factor(M)
     # W^T = L_M^-1 (G^-1 V)^T  =>  W = G^-1 V L_M^-T, so W W^T = G^-1 V M^-1 V^T G^-1.
-    W = linalg.tri_solve(L_M, Vg.T).T  # [n, m]
+    W = linalg.tri_solve(L_M, Vg.mT).mT  # [..., n, m]
     return FITCTerms(V=V, g=g, kff_diag=kff_diag, L_uu=L_uu, L_M=L_M, W=W)
 
 
 def _b_inv_apply(t: FITCTerms, r):
-    """B^-1 r for r [n, k] in O(n m k)."""
-    rg = r / t.g[:, None]
-    return rg - matmul(t.W, matmul(t.W.T, r))
+    """B^-1 r for r [..., n, k] in O(n m k)."""
+    rg = r / t.g[..., None]
+    return rg - matmul(t.W, matmul(t.W.mT, r))
 
 
 def _b_inv_diag(t: FITCTerms):
-    return 1.0 / t.g - torch.sum(t.W * t.W, dim=1)
+    return 1.0 / t.g - torch.sum(t.W * t.W, dim=-1)
 
 
 def fitc_half_logdet(t: FITCTerms):
     """0.5 log det B = sum log diag(L_M) + 0.5 sum log g (determinant lemma)."""
-    return linalg.half_logdet(t.L_M) + 0.5 * torch.sum(torch.log(t.g))
+    return linalg.half_logdet(t.L_M) + 0.5 * torch.sum(torch.log(t.g), dim=-1)
 
 
 def nlml_fitc(x, y, params, *, kind: str = "ard"):
     """FITC NLML: 0.5 n log 2pi + 0.5 log det B + 0.5 y^T B^-1 y."""
-    n = x.shape[0]
+    n = x.shape[-2]
     t = fitc_terms(x, params, kind=kind)
-    yc = y.reshape(n, 1)
-    quad = 0.5 * torch.sum(yc * _b_inv_apply(t, yc))
+    yc = _sites(y, n)[..., None]
+    quad = 0.5 * torch.sum(yc * _b_inv_apply(t, yc), dim=(-2, -1))
     return 0.5 * n * math.log(2.0 * math.pi) + fitc_half_logdet(t) + quad
 
 
@@ -103,16 +107,16 @@ def loo_fitc(
     sigma_i^2 = 1/[B^-1]_ii + noise_sq - B_ii + Kff_ii, which is algebraically
     zero (B_ii = kff_ii + noise_sq) and kept, computed literally, for parity.
     """
-    n = x.shape[0]
-    y = y.reshape(n)
+    y = _sites(y, x.shape[-2])
     t = fitc_terms(x, params, kind=kind)
     b_diag = _b_inv_diag(t)
-    b_y = _b_inv_apply(t, y.reshape(n, 1))[:, 0]
-    big_q_diag = t.kff_diag + params.noise_sq  # q_ii + g_ii, exactly
+    b_y = _b_inv_apply(t, y[..., None])[..., 0]
+    noise_sq = per_batch(params.noise_sq, 1)
+    big_q_diag = t.kff_diag + noise_sq  # q_ii + g_ii, exactly
     mean = y - b_y / b_diag
     var = 1.0 / b_diag
     if variance_correction:
-        var = var + params.noise_sq - big_q_diag + t.kff_diag
+        var = var + noise_sq - big_q_diag + t.kff_diag
     return Gaussian(mean, var)
 
 
@@ -126,44 +130,49 @@ def fitc_predictive(x, y, x_star, params, *, kind: str = "ard") -> Gaussian:
     in O(n m^2 + t m^2 + t^2 m) via Q*f = V* V^T and V^T B^-1 V = C - C M^-1 C
     with C = M - I.
     """
-    n = x.shape[0]
-    nt = x_star.shape[0]
-    y = y.reshape(n, 1)
+    nt = x_star.shape[-2]
+    y = _sites(y, x.shape[-2])[..., None]
     t = fitc_terms(x, params, kind=kind)
     K_su = gram(x_star, params.inducing, params.log_signal_sq, params.log_length, kind=kind)
-    V_s = linalg.tri_solve(t.L_uu, K_su.T).T  # [t, m]
-    vby = matmul(t.V.T, _b_inv_apply(t, y))  # [m, 1]
-    mean = matmul(V_s, vby)[:, 0]
-    eye_m = _eye(t.V.shape[1], t.V)
-    M = matmul(t.L_M, t.L_M.T)
+    V_s = linalg.tri_solve(t.L_uu, K_su.mT).mT  # [..., t, m]
+    vby = matmul(t.V.mT, _b_inv_apply(t, y))  # [..., m, 1]
+    mean = matmul(V_s, vby)[..., 0]
+    eye_m = _eye(t.V.shape[-1], t.V)
+    M = matmul(t.L_M, t.L_M.mT)
     C = M - eye_m
     CMinvC = matmul(C, linalg.chol_solve_from_factor(t.L_M, C))
     vbv = C - CMinvC
     K_ss = gram(x_star, x_star, params.log_signal_sq, params.log_length, kind=kind)
-    cov = params.noise_sq * _eye(nt, K_ss) + K_ss - matmul(V_s, matmul(vbv, V_s.T))
+    noise_sq = per_batch(params.noise_sq, 2)
+    cov = noise_sq * _eye(nt, K_ss) + K_ss - matmul(V_s, matmul(vbv, V_s.mT))
     # Roundoff guard: every exact FITC predictive variance is >= noise_sq, but
     # the C - C M^-1 C cancellation can push a few diagonal entries below it at
     # large m. Clamp the diagonal to the bound; off-diagonals are untouched.
-    d = torch.diagonal(cov)
-    cov = cov + torch.diag(torch.clamp(params.noise_sq - d, min=0.0))
+    d = torch.diagonal(cov, dim1=-2, dim2=-1)
+    cov = cov + torch.diag_embed(torch.clamp(per_batch(params.noise_sq, 1) - d, min=0.0))
     return Gaussian(mean, cov)
 
 
 def _fitc_fold_terms(x, y, params, fold_k: int, kind: str):
     """Shared FITC k-fold preamble: Woodbury terms reshaped to fold batches
-    (W_b [k, nb, m], g_b [k, nb], y_b [k, nb], [B^-1 y]_b [k, nb])."""
-    n = x.shape[0]
+    (W_b [..., k, nb, m], g_b [..., k, nb], y_b [..., k, nb], [B^-1 y]_b
+    [..., k, nb])."""
+    n = x.shape[-2]
     if n % fold_k != 0:
         raise ValueError(f"n={n} not divisible by fold_k={fold_k}")
     nb = n // fold_k
-    y = y.reshape(n)
+    y = _sites(y, n)
     t = fitc_terms(x, params, kind=kind)
-    b_y = _b_inv_apply(t, y.reshape(n, 1))[:, 0]
+    b_y = _b_inv_apply(t, y[..., None])[..., 0]
+
+    def folds(v):
+        return v.reshape(*v.shape[:-1], fold_k, nb)
+
     return (
-        t.W.reshape(fold_k, nb, -1),
-        t.g.reshape(fold_k, nb),
-        y.reshape(fold_k, nb),
-        b_y.reshape(fold_k, nb),
+        t.W.reshape(*t.W.shape[:-2], fold_k, nb, t.W.shape[-1]),
+        folds(t.g),
+        folds(y),
+        folds(b_y),
     )
 
 
@@ -173,12 +182,12 @@ class LowRankPrecisionGaussian(NamedTuple):
         A_b = diag(1/g_b) - W_b W_b^T,  covariance = A_b^-1,
 
     the FITC fold block [B^-1]_bb. ``L_Mf`` is chol(I_m - W_b^T diag(g_b) W_b).
-    The leading axis is the fold."""
+    The leading axis is the fold ([R, k, ...] batched)."""
 
-    mean: torch.Tensor  # [k, nb]
-    g: torch.Tensor  # [k, nb]
-    W: torch.Tensor  # [k, nb, m]
-    L_Mf: torch.Tensor  # [k, m, m]
+    mean: torch.Tensor  # [..., k, nb]
+    g: torch.Tensor  # [..., k, nb]
+    W: torch.Tensor  # [..., k, nb, m]
+    L_Mf: torch.Tensor  # [..., k, m, m]
 
 
 def kfold_fitc_lowrank(
@@ -201,20 +210,20 @@ def kfold_fitc_lowrank(
 
 
 def lowrank_fold_logdet_cov(p: LowRankPrecisionGaussian):
-    """log det Cov_b = -log det A_b = sum log g_b - 2 sum log diag(L_Mf). [k]."""
+    """log det Cov_b = -log det A_b = sum log g_b - 2 sum log diag(L_Mf). [..., k]."""
     return torch.sum(torch.log(p.g), dim=-1) - 2.0 * torch.sum(
         torch.log(torch.diagonal(p.L_Mf, dim1=-2, dim2=-1)), dim=-1
     )
 
 
 def lowrank_fold_quad(p: LowRankPrecisionGaussian, r):
-    """r^T A_b r = r^T D r - ||W^T r||^2 per fold; r [k, nb] -> [k]."""
+    """r^T A_b r = r^T D r - ||W^T r||^2 per fold; r [..., k, nb] -> [..., k]."""
     Wr = matmul(p.W.mT, r[..., None])[..., 0]  # [k, m]
     return torch.sum(r * r / p.g, dim=-1) - torch.sum(Wr * Wr, dim=-1)
 
 
 def lowrank_fold_cov_diag(p: LowRankPrecisionGaussian):
-    """diag(A_b^-1) = g + colsum((L_Mf^-1 (GW)^T)^2) per fold. [k, nb]."""
+    """diag(A_b^-1) = g + colsum((L_Mf^-1 (GW)^T)^2) per fold. [..., k, nb]."""
     GW = p.W * p.g[..., None]
     S = linalg.tri_solve(p.L_Mf, GW.mT)  # [k, m, nb]
     return p.g + torch.sum(S * S, dim=-2)
@@ -232,15 +241,16 @@ def lowrank_fold_sample(
 
     The standard normals come from ``generator``, or are given as
     ``eps = (e1 [k, S, nb], e2 [k, m, S])`` (the tests pass the JAX package's
-    draws this way). Returns [k, num_sim, nb].
+    draws this way). Returns [k, num_sim, nb]; batched, [R, k, num_sim, nb]
+    from [R, k, ...] normals drawn at once from the one generator.
     """
-    k, nb, m = p.W.shape
+    *lead, nb, m = p.W.shape
     if eps is None:
         opts = dict(dtype=p.W.dtype, device=p.W.device, generator=generator)
-        e1 = torch.randn((k, num_sim, nb), **opts)
-        e2 = torch.randn((k, m, num_sim), **opts)
+        e1 = torch.randn((*lead, num_sim, nb), **opts)
+        e2 = torch.randn((*lead, m, num_sim), **opts)
     else:
         e1, e2 = eps
     GW = p.W * p.g[..., None]
-    corr = matmul(GW, linalg.tri_solve(p.L_Mf, e2, trans=True))  # [k, nb, S]
-    return torch.sqrt(p.g)[:, None, :] * e1 + corr.mT
+    corr = matmul(GW, linalg.tri_solve(p.L_Mf, e2, trans=True))  # [..., k, nb, S]
+    return torch.sqrt(p.g)[..., None, :] * e1 + corr.mT

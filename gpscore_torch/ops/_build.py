@@ -35,11 +35,15 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry point -> argument types (pointers and the stream as void*).
+_L = ctypes.c_longlong
+# C entry point -> argument types (pointers and the stream as void*): the
+# pointers, the shape and the plan's ints, then the batch count and one batch
+# stride (elements) per array.
 SIGNATURES = {
-    "gram_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "gram_bwd_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "gram_bwd_cols": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "gram_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _P],
+    "gram_bwd_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                      _L, _L, _L, _L, _L, _L, _P],
+    "gram_bwd_cols": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _P],
 }
 
 _loaded = {}  # "lib" -> ctypes.CDLL, "path" -> Path

@@ -26,6 +26,14 @@ the JAX package), a CUDA tensor launches the kernel or raises. ``LAUNCHES``
 counts kernel launches, so a run can show that it went through the kernels;
 a loop that replays a captured CUDA graph adds its replays with
 :func:`add_launches`.
+
+A leading batch axis, the counterpart of a ``pl.pallas_call`` under
+``jax.vmap`` (which gets an extra grid axis from Pallas's batching rule):
+xs [B, n, d], xps [B, m, d], sig [B] and g [B, n, m] give K [B, n, m] in one
+launch, each batch's Gram independent of the others and bitwise what an
+unbatched launch on its inputs gives. An input may also come unbatched
+beside batched ones (xs [n, d], sig one value): every batch shares it, at a
+batch stride of 0. A call with no 3-D input is the unbatched call.
 """
 
 from __future__ import annotations
@@ -83,9 +91,11 @@ class Roofline(NamedTuple):
 
 
 def roofline(kernel: str, n: int, m: int, d: int, out_bytes: int = 4,
-             diag: bool = False) -> Roofline:
+             diag: bool = False, batch: int = 1) -> Roofline:
     """Roofline bound of one call of ``kernel`` ("gram_fwd", "gram_bwd_rows"
-    or "gram_bwd_cols") at K of n x m on d inputs.
+    or "gram_bwd_cols") at K of n x m on d inputs, ``batch`` such Grams in
+    the call (bytes and FLOPs times ``batch``: every batch reads its own
+    inputs).
 
     Bytes: xs [n, d], xps [m, d] and sig are read by all three; the backward
     kernels also read g [n, m]; outputs are K [n, m] (forward, ``out_bytes``
@@ -106,7 +116,7 @@ def roofline(kernel: str, n: int, m: int, d: int, out_bytes: int = 4,
         floats, flops = inputs + n * m + m * d, (6 * d + 6) * n * m
     else:
         raise ValueError(f"no roofline for kernel {kernel!r}")
-    nbytes = 4 * floats + out
+    nbytes, flops = batch * (4 * floats + out), batch * flops
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_FP32_FLOP_PER_S
     return Roofline(nbytes, flops, max(t_bytes, t_ops) * 1e6,
                     "bytes" if t_bytes >= t_ops else "operations")
@@ -122,23 +132,25 @@ class FwdPlan(NamedTuple):
     launches: int  # kernel launches per call
 
 
-def fwd_plan(n: int, m: int, d: int, sms: int) -> FwdPlan:
-    """The tiling of ``gram_fwd`` on a card with ``sms`` multiprocessors.
+def fwd_plan(n: int, m: int, d: int, sms: int, batch: int = 1) -> FwdPlan:
+    """The tiling of ``gram_fwd`` on a card with ``sms`` multiprocessors,
+    for ``batch`` Grams in one launch.
 
     The narrowest column tile that covers m (at most 256 columns), then the
-    most rows per thread that still gives every SM two blocks: 8 where K is
-    megabytes (32 x 256 outputs, 32 KB, a block), 1 at the main path's small
-    Grams, whose time is the launch's."""
+    most rows per thread that still gives every SM two blocks, counting the
+    tiles of every batch: 8 where K is megabytes (32 x 256 outputs, 32 KB, a
+    block), 1 at the main path's small Grams, whose time is the launch's."""
     col_threads = next((c for c in FWD_COL_THREADS if FWD_COLS_PER_THREAD * c >= m),
                        FWD_COL_THREADS[-1])
     col_tile = FWD_COLS_PER_THREAD * col_threads
     row_groups = THREADS // col_threads
     col_tiles = -(-m // col_tile)
     for rt in FWD_ROWS_PER_THREAD:
-        blocks = -(-n // (row_groups * rt)) * col_tiles
+        blocks = -(-n // (row_groups * rt)) * col_tiles * batch
         if blocks >= 2 * sms:
             break
-    return FwdPlan(col_threads=col_threads, rows_per_thread=rt, launches=int(n > 0 and m > 0))
+    return FwdPlan(col_threads=col_threads, rows_per_thread=rt,
+                   launches=int(n > 0 and m > 0 and batch > 0))
 
 
 class BwdRowsPlan(NamedTuple):
@@ -152,17 +164,22 @@ class BwdRowsPlan(NamedTuple):
     stage_cols: int
     chunk_cols: int  # columns of K per block, a multiple of stage_cols
     n_chunks: int
-    row_tiles: int  # blocks along the rows: one ticket each when n_chunks > 1
-    scratch_shape: Optional[Tuple[int, int, int]]  # per-chunk partials; None for one chunk
+    row_tiles: int  # blocks along the rows: one ticket each (per batch) when n_chunks > 1
+    # Per-chunk partials of one batch; None for one chunk.
+    scratch_shape: Optional[Tuple[int, int, int]]
     launches: int  # kernel launches per call
+    batch: int = 1  # Grams in the call: tickets and scratch are per batch
 
 
 def _round_up(v: int, k: int) -> int:
     return -(-v // k) * k
 
 
-def bwd_rows_plan(n: int, m: int, d: int, sms: int) -> BwdRowsPlan:
-    """The tiling of ``gram_bwd_rows`` on a card with ``sms`` multiprocessors.
+def bwd_rows_plan(n: int, m: int, d: int, sms: int, batch: int = 1) -> BwdRowsPlan:
+    """The tiling of ``gram_bwd_rows`` on a card with ``sms`` multiprocessors,
+    for ``batch`` Grams in one launch, whose row tiles count together when
+    they fill the card (at B = 16 and 500 x 20: 8 columns a trip, 16 row
+    tiles a batch, 256 blocks, one chunk; alone: 32 columns, 63 blocks).
 
     The columns a block takes per trip (lanes_per_row * slices, THREADS /
     rows a block) start at the power of two that covers m, at most
@@ -181,7 +198,7 @@ def bwd_rows_plan(n: int, m: int, d: int, sms: int) -> BwdRowsPlan:
     stage."""
     resident = sms * THREADS * (2 if d <= 16 else 1)
     step = min(ROWS_MAX_STEP, 1 << max(m - 1, 0).bit_length())
-    while step > ROWS_MIN_STEP and n * step > resident:
+    while step > ROWS_MIN_STEP and batch * n * step > resident:
         step //= 2
     slices = min(THREADS // 32, max(1, step // 4))
     lanes = step // slices
@@ -193,8 +210,8 @@ def bwd_rows_plan(n: int, m: int, d: int, sms: int) -> BwdRowsPlan:
     xps_pitch = ((d + 3) // 4 | 1) * 4
     cap = max(32, (ROWS_STAGE_FLOATS - rows_tile * g_pad) // (xps_pitch + rows_tile) // 32 * 32)
     n_chunks = 1
-    if 0 < row_tiles < sms:
-        n_chunks = max(1, min(sms // row_tiles, m // ROWS_CHUNK_MIN_COLS))
+    if 0 < row_tiles * batch < sms:
+        n_chunks = max(1, min(sms // (row_tiles * batch), m // ROWS_CHUNK_MIN_COLS))
     chunk_cols = -(-max(m, 1) // n_chunks)
     stage_cols = min(cap, _round_up(chunk_cols, 32))
     chunk_cols = _round_up(chunk_cols, stage_cols)
@@ -202,7 +219,7 @@ def bwd_rows_plan(n: int, m: int, d: int, sms: int) -> BwdRowsPlan:
     return BwdRowsPlan(lanes_per_row=lanes, slices=slices, stage_cols=stage_cols,
                        chunk_cols=chunk_cols, n_chunks=n_chunks, row_tiles=row_tiles,
                        scratch_shape=(n_chunks, n, d + 1) if n_chunks > 1 else None,
-                       launches=int(n > 0))
+                       launches=int(n > 0 and batch > 0), batch=batch)
 
 
 class BwdColsPlan(NamedTuple):
@@ -210,14 +227,17 @@ class BwdColsPlan(NamedTuple):
 
     chunk_rows: int  # rows of K per block, a multiple of COLS_STAGE_ROWS
     n_chunks: int
-    col_tiles: int
+    col_tiles: int  # one ticket each (per batch) when n_chunks > 1
     blocks: int
-    scratch_shape: Optional[Tuple[int, int, int]]  # per-chunk partials; None for one chunk
+    # Per-chunk partials of one batch; None for one chunk.
+    scratch_shape: Optional[Tuple[int, int, int]]
     launches: int  # kernel launches per call
+    batch: int = 1  # Grams in the call: tickets and scratch are per batch
 
 
-def bwd_cols_plan(n: int, m: int, d: int, sms: int) -> BwdColsPlan:
-    """The chunking of ``gram_bwd_cols`` on a card with ``sms`` multiprocessors.
+def bwd_cols_plan(n: int, m: int, d: int, sms: int, batch: int = 1) -> BwdColsPlan:
+    """The chunking of ``gram_bwd_cols`` on a card with ``sms`` multiprocessors,
+    for ``batch`` Grams in one launch (their stage-tiles count together).
 
     A block reduces whole stages of COLS_STAGE_ROWS rows. It takes one stage
     while the grid has fewer stage-tiles than twice ``sms`` (so a tall-skinny
@@ -227,34 +247,41 @@ def bwd_cols_plan(n: int, m: int, d: int, sms: int) -> BwdColsPlan:
     one launch."""
     col_tiles = -(-m // COLS_TILE)
     stages = max(1, -(-n // COLS_STAGE_ROWS))
-    per_chunk = max(1, stages * col_tiles // sms)
+    per_chunk = max(1, stages * col_tiles * batch // sms)
     n_chunks = -(-stages // per_chunk)
     return BwdColsPlan(
         chunk_rows=per_chunk * COLS_STAGE_ROWS,
         n_chunks=n_chunks,
         col_tiles=col_tiles,
-        blocks=col_tiles * n_chunks,
+        blocks=col_tiles * n_chunks * batch,
         scratch_shape=(n_chunks, m, d) if n_chunks > 1 else None,
-        launches=int(m > 0),
+        launches=int(m > 0 and batch > 0),
+        batch=batch,
     )
 
 
 # ---- plain versions (CPU path, and the kernels' oracle on the card) ---------
 
 
+def _plain_sig(xs, xps, sig):
+    """sig as it broadcasts against K: as given unbatched, [B, 1, 1] (or
+    [1, 1, 1], shared) when xs or xps carries a batch axis."""
+    return sig.reshape(-1, 1, 1) if xs.dim() > 2 or xps.dim() > 2 else sig
+
+
 def gram_fwd_plain(xs, xps, sig, out_dtype=None, diag_add=None):
     """sig * exp(0.5 (2 xs.xps^T - |xs|^2 - |xps|^2)): the cross-term form of
     the JAX ``ard_gram`` on pre-scaled inputs; with ``diag_add`` that scalar
     added where i == j, then rounded once to ``out_dtype`` (None: the
-    inputs' dtype)."""
+    inputs' dtype). Batched as the kernels are (module docstring)."""
     neg_d2 = (
-        2.0 * torch.matmul(xs, xps.T)
+        2.0 * torch.matmul(xs, xps.mT)
         - torch.sum(xs * xs, dim=-1, keepdim=True)
-        - torch.sum(xps * xps, dim=-1, keepdim=True).T
+        - torch.sum(xps * xps, dim=-1, keepdim=True).mT
     )
-    K = sig * torch.exp(0.5 * neg_d2)
+    K = _plain_sig(xs, xps, sig) * torch.exp(0.5 * neg_d2)
     if diag_add is not None:
-        K.diagonal().add_(diag_add)
+        K.diagonal(dim1=-2, dim2=-1).add_(diag_add)
     return K if out_dtype is None else K.to(out_dtype)
 
 
@@ -262,15 +289,15 @@ def gram_bwd_rows_plain(xs, xps, sig, g):
     """(d_xs, rowsum): d_xs = W xps - rowsum(W) xs, W = g * K
     (`gram_pallas.py:116-125`)."""
     W = g * gram_fwd_plain(xs, xps, sig)
-    row = torch.sum(W, dim=1)
-    return torch.matmul(W, xps) - row[:, None] * xs, row
+    row = torch.sum(W, dim=-1)
+    return torch.matmul(W, xps) - row[..., None] * xs, row
 
 
 def gram_bwd_cols_plain(xs, xps, sig, g):
     """d_xps = W^T xs - colsum(W) xps, W = g * K (`gram_pallas.py:124-126`)."""
     W = g * gram_fwd_plain(xs, xps, sig)
-    col = torch.sum(W, dim=0)
-    return torch.matmul(W.T, xs) - col[:, None] * xps
+    col = torch.sum(W, dim=-2)
+    return torch.matmul(W.mT, xs) - col[..., None] * xps
 
 
 def gram_bwd_plain(xs, xps, sig, g):
@@ -282,9 +309,12 @@ def gram_bwd_plain(xs, xps, sig, g):
 # ---- kernel wrappers ---------------------------------------------------------
 
 
-def _check(xs, xps, sig, g=None):
+def _check(xs, xps, sig, g=None) -> Optional[int]:
     """Raise on what the kernels do not take: fp32, row-major contiguous,
-    [n, d] / [m, d] with 1 <= d <= MAX_D, one sig value, g [n, m]."""
+    [n, d] / [m, d] with 1 <= d <= MAX_D, one sig value, g [n, m], or the
+    same with a leading batch axis on any of xs, xps and g ([B, n, d],
+    [B, m, d], [B, n, m]; B the same on all that have it) and sig one value
+    or B. Returns B, or None for an unbatched call."""
     tensors = [xs, xps, sig] + ([] if g is None else [g])
     for t in tensors:
         if t.dtype != torch.float32:
@@ -293,16 +323,31 @@ def _check(xs, xps, sig, g=None):
             raise ValueError("gram kernel takes contiguous tensors")
         if t.device != xs.device:
             raise ValueError(f"gram kernel inputs on {t.device} and {xs.device}")
-    if xs.dim() != 2 or xps.dim() != 2 or xs.shape[1] != xps.shape[1]:
-        raise ValueError(f"gram kernel takes [n, d] and [m, d], got {tuple(xs.shape)}, "
-                         f"{tuple(xps.shape)}")
-    if not 1 <= xs.shape[1] <= MAX_D:
-        raise ValueError(f"gram kernel takes 1 <= d <= {MAX_D}, got d = {xs.shape[1]}")
-    if sig.numel() != 1:
-        raise ValueError(f"sig must hold one value, got shape {tuple(sig.shape)}")
-    if g is not None and tuple(g.shape) != (xs.shape[0], xps.shape[0]):
+    mats = [xs, xps] + ([] if g is None else [g])
+    if any(t.dim() not in (2, 3) for t in mats) or xs.shape[-1] != xps.shape[-1]:
+        raise ValueError(f"gram kernel takes [n, d] and [m, d], each with or without a "
+                         f"leading batch axis, got {tuple(xs.shape)}, {tuple(xps.shape)}")
+    batches = {t.shape[0] for t in mats if t.dim() == 3}
+    if len(batches) > 1:
+        raise ValueError(f"gram kernel inputs of batches {sorted(batches)}")
+    batch = batches.pop() if batches else None
+    d = xs.shape[-1]
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"gram kernel takes 1 <= d <= {MAX_D}, got d = {d}")
+    if sig.numel() != 1 and (batch is None or sig.numel() != batch):
+        raise ValueError(f"sig must hold one value{'' if batch is None else ' or ' + str(batch)}"
+                         f", got shape {tuple(sig.shape)}")
+    if g is not None and tuple(g.shape[-2:]) != (xs.shape[-2], xps.shape[-2]):
         raise ValueError(f"cotangent shape {tuple(g.shape)} != "
-                         f"{(xs.shape[0], xps.shape[0])}")
+                         f"{(xs.shape[-2], xps.shape[-2])}")
+    return batch
+
+
+def _bstride(t, batch) -> int:
+    """``t``'s batch stride in elements: 0 where every batch shares it."""
+    if t.dim() == 3:
+        return t.stride(0)
+    return 1 if t.dim() == 1 and batch is not None and t.numel() == batch > 1 else 0
 
 
 def _require_cuda(t):
@@ -316,15 +361,16 @@ def _raise_if_failed(name, rc):
 
 
 @functools.lru_cache(maxsize=1024)
-def _device_plan(plan, device, n, m, d):
+def _device_plan(plan, device, n, m, d, batch=1):
     """``plan`` (:func:`fwd_plan`, :func:`bwd_rows_plan`, :func:`bwd_cols_plan`)
-    for the card ``device``, looked up once per shape."""
-    return plan(n, m, d, torch.cuda.get_device_properties(device).multi_processor_count)
+    for the card ``device``, looked up once per shape and batch."""
+    return plan(n, m, d, torch.cuda.get_device_properties(device).multi_processor_count, batch)
 
 
 # The backward kernels' workspace by (device, stream), shared by both: the
-# tickets (one int per tile, 0 between launches, since a kernel's last block
-# of a tile sets its ticket back) and the scratch of per-chunk partials.
+# tickets (one int per (batch, tile), 0 between launches, since a kernel's
+# last block of a tile sets its ticket back) and the scratch of per-chunk
+# partials of every batch.
 # Launches that share them must run in order, which one stream guarantees.
 # Both only grow, by being replaced; a CUDA graph keeps the addresses it
 # captured, so a capture must find its stream's workspace large enough (an
@@ -334,8 +380,9 @@ def _device_plan(plan, device, n, m, d):
 _WORKSPACES = {}
 
 
-def _workspace(device, stream, tiles, scratch_shape):
-    floats = 0 if scratch_shape is None else math.prod(scratch_shape)
+def _workspace(device, stream, tiles, scratch_shape, batch=1):
+    tiles *= batch
+    floats = 0 if scratch_shape is None else batch * math.prod(scratch_shape)
     ws = _WORKSPACES.get((device, stream))
     if ws is None or ws[0].numel() < tiles or ws[1].numel() < floats:
         if torch.cuda.is_current_stream_capturing():
@@ -356,23 +403,26 @@ OUT_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def gram_fwd_cuda(xs, xps, sig, out_dtype=None, diag_add=None):
-    """K [n, m] from the forward kernel, tiled by :func:`fwd_plan`, in
-    ``out_dtype`` (float32, None, bfloat16 or float16), with the scalar
-    tensor ``diag_add`` added where i == j before the one rounding: inside
-    the kernel for a 2-byte K, by one fp32 add after it for an fp32 K (the
-    fp32 kernel carries no diagonal code)."""
+    """K [n, m] (or [B, n, m]) from the forward kernel, tiled by
+    :func:`fwd_plan`, in ``out_dtype`` (float32, None, bfloat16 or float16),
+    with the scalar tensor ``diag_add`` added where i == j before the one
+    rounding: inside the kernel for a 2-byte K, by one fp32 add after it for
+    an fp32 K (the fp32 kernel carries no diagonal code)."""
     _require_cuda(xs)
-    _check(xs, xps, sig)
+    batch = _check(xs, xps, sig)
     out_dtype = torch.float32 if out_dtype is None else out_dtype
     if out_dtype not in OUT_TYPES:
         raise TypeError(f"gram_fwd writes {sorted(map(str, OUT_TYPES))}, not {out_dtype}")
+    if diag_add is not None and diag_add.numel() != 1:
+        raise ValueError(f"diag_add must hold one value, got shape {tuple(diag_add.shape)}")
     if diag_add is not None:
         _check(xs, xps, diag_add)
     lib = _build.load_library()
-    n, d = xs.shape
-    m = xps.shape[0]
-    plan = _device_plan(fwd_plan, xs.device, n, m, d)
-    out = torch.empty((n, m), dtype=out_dtype, device=xs.device)
+    n, d = xs.shape[-2:]
+    m = xps.shape[-2]
+    plan = _device_plan(fwd_plan, xs.device, n, m, d, batch or 1)
+    shape = (n, m) if batch is None else (batch, n, m)
+    out = torch.empty(shape, dtype=out_dtype, device=xs.device)
     if not plan.launches:  # an empty K
         return out
     in_kernel = diag_add is not None and out_dtype != torch.float32
@@ -381,34 +431,40 @@ def gram_fwd_cuda(xs, xps, sig, out_dtype=None, diag_add=None):
         rc = lib.gram_fwd(xs.data_ptr(), xps.data_ptr(), sig.data_ptr(),
                           diag_add.data_ptr() if in_kernel else None, out.data_ptr(),
                           n, m, d, plan.col_threads, plan.rows_per_thread, OUT_TYPES[out_dtype],
-                          stream)
+                          batch or 1, _bstride(xs, batch), _bstride(xps, batch),
+                          _bstride(sig, batch), _bstride(out, batch), stream)
     _raise_if_failed("gram_fwd", rc)
     LAUNCHES["fwd"] += 1
     if diag_add is not None and not in_kernel:
-        out.diagonal().add_(diag_add)
+        out.diagonal(dim1=-2, dim2=-1).add_(diag_add)
     return out
 
 
 def gram_bwd_rows_cuda(xs, xps, sig, g):
     """(d_xs, rowsum) from the row kernel of the backward: one launch, tiled
-    by :func:`bwd_rows_plan`."""
+    by :func:`bwd_rows_plan`; [B, n, d] and [B, n] for a batched call."""
     _require_cuda(xs)
-    _check(xs, xps, sig, g)
+    batch = _check(xs, xps, sig, g)
     lib = _build.load_library()
-    n, d = xs.shape
-    m = xps.shape[0]
-    plan = _device_plan(bwd_rows_plan, xs.device, n, m, d)
-    d_xs = torch.empty_like(xs)
-    row = torch.empty((n,), dtype=torch.float32, device=xs.device)
+    n, d = xs.shape[-2:]
+    m = xps.shape[-2]
+    plan = _device_plan(bwd_rows_plan, xs.device, n, m, d, batch or 1)
+    lead = () if batch is None else (batch,)
+    d_xs = torch.empty((*lead, n, d), dtype=torch.float32, device=xs.device)
+    row = torch.empty((*lead, n), dtype=torch.float32, device=xs.device)
     if not plan.launches:  # no rows
         return d_xs, row
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream().cuda_stream
-        ticket, scratch = _workspace(xs.device, stream, plan.row_tiles, plan.scratch_shape)
+        ticket, scratch = _workspace(xs.device, stream, plan.row_tiles, plan.scratch_shape,
+                                     plan.batch)
         rc = lib.gram_bwd_rows(xs.data_ptr(), xps.data_ptr(), sig.data_ptr(), g.data_ptr(),
                                d_xs.data_ptr(), row.data_ptr(), scratch.data_ptr(),
                                ticket.data_ptr(), n, m, d, plan.lanes_per_row, plan.slices,
-                               plan.stage_cols, plan.chunk_cols, stream)
+                               plan.stage_cols, plan.chunk_cols, plan.batch,
+                               _bstride(xs, batch), _bstride(xps, batch), _bstride(sig, batch),
+                               _bstride(g, batch), _bstride(d_xs, batch),
+                               n if batch is not None else 0, stream)
     _raise_if_failed("gram_bwd_rows", rc)
     LAUNCHES["bwd_rows"] += 1
     return d_xs, row
@@ -416,22 +472,26 @@ def gram_bwd_rows_cuda(xs, xps, sig, g):
 
 def gram_bwd_cols_cuda(xs, xps, sig, g):
     """d_xps from the column kernel of the backward: one launch, chunked by
-    :func:`bwd_cols_plan`."""
+    :func:`bwd_cols_plan`; [B, m, d] for a batched call."""
     _require_cuda(xs)
-    _check(xs, xps, sig, g)
+    batch = _check(xs, xps, sig, g)
     lib = _build.load_library()
-    n, d = xs.shape
-    m = xps.shape[0]
-    plan = _device_plan(bwd_cols_plan, xs.device, n, m, d)
-    d_xps = torch.empty_like(xps)
+    n, d = xs.shape[-2:]
+    m = xps.shape[-2]
+    plan = _device_plan(bwd_cols_plan, xs.device, n, m, d, batch or 1)
+    lead = () if batch is None else (batch,)
+    d_xps = torch.empty((*lead, m, d), dtype=torch.float32, device=xs.device)
     if not plan.launches:  # no columns
         return d_xps
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream().cuda_stream
-        ticket, scratch = _workspace(xs.device, stream, plan.col_tiles, plan.scratch_shape)
+        ticket, scratch = _workspace(xs.device, stream, plan.col_tiles, plan.scratch_shape,
+                                     plan.batch)
         rc = lib.gram_bwd_cols(xs.data_ptr(), xps.data_ptr(), sig.data_ptr(), g.data_ptr(),
                                d_xps.data_ptr(), scratch.data_ptr(), ticket.data_ptr(),
-                               n, m, d, plan.chunk_rows, stream)
+                               n, m, d, plan.chunk_rows, plan.batch, _bstride(xs, batch),
+                               _bstride(xps, batch), _bstride(sig, batch), _bstride(g, batch),
+                               _bstride(d_xps, batch), stream)
     _raise_if_failed("gram_bwd_cols", rc)
     LAUNCHES["bwd_cols"] += 1
     return d_xps
@@ -458,9 +518,17 @@ def gram_bwd(xs, xps, sig, g):
     return gram_bwd_cuda(xs, xps, sig, g)
 
 
+def _inv_len(log_length):
+    """1 / l as it broadcasts against x [..., n, d]: a [d] (or one shared)
+    length as a row [1, d], a batch of them [B, d] (or [B, 1]) as [B, 1, d]."""
+    inv = torch.exp(-log_length)
+    return inv.reshape(1, -1) if log_length.dim() <= 1 else inv.unsqueeze(-2)
+
+
 def scale_inputs(x, log_length):
-    """x / l, row-major: the inputs the kernels take."""
-    return (x * torch.exp(-log_length.reshape(1, -1))).contiguous()
+    """x / l, row-major: the inputs the kernels take. A batch of lengths
+    [B, d] scales a shared x [n, d] into [B, n, d]."""
+    return (x * _inv_len(log_length)).contiguous()
 
 
 def _scale_inputs(x, xp, log_signal_sq, log_length):
@@ -468,13 +536,20 @@ def _scale_inputs(x, xp, log_signal_sq, log_length):
 
 
 class ArdGram(torch.autograd.Function):
-    """ARD Gram K(x, xp) with the kernel backward (`gram_pallas.py:96-136`)."""
+    """ARD Gram K(x, xp) with the kernel backward (`gram_pallas.py:96-136`).
+
+    Batched leaves: log_signal_sq [B] and log_length [B, d] (or [B, 1], one
+    length per batch) give K [B, n, m], each batch's from its own leaves;
+    x and xp are [B, ., d], or [., d] shared by every batch. Where an input
+    was shared, its gradient is summed over the batch, and only when asked
+    for."""
 
     @staticmethod
     def forward(ctx, x, xp, log_signal_sq, log_length):
         xs, xps, sig = _scale_inputs(x, xp, log_signal_sq, log_length)
         # Only the O(nd) scaled inputs are saved; the backward recomputes K.
         ctx.save_for_backward(xs, xps, sig, log_length)
+        ctx.shapes = (x.shape, xp.shape)
         return gram_fwd(xs, xps, sig)
 
     @staticmethod
@@ -483,9 +558,25 @@ class ArdGram(torch.autograd.Function):
         # The cotangent often arrives transposed (V = tri_solve(L, K_fu^T)^T
         # in the FITC terms); the kernels take it row-major.
         d_xs, d_xps, row = gram_bwd(xs, xps, sig, g.contiguous())
-        d_log_sig = torch.sum(row).reshape(sig.shape)
-        inv_len = torch.exp(-log_length.reshape(1, -1))
-        d_log_len = -(torch.sum(d_xs * xs, dim=0) + torch.sum(d_xps * xps, dim=0))
-        if log_length.numel() != d_log_len.numel():  # one length shared by all dims
-            d_log_len = d_log_len.sum()
-        return d_xs * inv_len, d_xps * inv_len, d_log_sig, d_log_len.reshape(log_length.shape)
+        inv_len = _inv_len(log_length)
+        if g.dim() == 2:  # unbatched
+            d_log_sig = torch.sum(row).reshape(sig.shape)
+            d_log_len = -(torch.sum(d_xs * xs, dim=0) + torch.sum(d_xps * xps, dim=0))
+            if log_length.numel() != d_log_len.numel():  # one length shared by all dims
+                d_log_len = d_log_len.sum()
+            return (d_xs * inv_len, d_xps * inv_len, d_log_sig,
+                    d_log_len.reshape(log_length.shape))
+        # Batched: every gradient is [B, ...]; a leaf that every batch shared
+        # takes the sum over the batch.
+        x_shape, xp_shape = ctx.shapes
+        need = ctx.needs_input_grad
+        d_log_sig = torch.sum(row, dim=-1).sum_to_size(sig.shape) if need[2] else None
+        d_log_len = None
+        if need[3]:
+            d_log_len = -(torch.sum(d_xs * xs, dim=-2) + torch.sum(d_xps * xps, dim=-2))
+            d_log_len = d_log_len.sum_to_size(
+                log_length.shape if log_length.dim() > 1 else (log_length.numel(),))
+            d_log_len = d_log_len.reshape(log_length.shape)
+        d_x = (d_xs * inv_len).sum_to_size(x_shape) if need[0] else None
+        d_xp = (d_xps * inv_len).sum_to_size(xp_shape) if need[1] else None
+        return d_x, d_xp, d_log_sig, d_log_len

@@ -101,51 +101,69 @@ def spd_inverse(A=None, *, L=None):
     return matmul(Linv.mT, Linv)
 
 
-def _fold_blocks(M, fold_k: int):
-    """The fold_k diagonal blocks [M]_bb of M [n, n], stacked [k, nb, nb]."""
+def _fold_view(M, fold_k: int):
+    """The fold_k diagonal blocks of M [..., n, n] as a view [..., nb, nb, k]."""
     nb = M.shape[-1] // fold_k
-    return torch.diagonal(M.reshape(fold_k, nb, fold_k, nb), dim1=0, dim2=2).permute(2, 0, 1)
+    return torch.diagonal(M.reshape(*M.shape[:-2], fold_k, nb, fold_k, nb), dim1=-4, dim2=-2)
+
+
+def _fold_blocks(M, fold_k: int):
+    """The fold_k diagonal blocks [M]_bb of M [..., n, n], stacked [..., k, nb, nb]."""
+    return _fold_view(M, fold_k).movedim(-1, -3)
+
+
+def _block_diag(A, n: int):
+    """The [..., n, n] block-diagonal matrix of the blocks A [..., k, nb, nb]:
+    one batched write into zeros, no host sync and no loop over the batch, so
+    a captured step can hold it (``torch.block_diag`` takes one matrix at a
+    time)."""
+    B = A.new_zeros((*A.shape[:-3], n, n))
+    _fold_view(B, A.shape[-3]).copy_(A.movedim(-3, -1))
+    return B
 
 
 class LooSolveDiag(torch.autograd.Function):
-    """(a, d) = (K^-1 y, diag(K^-1)) for SPD K [n, n] and y [n], the two
-    ingredients of the LOO identities, with the closed-form backward of
-    `gpscore/ops/linalg.py:112-162`:
+    """(a, d) = (K^-1 y, diag(K^-1)) for SPD K [..., n, n] and y [..., n],
+    the two ingredients of the LOO identities, with the closed-form backward
+    of `gpscore/ops/linalg.py:112-162`:
 
         a = K^-1 y:       K_bar += -(K^-1 a_bar) a^T,   y_bar = K^-1 a_bar
         d = diag(K^-1):   K_bar += -(K^-1 * d_bar[None, :]) K^-1
 
     Only K^-1 and a are saved. An output that does not reach the loss gets a
-    zero cotangent (``ctx.set_materialize_grads``, the default)."""
+    zero cotangent (``ctx.set_materialize_grads``, the default). Leading
+    dimensions batch: each batch's solve and adjoint are its own."""
 
     @staticmethod
     def forward(ctx, K, y):
         Kinv = spd_inverse(K)
-        a = matmul(Kinv, y.reshape(-1, 1))[:, 0]
+        a = matmul(Kinv, y[..., None])[..., 0]
         ctx.save_for_backward(Kinv, a)
-        return a, torch.diagonal(Kinv).clone()
+        return a, torch.diagonal(Kinv, dim1=-2, dim2=-1).clone()
 
     @staticmethod
     def backward(ctx, a_bar, d_bar):
         Kinv, a = ctx.saved_tensors
-        w = matmul(Kinv, a_bar.reshape(-1, 1))  # K^-1 a_bar [n, 1]
-        K_bar = -matmul(w, a.reshape(1, -1)) - matmul(Kinv * d_bar[None, :], Kinv)
-        return K_bar, w[:, 0]
+        w = matmul(Kinv, a_bar[..., None])  # K^-1 a_bar [..., n, 1]
+        K_bar = -matmul(w, a[..., None, :]) - matmul(Kinv * d_bar[..., None, :], Kinv)
+        return K_bar, w[..., 0]
 
 
 loo_solve_diag = LooSolveDiag.apply
 
 
 class KfoldSolveBlocks(torch.autograd.Function):
-    """(a, A) = (K^-1 y, the stacked diagonal blocks [K^-1]_bb [k, nb, nb]) for
-    SPD K [n, n], the two ingredients of the k-fold conditionals, with the
-    closed-form backward of `gpscore/ops/linalg.py:165-225` (the block
-    generalization of :class:`LooSolveDiag`'s):
+    """(a, A) = (K^-1 y, the stacked diagonal blocks [K^-1]_bb [..., k, nb,
+    nb]) for SPD K [..., n, n] and y [..., n], the two ingredients of the
+    k-fold conditionals, with the closed-form backward of
+    `gpscore/ops/linalg.py:165-225` (the block generalization of
+    :class:`LooSolveDiag`'s):
 
         a = K^-1 y:       K_bar += -(K^-1 a_bar) a^T,   y_bar = K^-1 a_bar
         A_b = [K^-1]_bb:  K_bar += -K^-1 blockdiag(A_bar) K^-1
 
-    Only K^-1 and a are saved. Raises ``ValueError`` unless fold_k divides n."""
+    Only K^-1 and a are saved. Raises ``ValueError`` unless fold_k divides n.
+    Leading dimensions batch."""
 
     @staticmethod
     def forward(ctx, K, y, fold_k: int):
@@ -153,17 +171,17 @@ class KfoldSolveBlocks(torch.autograd.Function):
         if n % fold_k != 0:
             raise ValueError(f"n={n} not divisible by fold_k={fold_k}")
         Kinv = spd_inverse(K)
-        a = matmul(Kinv, y.reshape(n, 1))[:, 0]
+        a = matmul(Kinv, y.reshape(*y.shape[:-1], n, 1))[..., 0]
         ctx.save_for_backward(Kinv, a)
         return a, _fold_blocks(Kinv, fold_k).contiguous()
 
     @staticmethod
     def backward(ctx, a_bar, A_bar):
         Kinv, a = ctx.saved_tensors
-        w = matmul(Kinv, a_bar.reshape(-1, 1))
-        B = torch.block_diag(*A_bar)
-        K_bar = -matmul(w, a.reshape(1, -1)) - matmul(matmul(Kinv, B), Kinv)
-        return K_bar, w[:, 0], None
+        w = matmul(Kinv, a_bar[..., None])
+        B = _block_diag(A_bar, Kinv.shape[-1])
+        K_bar = -matmul(w, a[..., None, :]) - matmul(matmul(Kinv, B), Kinv)
+        return K_bar, w[..., 0], None
 
 
 kfold_solve_blocks = KfoldSolveBlocks.apply

@@ -13,9 +13,16 @@ All rules are negatively oriented (smaller is better) and differentiable:
 - interval score: Gneiting & Raftery (2007) eq. 43
 
 The block rules take leading dimensions as folds and return one score per
-block. The energy-score samplers draw their standard normals from a
+block. The site rules (CRPS, log score, interval score) average over every
+site by default; with ``batch_dims=1`` the first axis is a batch of restarts
+or replicates ([R, n] against y [n] or [R, n]) and they return one score per
+batch, [R]. ``crps_kfold`` sums over its fold axis and keeps any before it.
+
+The energy-score samplers draw their standard normals from a
 ``torch.Generator`` (on the data's device), or take them as ``eps``; the
 draws are not JAX's threefry draws, so the tests hand JAX's normals across.
+A batch of R restarts draws [R, k, ...] normals at once from the one
+generator.
 """
 
 from __future__ import annotations
@@ -49,18 +56,34 @@ def _crps_per_site(mean, var, y):
     )
 
 
-def crps_gaussian(mean, var, y):
+def _sites_mean(per_site, batch_dims: int):
+    """The mean over every axis after the first ``batch_dims``."""
+    if batch_dims == 0:
+        return torch.mean(per_site)
+    return torch.mean(per_site.reshape(*per_site.shape[:batch_dims], -1), dim=-1)
+
+
+def _flat(mean, var, y, batch_dims: int):
+    """All sites in one axis (unbatched), or the batch's shape, y shared by
+    every batch or one per batch."""
+    if batch_dims == 0:
+        return mean.reshape(-1), var.reshape(-1), y.reshape(-1)
+    shared = y.numel() != mean.numel()
+    return mean, var, y.reshape(mean.shape[batch_dims:] if shared else mean.shape)
+
+
+def crps_gaussian(mean, var, y, batch_dims: int = 0):
     """Mean closed-form Gaussian CRPS over all sites:
     sigma * [ z (2 Phi(z) - 1) + 2 phi(z) - 1/sqrt(pi) ],  z = (y - mu)/sigma."""
-    return torch.mean(_crps_per_site(mean.reshape(-1), var.reshape(-1), y.reshape(-1)))
+    return _sites_mean(_crps_per_site(*_flat(mean, var, y, batch_dims)), batch_dims)
 
 
-def logs_gaussian(mean, var, y):
+def logs_gaussian(mean, var, y, batch_dims: int = 0):
     """Mean Gaussian negative log predictive density:
     (y - mu)^2 / (2 sigma^2) + log sigma + 0.5 log 2pi."""
-    mean, var, y = mean.reshape(-1), var.reshape(-1), y.reshape(-1)
+    mean, var, y = _flat(mean, var, y, batch_dims)
     per_site = (y - mean) ** 2 / (2.0 * var) + 0.5 * torch.log(var) + _HALF_LOG_2PI
-    return torch.mean(per_site)
+    return _sites_mean(per_site, batch_dims)
 
 
 def _safe_norm_pow(sq, beta):
@@ -166,18 +189,18 @@ def energy_score_precision(
 
 def crps_kfold(mean_b, var_b, y_b):
     """"kc" objective: CRPS per fold on the diagonal of the block conditional,
-    summed over folds. mean_b/var_b/y_b: [k, nb]."""
-    return torch.sum(torch.mean(_crps_per_site(mean_b, var_b, y_b), dim=-1))
+    summed over folds. mean_b/var_b/y_b: [k, nb] ([R, k, nb] -> [R])."""
+    return torch.sum(torch.mean(_crps_per_site(mean_b, var_b, y_b), dim=-1), dim=-1)
 
 
-def interval_score(mean, var, y, alpha: float = 0.05):
+def interval_score(mean, var, y, alpha: float = 0.05, batch_dims: int = 0):
     """Mean central (1-alpha) interval score (Gneiting & Raftery 2007, eq. 43):
 
         S = (u - l) + (2/alpha) (l - y) 1{y < l} + (2/alpha) (y - u) 1{y > u}
 
     with l, u the alpha/2 and 1-alpha/2 Gaussian quantiles.
     """
-    mean, var, y = mean.reshape(-1), var.reshape(-1), y.reshape(-1)
+    mean, var, y = _flat(mean, var, y, batch_dims)
     sigma = torch.sqrt(var)
     # Phi^-1(1 - alpha/2) = sqrt(2) erfinv(1 - alpha).
     q = _SQRT2 * torch.erfinv(torch.tensor(1.0 - alpha, dtype=torch.float64)).item()
@@ -186,4 +209,4 @@ def interval_score(mean, var, y, alpha: float = 0.05):
     width = hi - lo
     below = (2.0 / alpha) * torch.clamp(lo - y, min=0.0)
     above = (2.0 / alpha) * torch.clamp(y - hi, min=0.0)
-    return torch.mean(width + below + above)
+    return _sites_mean(width + below + above, batch_dims)

@@ -1,11 +1,14 @@
 from gpscore_torch.utils.params import (
     GPParams,
+    batch_size,
     init_rand_params,
     init_unit_params,
     params_from_checkpoint,
     params_from_numpy,
     params_to_numpy,
     save_params_checkpoint,
+    select_params,
+    stack_params,
 )
 from gpscore_torch.utils.precision import (
     get_matmul_mode,
@@ -17,12 +20,15 @@ from gpscore_torch.utils.profiling import timed, trace
 
 __all__ = [
     "GPParams",
+    "batch_size",
     "init_rand_params",
     "init_unit_params",
     "params_from_checkpoint",
     "params_from_numpy",
     "params_to_numpy",
     "save_params_checkpoint",
+    "select_params",
+    "stack_params",
     "get_matmul_mode",
     "set_matmul_mode",
     "matmul",

@@ -7,6 +7,11 @@ All scalar hyperparameters are log-parameterized, as in the JAX package:
                      *squared* lengthscale for the isotropic ``rbf``
 - ``log_noise_sq``   sigma_noise^2 = exp(.)
 - ``inducing``       FITC inducing inputs [m, d], or None for the exact GP
+
+A batch of restarts or replicates is one GPParams whose every leaf carries a
+leading [R] (log_signal_sq [R], log_length [R, d], inducing [R, m, d]):
+:func:`stack_params` builds one, :func:`select_params` takes restart i out,
+:func:`batch_size` reads R.
 """
 
 from __future__ import annotations
@@ -45,6 +50,23 @@ class GPParams:
         return {f: getattr(self, f) for f in FIELDS if getattr(self, f) is not None}
 
 
+def batch_size(p: GPParams) -> Optional[int]:
+    """R of a batch of parameters (leaves [R, ...]), None for one set: read
+    off log_signal_sq, a scalar unbatched."""
+    return p.log_signal_sq.shape[0] if p.log_signal_sq.dim() > 0 else None
+
+
+def stack_params(ps) -> GPParams:
+    """The batch of the parameter sets ``ps`` (each unbatched), leaves [R, ...]."""
+    return ps[0].replace(**{f: torch.stack([getattr(p, f) for p in ps])
+                            for f in ps[0].leaves()})
+
+
+def select_params(p: GPParams, i: int) -> GPParams:
+    """Restart ``i`` of a batch of parameters."""
+    return p.replace(**{f: t[i] for f, t in p.leaves().items()})
+
+
 def init_unit_params(
     d: int = 1, isotropic: bool = True, inducing=None, device="cpu"
 ) -> GPParams:
@@ -65,6 +87,7 @@ def init_rand_params(
     num_inducing: int = 0,
     unit_scalars: bool = False,
     inducing_init: str = "uniform",
+    batch: Optional[int] = None,
 ) -> GPParams:
     """Random init of the KIN40K scripts (`kin40k-FULL-compare.py:226-233`):
     log lengths ~ U(0, 1)^d; log signal and log noise ~ U(0, 1), or 1.0 with
@@ -73,19 +96,22 @@ def init_rand_params(
     (`KIN40K-COMPARE-ALL-FITC-20.py:215, 531`).
 
     Drawn from ``generator``, on its device, in that order. The values are not
-    the JAX package's threefry draws of the same distributions."""
+    the JAX package's threefry draws of the same distributions. ``batch`` R
+    draws R restarts at once, each leaf [R, ...], in the same order (all R
+    log lengths first)."""
     opts = dict(dtype=torch.float32, device=generator.device, generator=generator)
-    log_length = torch.rand((d,), **opts)
+    lead = () if batch is None else (batch,)
+    log_length = torch.rand((*lead, d), **opts)
     if unit_scalars:
-        log_signal = torch.ones((), dtype=torch.float32, device=generator.device)
-        log_noise = torch.ones((), dtype=torch.float32, device=generator.device)
+        log_signal = torch.ones(lead, dtype=torch.float32, device=generator.device)
+        log_noise = torch.ones(lead, dtype=torch.float32, device=generator.device)
     else:
-        log_signal = torch.rand((), **opts)
-        log_noise = torch.rand((), **opts)
+        log_signal = torch.rand(lead, **opts)
+        log_noise = torch.rand(lead, **opts)
     inducing = None
     if num_inducing > 0:
         draw = torch.randn if inducing_init == "normal" else torch.rand
-        inducing = draw((num_inducing, d), **opts)
+        inducing = draw((*lead, num_inducing, d), **opts)
     return GPParams(log_signal, log_length, log_noise, inducing)
 
 

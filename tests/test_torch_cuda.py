@@ -562,3 +562,125 @@ def test_mm_dtype_and_the_modes_products_on_the_card(dev):
         ref = A.to(st).double() @ B.to(st).double()
         assert got.dtype == torch.float32
         assert float((got.double() - ref).abs().max()) <= 1e-5 * scale
+
+
+# ---- the batch axis (restarts and replicates) ------------------------------------
+
+
+def _batched(seed, B, n, m, d, dev, square=False):
+    rng = np.random.default_rng(seed)
+    xs = torch.tensor(rng.uniform(-1, 1, (B, n, d)).astype(np.float32), device=dev)
+    xps = xs if square else torch.tensor(rng.uniform(-1, 1, (B, m, d)).astype(np.float32),
+                                         device=dev)
+    sig = torch.tensor(rng.uniform(0.5, 2.0, B).astype(np.float32), device=dev)
+    g = torch.tensor(rng.standard_normal((B, n, m)).astype(np.float32), device=dev)
+    return xs, xps, sig, g
+
+
+def _all_three(xs, xps, sig, g):
+    return (gram_cuda.gram_fwd_cuda(xs, xps, sig), *gram_cuda.gram_bwd_rows_cuda(xs, xps, sig, g),
+            gram_cuda.gram_bwd_cols_cuda(xs, xps, sig, g))
+
+
+@pytest.mark.parametrize("B,n,m,d,square", [
+    (16, 500, 20, 8, False), (16, 20, 20, 8, True), (10, 500, 500, 8, True),
+    (3, 20, 8192, 12, False), (5, 9701, 33, 8, False), (4, 257, 33, 1, False),
+    (1, 500, 20, 8, False)])
+def test_batched_kernels_are_each_batchs_unbatched_launch(dev, B, n, m, d, square):
+    """One launch per kernel for all B Grams; batch b's K is bitwise that of
+    an unbatched launch on b's inputs, and so is each backward output
+    wherever the plan tiles a batch as it tiles one Gram alone (at B = 1
+    always; at 16 x 500 x 20 the row kernel takes 4 columns a trip against
+    32 alone, so its sums run in another order); at 3 x 20 x 8192 the row
+    kernel's column chunks and at 5 x 9701 x 33 the column kernel's row
+    chunks (tickets and scratch per batch); a second call is bitwise equal;
+    the batched plain versions agree within the unbatched tolerances."""
+    xs, xps, sig, g = _batched(B + n + m + d, B, n, m, d, dev, square)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def tiled_alike(plan):
+        batched, alone = plan(n, m, d, sms, B), plan(n, m, d, sms)
+        extra = {"blocks": alone.blocks} if hasattr(alone, "blocks") else {}
+        return batched._replace(batch=1, **extra) == alone
+
+    rows = tiled_alike(gram_cuda.bwd_rows_plan)
+    # K's every entry is one sum in a fixed order at any tiling.
+    same = [True, rows, rows, tiled_alike(gram_cuda.bwd_cols_plan)]
+    gram_cuda.reset_launches()
+    got = _all_three(xs, xps, sig, g)
+    assert gram_cuda.LAUNCHES == {"fwd": 1, "bwd_rows": 1, "bwd_cols": 1}
+    assert all(torch.equal(a, b) for a, b in zip(got, _all_three(xs, xps, sig, g)))
+    if B == 1:
+        assert all(same)
+    for b in range(B):
+        one = _all_three(xs[b], xps[b], sig[b], g[b])
+        for u, v, s in zip(got, one, same):
+            if s:
+                assert torch.equal(u[b], v), b
+            else:
+                assert (u[b] - v).abs().max() <= 1e-5 + 1e-4 * v.abs().max(), b
+    K = got[0]
+    assert (K - gram_cuda.gram_fwd_plain(xs, xps, sig)).abs().max() <= 2e-5 * float(sig.max())
+    plain = (*gram_cuda.gram_bwd_rows_plain(xs, xps, sig, g),
+             gram_cuda.gram_bwd_cols_plain(xs, xps, sig, g))
+    for a, want in zip(got[1:], plain):
+        assert (a - want).abs().max() <= 1e-5 + 1e-4 * want.abs().max()
+
+
+def test_batched_kernels_take_a_shared_input(dev):
+    """xs shared by every batch (stride 0) and one sig for all: each batch as
+    its unbatched launch."""
+    xs, xps, _, g = _batched(7, 4, 300, 20, 8, dev)
+    shared, sig = xs[0].contiguous(), torch.tensor(1.3, device=dev)
+    got = _all_three(shared, xps, sig, g)
+    assert got[0].shape == (4, 300, 20) and got[1].shape == (4, 300, 8)
+    for b in range(4):
+        one = _all_three(shared, xps[b], sig, g[b])
+        assert all(torch.equal(u[b], v) for u, v in zip(got, one)), b
+
+
+def test_two_replays_of_a_captured_batched_backward_are_bitwise_equal(dev):
+    """Tickets per (batch, tile) go back to 0 in every batch: a captured
+    batched backward with chunks in both kernels replays the eager result."""
+    for B, n, m, d in ((3, 20, 8192, 12), (4, 9701, 33, 8)):
+        xs, xps, sig, g = _batched(B * n, B, n, m, d, dev)
+        want = gram_cuda.gram_bwd_cuda(xs, xps, sig, g)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            gram_cuda.gram_bwd_cuda(xs, xps, sig, g)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            out = gram_cuda.gram_bwd_cuda(xs, xps, sig, g)
+        for _ in range(2):
+            for t in out:
+                t.fill_(float("nan"))
+            graph.replay()
+            assert all(torch.equal(a, b) for a, b in zip(out, want))
+
+
+@pytest.mark.parametrize("model,rule", [("fitc", "crps"), ("fitc", "nlml"), ("exact", "dss")])
+def test_batched_replayed_sweep_equals_the_batched_eager_sweep(dev, model, rule):
+    """restart_sweep of 4 restarts, 40 steps, replayed against eager from the
+    same starts: loss histories and final parameters equal bit for bit, one
+    launch of each kernel a step for all restarts (FITC: two Grams a step)."""
+    from gpscore_torch.parallel import restart_sweep
+
+    split = kin40k_replicate_split(load_kin40k(), 0, device=dev)
+    R = 4
+    pb = init_rand_params(torch.Generator().manual_seed(3), 8,
+                          num_inducing=20 if model == "fitc" else 0, batch=R)
+    pb = pb.replace(**{f: t.to(dev) for f, t in pb.leaves().items()})
+    loss = make_objective(rule, model=model)
+    runs = {}
+    for graph in (False, True):
+        gram_cuda.reset_launches()
+        runs[graph] = restart_sweep(loss, pb, split.train_x, split.train_y, 40, 1e-3,
+                                    graph=graph)
+        assert gram_cuda.LAUNCHES["fwd"] == 40 * (2 if model == "fitc" else 1)
+    assert runs[True].loss_history.shape == (R, 40)
+    assert torch.isfinite(runs[False].loss_history).all()
+    assert torch.equal(runs[True].loss_history, runs[False].loss_history)
+    for f, t in runs[False].params.leaves().items():
+        assert torch.equal(runs[True].params.leaves()[f], t), f

@@ -195,3 +195,111 @@ def test_build_key_covers_the_sources():
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR
     assert [p.name for p in _build._sources()] == ["gram.cu"]
+
+
+# ---- the batch axis ----------------------------------------------------------
+
+
+def _batched_inputs(seed, B, n, m, d):
+    rng = np.random.default_rng(seed)
+    xs = rng.standard_normal((B, n, d)).astype(np.float32)
+    xps = rng.standard_normal((B, m, d)).astype(np.float32)
+    sig = rng.uniform(0.5, 2.0, B).astype(np.float32)
+    g = rng.standard_normal((B, n, m)).astype(np.float32)
+    return t(xs), t(xps), t(sig), t(g)
+
+
+@pytest.mark.parametrize("B,n,m,d", [(3, 17, 11, 3), (4, 20, 20, 8), (1, 9, 5, 1)])
+def test_batched_plain_versions_equal_a_loop_of_unbatched_calls(B, n, m, d):
+    """The plain versions the kernels are held against, batched: each batch
+    as the unbatched call on its inputs (rtol 1e-6, atol 1e-6 of the largest
+    entry: batched and unbatched products sum in other orders)."""
+    xs, xps, sig, g = _batched_inputs(B + n, B, n, m, d)
+    K = gram_cuda.gram_fwd_plain(xs, xps, sig)
+    d_xs, d_xps, row = gram_cuda.gram_bwd_plain(xs, xps, sig, g)
+    assert K.shape == (B, n, m) and d_xs.shape == (B, n, d) and row.shape == (B, n)
+    for b in range(B):
+        one = (gram_cuda.gram_fwd_plain(xs[b], xps[b], sig[b]),
+               *gram_cuda.gram_bwd_plain(xs[b], xps[b], sig[b], g[b]))
+        for got, want in zip((K, d_xs, d_xps, row), one):
+            close(got[b], want, 1e-6, 1e-6 * float(want.abs().max()))
+
+
+def test_batched_plain_takes_a_shared_input():
+    """xs [n, d] and one sig shared by every batch: as if repeated."""
+    xs, xps, _, g = _batched_inputs(5, 3, 12, 7, 2)
+    sig = torch.tensor(1.4)
+    got = gram_cuda.gram_bwd_plain(xs[0], xps, sig, g)
+    want = gram_cuda.gram_bwd_plain(xs[0].expand(3, 12, 2), xps, sig, g)
+    for a, b in zip(got, want):
+        close(a, b, 1e-6, 1e-7)
+
+
+def test_batched_ard_gram_gradcheck_float64():
+    """ArdGram with batched leaves (log_signal_sq [B], log_length [B, d],
+    inducing [B, m, d]) and x [n, d] shared: gradcheck in float64."""
+    rng = np.random.default_rng(12)
+
+    def leaf(a):
+        return torch.tensor(a, dtype=torch.float64, requires_grad=True)
+
+    args = [leaf(rng.standard_normal((6, 3))), leaf(rng.standard_normal((2, 4, 3))),
+            leaf(0.3 * rng.standard_normal(2)), leaf(0.2 * rng.standard_normal((2, 3)))]
+    assert ArdGram.apply(*args).shape == (2, 6, 4)
+    assert torch.autograd.gradcheck(ArdGram.apply, args)
+
+
+@pytest.mark.parametrize("kind", ["ard", "rbf"])
+def test_batched_gram_equals_the_unbatched_grams(kind):
+    """gram() of batched leaves (rbf: one squared length [B]) on x shared:
+    each batch's K and gradients are its unbatched call's; the shared x's
+    gradient is the sum over the batch."""
+    rng = np.random.default_rng(13)
+    x = t(rng.standard_normal((9, 3)).astype(np.float32)).requires_grad_()
+    u = t(rng.standard_normal((3, 4, 3)).astype(np.float32)).requires_grad_()
+    lss = t(rng.standard_normal(3).astype(np.float32)).requires_grad_()
+    ll = t((0.2 * rng.standard_normal((3,) if kind == "rbf" else (3, 3))).astype(
+        np.float32)).requires_grad_()
+    w = t(rng.standard_normal((3, 9, 4)).astype(np.float32))
+    K = gram(x, u, lss, ll, kind=kind)
+    grads = torch.autograd.grad(torch.sum(K * w), [x, u, lss, ll])
+    x_sum = torch.zeros_like(x)
+    for b in range(3):
+        leaves = [x.detach().clone().requires_grad_(), u[b].detach().clone().requires_grad_(),
+                  lss[b].detach().clone().requires_grad_(),
+                  ll[b].detach().clone().requires_grad_()]
+        Kb = gram(*leaves, kind=kind)
+        close(K[b], Kb.detach(), 1e-6, 1e-7)
+        gb = torch.autograd.grad(torch.sum(Kb * w[b]), leaves)
+        x_sum += gb[0]
+        for got, want in zip(grads[1:], gb[1:]):
+            close(got[b], want, 1e-5, 1e-6 * float(want.abs().max()))
+    close(grads[0], x_sum, 1e-5, 1e-6 * float(x_sum.abs().max()))
+
+
+@pytest.mark.parametrize("bad", ["batches_differ", "sig_count", "cotangent_batch", "rank4"])
+def test_kernel_wrapper_rejects_a_bad_batch(bad):
+    xs, xps, sig, g = torch.zeros(3, 5, 2), torch.zeros(3, 4, 2), torch.ones(3), None
+    if bad == "batches_differ":
+        xps = torch.zeros(2, 4, 2)
+    elif bad == "sig_count":
+        sig = torch.ones(2)
+    elif bad == "cotangent_batch":
+        g = torch.zeros(2, 5, 4)
+    elif bad == "rank4":
+        xs = torch.zeros(1, 3, 5, 2)
+    with pytest.raises(ValueError):
+        gram_cuda._check(xs, xps, sig, g)
+
+
+def test_kernel_wrapper_accepts_batched_and_shared_inputs():
+    assert gram_cuda._check(torch.zeros(5, 2), torch.zeros(4, 2), torch.ones(())) is None
+    assert gram_cuda._check(torch.zeros(3, 5, 2), torch.zeros(4, 2), torch.ones(()),
+                            torch.zeros(3, 5, 4)) == 3
+    assert gram_cuda._check(torch.zeros(5, 2), torch.zeros(3, 4, 2), torch.ones(3)) == 3
+    # Batch strides: a batched tensor's leading stride, 0 for a shared one.
+    assert gram_cuda._bstride(torch.zeros(3, 5, 2), 3) == 10
+    assert gram_cuda._bstride(torch.zeros(5, 2), 3) == 0
+    assert gram_cuda._bstride(torch.ones(3), 3) == 1 and gram_cuda._bstride(torch.ones(()), 3) == 0
+    with pytest.raises(ValueError):
+        gram_cuda.gram_fwd_cuda(torch.zeros(3, 5, 2), torch.zeros(3, 4, 2), torch.ones(3))

@@ -344,3 +344,42 @@ def test_roofline_is_bound_by_operations_at_a_wide_input():
     # above the card's ridge of 67e12 / 3.35e12 = 20 FLOP a byte.
     for kernel in ("gram_fwd", "gram_bwd_rows", "gram_bwd_cols"):
         assert roofline(kernel, 4096, 4096, 64).bound_by == "operations"
+
+
+# ---- the batch axis ----------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,m,d", [(500, 20, 8), (20, 20, 8), (500, 500, 8), (20, 8192, 12),
+                                   (9701, 33, 8), (8192, 8192, 8)])
+def test_plans_at_batch_1_are_the_unbatched_plans(n, m, d):
+    for plan in (fwd_plan, bwd_rows_plan, bwd_cols_plan):
+        assert plan(n, m, d, H100_SMS, 1) == plan(n, m, d, H100_SMS)
+
+
+def test_batched_plans_count_every_batchs_tiles():
+    """At B = 16 and 500 x 20 (the multi-restart FITC K_fu) the row kernel
+    takes 8 columns a trip (16 row tiles a batch, 256 blocks) and cuts no
+    column chunk; alone it takes 32 (63 blocks). The column kernel keeps its
+    8 row chunks (128 blocks); the forward its one row a thread."""
+    alone, batched = bwd_rows_plan(500, 20, 8, H100_SMS), bwd_rows_plan(500, 20, 8, H100_SMS, 16)
+    assert alone.lanes_per_row * alone.slices == 32 and alone.row_tiles == 63
+    assert batched.lanes_per_row * batched.slices == 8 and batched.row_tiles == 16
+    assert batched.n_chunks == 1 and batched.scratch_shape is None and batched.batch == 16
+    cols = bwd_cols_plan(500, 20, 8, H100_SMS, 16)
+    assert cols.n_chunks == 8 and cols.blocks == 128 and cols.scratch_shape == (8, 20, 8)
+    assert fwd_plan(500, 20, 8, H100_SMS, 16).rows_per_thread == 1
+    # The exact K_ff of ten replicates: every batch in one launch, no chunk.
+    rows = bwd_rows_plan(500, 500, 8, H100_SMS, 10)
+    assert rows.n_chunks == 1 and rows.row_tiles * 10 >= H100_SMS
+    # A short-wide Gram whose tiles the batch already fills takes no column chunks.
+    assert bwd_rows_plan(20, 8192, 12, H100_SMS).n_chunks > 1
+    assert bwd_rows_plan(20, 8192, 12, H100_SMS, 64).n_chunks == 1
+    assert all(p(500, 20, 8, H100_SMS, 0).launches == 0
+               for p in (fwd_plan, bwd_rows_plan, bwd_cols_plan))
+
+
+def test_roofline_of_a_batch_is_the_batch_times_one():
+    for kernel in ("gram_fwd", "gram_bwd_rows", "gram_bwd_cols"):
+        one, b16 = roofline(kernel, 500, 20, 8), roofline(kernel, 500, 20, 8, batch=16)
+        assert b16.bytes == 16 * one.bytes and b16.flops == 16 * one.flops
+        assert b16.bound_us == pytest.approx(16 * one.bound_us) and b16.bound_by == one.bound_by
