@@ -146,21 +146,42 @@ Phases, none of whose failures is caught:
    (5) The host syncs of a batched replayed fit: none after the capture.
    (6) The replayed step at 1, 4, 16 and 64 restarts for FITC crps and nlml
    and exact crps: time, device ops, idle share, warm-up and capture.
+13. The analysis suite (``gpscore_torch.analysis``, the ``analysis_figures``
+   and ``parity_report`` drivers, pytree checkpoints): (1) the four objective
+   surfaces at the driver's defaults (grid 50 x 50, n = 20) on CUDA against
+   the port on the CPU on the same data (the same finite points, rtol 1e-3)
+   and against it in float64 (5e-4), one gram_fwd launch a surface, timed; (2) the crps surface at n = 500:
+   time, peak memory, and 16 sampled points against a float64 numpy LOO
+   (tests/oracle.py); (3) a 300 x 300 grid (90,000 Grams, past the grid's z
+   limit of 65,535): two gram_fwd launches, each point bitwise the same point
+   of a grid of 45,000; a batched ArdGram forward and backward of B = 70,000
+   at 20 x 5 x 1 (two launches a kernel) against the CPU's plain version; (4)
+   the twelve sensitivity curves at the R grids on CUDA against the CPU at the
+   same normals, then drawn from a CUDA generator, their minima at the truth;
+   (5) ``analysis_figures.main(["--no-png", ...])`` end to end, the launch
+   counters zeroed just before and read just after (the "analysis" path); (6)
+   ``parity_report`` on the card in float32, every target passing, and its
+   float64 refusal there; (7) the fit's FitResult with its parameter history
+   through save_pytree / load_pytree onto the card, bitwise.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit;
 before it, one JSON line describes every kernel: ``ms``, ``plain_ms``,
 ``bound_ms`` and ``bound_by`` at the FITC path's 500x20x8 (``library_ms`` is
 null: no single PyTorch call computes the ARD Gram or either half of its
 VJP), ``launches`` summed over the FITC, exact, large-n, large-n fold, graph,
-precision and two sweep paths (each path's count under ``launches_by_path``; a
-graph's replays are counted, gram_fwd's 2-byte launches under gram_fwd), and
+precision, two sweep and analysis paths (each path's count under
+``launches_by_path``; a graph's replays are counted, gram_fwd's 2-byte
+launches under gram_fwd), and
 under ``shapes`` the per-call and device
 times, the bound and the roofline share at every timed shape, with
 ``timed_by`` naming the source of the share's time (``torch.profiler``:
 ``device_ms``; ``cuda_events``: ``ms``, and no ``device_ms``); gram_fwd's
 2-byte shapes end in ``/bf16`` or ``/f16``, the batched ones are keyed
 ``BxNxMxD`` (``16x500x20x8``) and add ``loop_ms``, a loop of B unbatched
-launches. The last line is
+launches; phase 13's shapes (``2500x20x20x1``, ``90000x20x20x1``,
+``70000x20x5x1``, ``2500x500x500x1``) have no loop, and their surface
+Grams, given one tensor as xs and xps, have x counted once in the bound
+(``roofline(..., shared_x=True)``). The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -169,6 +190,7 @@ import importlib
 import io
 import json
 import linecache
+import os
 import re
 import sys
 import time
@@ -178,11 +200,12 @@ import numpy as np
 import torch
 
 import gpscore_torch
-from gpscore_torch import bench
+from gpscore_torch import analysis, bench
 from gpscore_torch.bench_gram import (cuda_ms, device_ms, kernel_inputs, kernel_pairs,
                                      nvidia_smi_line, time_shapes)
 from gpscore_torch.data import kin40k_fitc20_init, kin40k_replicate_split, load_kin40k
-from gpscore_torch.experiments import bench_ceiling, common, kin40k_full, large_n, multi_restart
+from gpscore_torch.experiments import (analysis_figures, bench_ceiling, common, kin40k_full,
+                                       large_n, multi_restart, parity_report)
 from gpscore_torch.fit import (SCHEDULES, eval_predictive_metrics, fit_and_eval, fit_gd,
                                fit_gd_batch, fit_optim, make_objective, train)
 from gpscore_torch.metrics import evaluate_predictive
@@ -191,7 +214,7 @@ from gpscore_torch.ops import _build, gram_cuda, linalg, loo_fused, potri_inplac
 from gpscore_torch.ops.kernels import gram
 from gpscore_torch.ops.loo_fused import auto_block
 from gpscore_torch.scoring import rules
-from gpscore_torch.utils import (batch_size, init_rand_params, init_unit_params,
+from gpscore_torch.utils import (batch_size, checkpoint, init_rand_params, init_unit_params,
                                  params_from_numpy, params_to_numpy, precision, select_params)
 
 RULES = ["crps", "nlml", "logs", "dss", "kc"]
@@ -353,6 +376,26 @@ SWEEP_STEP_CASES = [("fitc", "crps"), ("fitc", "nlml"), ("exact", "crps")]
 SWEEP_STEP_RS = (1, 4, 16, 64)
 SWEEP_LONG = 200  # replays of the fit that times the batched replayed step
 SWEEP_PROFILED = 100  # replays of the profiled fit
+# Phase 13.
+SURFACE_RULES = ["nlml", "crps", "logs", "wrong_crps"]
+GRID, N_CONTOUR, N_SURFACE_LARGE = 50, 20, 500  # the driver's defaults; the timed n
+# A surface on CUDA against the port on the CPU, per finite point, relative.
+# The CPU's plain Gram takes the cross-term form, whose cancellation at l =
+# 0.2 (|x / l|^2 up to ~440) leaves the CPU's fp32 surfaces up to 4.5e-4 off
+# a float64 evaluation (median 5e-8 to 9e-8); the CUDA kernel takes direct
+# differences. So CUDA is held to the CPU at 1e-3 and to float64 (the port
+# on the CPU in float64, the same data) at 5e-4.
+SURFACE_RTOL, SURFACE_F64_SMALL_RTOL = 1e-3, 5e-4
+# The crps surface at n = 500 against a float64 LOO at 16 sampled points,
+# relative: fp32 read <= 6.2e-6 there on the CPU (K_hat's condition number
+# up to 7e3).
+SURFACE_F64_RTOL = 1e-4
+BIG_GRID = 300  # 90,000 Grams: two chunks of the grid's z limit
+BIG_BWD = (70000, 20, 5, 1)  # a batched backward past the limit: B, n, m, d
+# A curve on CUDA against the CPU at the same normals, relative to the
+# curve's largest magnitude (a relative change is ~0 at the truth).
+CURVE_RTOL = 1e-5
+ANALYSIS_OUT = "build/analysis_figures"  # gitignored, beside the kernel build
 
 
 def log(*a):
@@ -1800,6 +1843,36 @@ def tiled_alike(plan, B, n, m, d, sms):
     return batched._replace(batch=1, **extra) == alone
 
 
+def kernel_calls():
+    """Kernel name -> (wrapper, plain version), each taking (xs, xps, sig, g)
+    and returning a tuple of outputs."""
+    return {"gram_fwd": (lambda a, b, c, _: (gram_cuda.gram_fwd_cuda(a, b, c),),
+                         lambda a, b, c, _: (gram_cuda.gram_fwd_plain(a, b, c),)),
+            "gram_bwd_rows": (gram_cuda.gram_bwd_rows_cuda, gram_cuda.gram_bwd_rows_plain),
+            "gram_bwd_cols": (lambda *a: (gram_cuda.gram_bwd_cols_cuda(*a),),
+                              lambda *a: (gram_cuda.gram_bwd_cols_plain(*a),))}
+
+
+def time_kernel(name, kern, plain, shape, reps, warmup, loop=None, shared_x=False):
+    """Times of a batched kernel call ``kern`` beside its ``plain`` version
+    (plain, kernel, [loop, loop,] kernel, plain; CUDA events), its device time
+    (torch.profiler) and the roofline bound of ``shape`` (B, n, m, d);
+    ``shared_x`` when the call is given one tensor as xs and xps. Returns
+    (times, bound)."""
+    B, n, m, d = shape
+    fns = (plain, kern, loop, loop, kern, plain) if loop else (plain, kern, kern, plain)
+    ms = [cuda_ms(f, reps=reps, warmup=warmup) for f in fns]
+    bound = gram_cuda.roofline(name, n, m, d, batch=B, shared_x=shared_x)
+    dev_ms, ops = device_ms(kern, reps=reps, floor_ms=bound.bound_us / 1e3)
+    t = {"ms": (ms[1] + ms[-2]) / 2, "plain_ms": (ms[0] + ms[-1]) / 2, "device_ms": dev_ms,
+         "bound_ms": bound.bound_us / 1e3, "bound_by": bound.bound_by,
+         "roofline_share": bound.bound_us / 1e3 / dev_ms, "library_ms": None,
+         "launches_per_call": ops, "timed_by": "torch.profiler"}
+    if loop:
+        t["loop_ms"] = (ms[2] + ms[3]) / 2
+    return t, bound
+
+
 def sweep_kernels(dev, err):
     """Phase 12 (1): the batched kernels against their batched plain
     versions, bitwise the unbatched launch at B = 1, a second call bitwise
@@ -1810,12 +1883,8 @@ def sweep_kernels(dev, err):
     for s, (B, n, m, d) in enumerate(SWEEP_SHAPES):
         square = (n, m) in SWEEP_SQUARE
         xs, xps, sig, g = batched_kernel_inputs(B, n, m, d, dev, seed=s, square=square)
-        calls = {"gram_fwd": lambda a, b, c, _: (gram_cuda.gram_fwd_cuda(a, b, c),),
-                 "gram_bwd_rows": gram_cuda.gram_bwd_rows_cuda,
-                 "gram_bwd_cols": lambda *a: (gram_cuda.gram_bwd_cols_cuda(*a),)}
-        plains = {"gram_fwd": lambda a, b, c, _: (gram_cuda.gram_fwd_plain(a, b, c),),
-                  "gram_bwd_rows": gram_cuda.gram_bwd_rows_plain,
-                  "gram_bwd_cols": lambda *a: (gram_cuda.gram_bwd_cols_plain(*a),)}
+        calls = {k: kp[0] for k, kp in kernel_calls().items()}
+        plains = {k: kp[1] for k, kp in kernel_calls().items()}
         alike = {"gram_fwd": True,
                  "gram_bwd_rows": tiled_alike(gram_cuda.bwd_rows_plan, B, n, m, d, sms),
                  "gram_bwd_cols": tiled_alike(gram_cuda.bwd_cols_plan, B, n, m, d, sms)}
@@ -1866,18 +1935,12 @@ def sweep_kernels(dev, err):
             def plain():
                 return plains[name](xs, xps, sig, g)
 
-            p1, k1, l1, l2, k2, p2 = (cuda_ms(f, reps=50, warmup=5)
-                                      for f in (plain, kern, loop, loop, kern, plain))
-            bound = gram_cuda.roofline(name, n, m, d, batch=B)
-            dev_ms = device_ms(kern, floor_ms=bound.bound_us / 1e3)[0]
-            t = {"ms": (k1 + k2) / 2, "loop_ms": (l1 + l2) / 2, "plain_ms": (p1 + p2) / 2,
-                 "device_ms": dev_ms, "bound_ms": bound.bound_us / 1e3,
-                 "bound_by": bound.bound_by, "roofline_share": bound.bound_us / 1e3 / dev_ms,
-                 "timed_by": "torch.profiler"}
+            t, bound = time_kernel(name, kern, plain, (B, n, m, d), reps=50, warmup=5, loop=loop)
             out[key][name] = t
             log(f"[sweeps-time] {name} {key}: per call batched {t['ms']:.5f} ms, a loop of {B} "
                 f"unbatched launches {t['loop_ms']:.5f} ms ({t['loop_ms'] / t['ms']:.2f}x), plain "
-                f"{t['plain_ms']:.5f} ms; device {dev_ms:.5f} ms; bound {bound.bound_us:.4f} us "
+                f"{t['plain_ms']:.5f} ms; device {t['device_ms']:.5f} ms; bound "
+                f"{bound.bound_us:.4f} us "
                 f"by {bound.bound_by} ({bound.bytes} bytes, {bound.flops} FLOP), share "
                 f"{t['roofline_share']:.3f}")
     return out
@@ -2131,6 +2194,306 @@ def sweep_steps(dev, x, y):
                 f"{r / fit_s:.2f} restarts per second")
 
 
+def check_and_time(key, names, args, shape, err, reps):
+    """Phase 13's kernel shapes: each kernel in ``names`` against its plain
+    version on ``args`` (xs, xps, sig, g) evaluated in float64 (at the
+    surfaces' l = 0.2, |x / l|^2 reaches ~1,200, where the fp32 plain form's
+    cancellation alone is 4e-5), then timed (plain, kernel, kernel, plain;
+    CUDA events) with its device time (torch.profiler) and the batched
+    roofline bound (x counted once where xs is xps). ``shape`` is (B, n, m,
+    d). Returns {kernel: times}."""
+    out = {}
+    wide = [None if a is None else a.double() for a in args]
+    for name in names:
+        kern, plain = kernel_calls()[name]
+        worst = 0.0
+        for a, want in zip(kern(*args), plain(*wide)):
+            e = float((a.double() - want).abs().max())
+            tol = (FWD_ATOL if name == "gram_fwd"
+                   else BWD_ATOL + BWD_RTOL * float(want.abs().max()))
+            assert torch.isfinite(a).all() and e <= tol, (key, name, e, tol)
+            worst = max(worst, e)
+        del want
+        err[name] = max(err[name], worst)
+        t, bound = time_kernel(name, lambda k=kern: k(*args), lambda p=plain: p(*args), shape,
+                               reps=reps, warmup=2, shared_x=args[0] is args[1])
+        out[name] = t
+        log(f"[analysis-kernels] {name} {key}: max abs err {worst:.3g} against the plain "
+            f"version in float64; per call kernel {t['ms']:.5f} ms "
+            f"({t['launches_per_call']} launch(es)), plain {t['plain_ms']:.5f} ms; device "
+            f"{t['device_ms']:.5f} ms; bound {bound.bound_us:.4f} us by "
+            f"{bound.bound_by} ({bound.bytes} bytes, {bound.flops} FLOP), share "
+            f"{t['roofline_share']:.3f}")
+    return out
+
+
+def surface_gram_args(x, ls):
+    """The inputs of a surface's one batched Gram: x scaled by each grid
+    point's lengthscale (xs = xps [B, n, d]) and unit signal [B]."""
+    log_len = torch.log(ls)[:, None].expand(ls.numel(), x.shape[-1])
+    xs = gram_cuda.scale_inputs(x, log_len)
+    return xs, xs, torch.ones(ls.numel(), device=x.device), None
+
+
+def surface_grid(ls, ns):
+    """The (lengthscale, noise sd) of every point of the Gl x Gs grid, row-major."""
+    return ls.repeat_interleave(ns.numel()), ns.repeat(ls.numel())
+
+
+def analysis_surfaces(dev, err):
+    """Phase 13 (1)-(3)."""
+    times = {}
+    f32 = dict(dtype=torch.float32)
+    ls = torch.linspace(0.2, 4.0, GRID, **f32)
+    ns = torch.linspace(0.05, 1.5, GRID, **f32)
+    cpu = analysis_figures.synthetic(42, "cpu", num_train=N_CONTOUR, num_test=8, num_va=8)
+    gpu = type(cpu)(*(t.to(dev) for t in cpu))
+    lsg, nsg = ls.to(dev), ns.to(dev)
+    # (1) The four surfaces at the defaults, CUDA against the CPU.
+    for rule in SURFACE_RULES:
+        def surface():
+            return analysis.objective_surface(gpu.train_x, gpu.train_y, lsg, nsg, rule=rule)
+
+        gram_cuda.reset_launches()
+        z = surface().cpu()
+        launched = dict(gram_cuda.LAUNCHES)
+        assert launched == {"fwd": 1, "bwd_rows": 0, "bwd_cols": 0}, (rule, launched)
+        want = analysis.objective_surface(cpu.train_x, cpu.train_y, ls, ns, rule=rule)
+        f64 = analysis.objective_surface(cpu.train_x.double(), cpu.train_y.double(),
+                                         ls.double(), ns.double(), rule=rule)
+        fin = torch.isfinite(want)
+        assert torch.equal(torch.isfinite(z), fin), (rule, "finite points differ")
+        rel = {k: ((a.double() - b.double()).abs() / b.double().abs())[fin]
+               for k, a, b in (("cpu", z, want), ("f64", z, f64), ("cpu_f64", want, f64))}
+        assert float(rel["cpu"].max()) <= SURFACE_RTOL, (rule, float(rel["cpu"].max()))
+        assert float(rel["f64"].max()) <= SURFACE_F64_SMALL_RTOL, (rule, float(rel["f64"].max()))
+        ms = cuda_ms(surface, reps=10, warmup=2)
+        busy, ops = device_ms(surface, reps=5, warmup=1)
+        log(f"[analysis] surface {rule} {GRID}x{GRID} at n = {N_CONTOUR}: "
+            f"{int(fin.sum())}/{fin.numel()} finite alike; max (median) rel: CUDA against the "
+            f"CPU {float(rel['cpu'].max()):.3g} ({float(rel['cpu'].median()):.2g}; tol "
+            f"{SURFACE_RTOL}), CUDA against float64 {float(rel['f64'].max()):.3g} "
+            f"({float(rel['f64'].median()):.2g}; tol {SURFACE_F64_SMALL_RTOL}), the CPU against "
+            f"float64 {float(rel['cpu_f64'].max()):.3g} ({float(rel['cpu_f64'].median()):.2g}); "
+            f"kernel launches {launched}; {ms:.3f} ms a surface, device busy {busy:.3f} ms in "
+            f"{ops} device ops")
+    B = GRID * GRID
+    times[f"{B}x{N_CONTOUR}x{N_CONTOUR}x1"] = check_and_time(
+        f"{B}x{N_CONTOUR}x{N_CONTOUR}x1", ["gram_fwd"], surface_gram_args(gpu.train_x, surface_grid(
+            lsg, nsg)[0]), (B, N_CONTOUR, N_CONTOUR, 1), err, reps=50)
+    # (2) The crps surface at n = 500: time, peak, 16 points against float64.
+    big = analysis_figures.synthetic(42, dev, num_train=N_SURFACE_LARGE, num_test=8, num_va=8)
+
+    def surface500():
+        return analysis.objective_surface(big.train_x, big.train_y, lsg, nsg, rule="crps")
+
+    z, peak = peak_of(surface500)
+    ms = cuda_ms(surface500, reps=3, warmup=1)
+    oracle = parity_report.load_oracle()
+    x64, y64 = big.train_x.double().cpu().numpy(), big.train_y.double().cpu().numpy()
+    points = np.random.default_rng(0).choice(B, 16, replace=False)
+    worst = 0.0
+    for p in points:
+        l, s = float(ls[p // GRID]), float(ns[p % GRID])
+        K = oracle.rbf_gram(x64, x64, 0.0, 2.0 * np.log(l))
+        want = oracle.crps_gaussian(*oracle.loo_identity(K, y64, s * s), y64)
+        worst = max(worst, abs(float(z.reshape(-1)[p]) - want) / abs(want))
+    assert torch.isfinite(z).all() and worst <= SURFACE_F64_RTOL, worst
+    n2 = B * N_SURFACE_LARGE ** 2 * 4
+    log(f"[analysis] surface crps {GRID}x{GRID} at n = {N_SURFACE_LARGE}: {ms:.2f} ms a surface; "
+        f"peak {peak / 2**30:.2f} GiB ({peak / n2:.2f} x B n^2 * 4 B); 16 sampled points against "
+        f"a float64 LOO (tests/oracle.py): max rel {worst:.3g} (tol {SURFACE_F64_RTOL})")
+    key = f"{B}x{N_SURFACE_LARGE}x{N_SURFACE_LARGE}x1"
+    times[key] = check_and_time(key, ["gram_fwd"], surface_gram_args(
+        big.train_x, surface_grid(lsg, nsg)[0]), (B, N_SURFACE_LARGE, N_SURFACE_LARGE, 1), err,
+        reps=10)
+    times[key]["gram_fwd"]["surface_ms"] = ms
+    times[key]["gram_fwd"]["surface_peak_bytes"] = peak
+    # (3) Past the grid's z limit: 90,000 Grams in two launches.
+    lsb = torch.linspace(0.2, 4.0, BIG_GRID, device=dev)
+    nsb = torch.linspace(0.05, 1.5, BIG_GRID, device=dev)
+    half = BIG_GRID // 2
+    for rule in SURFACE_RULES:
+        gram_cuda.reset_launches()
+        z = analysis.objective_surface(gpu.train_x, gpu.train_y, lsb, nsb, rule=rule)
+        torch.cuda.synchronize()
+        launched = gram_cuda.LAUNCHES["fwd"]
+        halves = torch.cat([analysis.objective_surface(gpu.train_x, gpu.train_y, part, nsb,
+                                                       rule=rule)
+                            for part in (lsb[:half], lsb[half:])])
+        assert launched == 2 and bits_equal(z, halves), (rule, launched)
+        assert torch.isfinite(z).all(), rule
+    B = BIG_GRID * BIG_GRID
+    grid_l = surface_grid(lsb, nsb)[0]
+    args = surface_gram_args(gpu.train_x, grid_l)
+    K = gram_cuda.gram_fwd_cuda(*args[:3])
+    parts = [gram_cuda.gram_fwd_cuda(*(a[s:s + half * BIG_GRID] for a in args[:3]))
+             for s in (0, half * BIG_GRID)]
+    assert bits_equal(K, torch.cat(parts)), "the chunked Gram is not its halves' Grams"
+    log(f"[analysis] {BIG_GRID}x{BIG_GRID} grid ({B} Grams, past {gram_cuda.MAX_BATCH}): two "
+        f"gram_fwd launches a surface ({gram_cuda.batch_chunks(B)}); all four surfaces finite and "
+        f"bitwise the same grid in two calls of {half * BIG_GRID}, and so is the Gram")
+    key = f"{B}x{N_CONTOUR}x{N_CONTOUR}x1"
+    times[key] = check_and_time(key, ["gram_fwd"], args, (B, N_CONTOUR, N_CONTOUR, 1), err,
+                                reps=20)
+    # ... and a batched ArdGram backward of 70,000 Grams against the CPU's plain one.
+    Bb, n, m, d = BIG_BWD
+    rng = np.random.default_rng(7)
+    host = [torch.tensor(a.astype(np.float32)) for a in (
+        rng.uniform(-3, 3, (Bb, n, d)), rng.uniform(-3, 3, (Bb, m, d)),
+        rng.uniform(-1, 1, Bb), rng.uniform(-1, 1, (Bb, d)), rng.standard_normal((Bb, n, m)))]
+    grads = {}
+    for where in ("cuda", "cpu"):
+        leaves = [t.to(dev if where == "cuda" else "cpu", copy=True).requires_grad_()
+                  for t in host[:4]]
+        gram_cuda.reset_launches()
+        K = gram_cuda.ArdGram.apply(*leaves)
+        got = torch.autograd.grad((K * host[4].to(K.device)).sum(), leaves)
+        if where == "cuda":
+            torch.cuda.synchronize()
+            launched = dict(gram_cuda.LAUNCHES)
+        grads[where] = [K.detach().cpu()] + [g.cpu() for g in got]
+    assert launched == {"fwd": 2, "bwd_rows": 2, "bwd_cols": 2}, launched
+    worst = []
+    for i, (a, b) in enumerate(zip(grads["cuda"], grads["cpu"])):
+        e = float((a - b).abs().max())
+        tol = FWD_ATOL if i == 0 else BWD_ATOL + BWD_RTOL * float(b.abs().max())
+        assert torch.isfinite(a).all() and e <= tol, ("ArdGram", Bb, i, e, tol)
+        worst.append(e)
+    log(f"[analysis] ArdGram at {Bb}x{n}x{m}x{d}: launches {launched}; K, d_x, d_xp, "
+        f"d_log_signal, d_log_length against the CPU's plain version: max abs "
+        + ", ".join(f"{e:.3g}" for e in worst))
+    xs = (host[0] * torch.exp(-host[3])[:, None, :]).to(dev)
+    xps = (host[1] * torch.exp(-host[3])[:, None, :]).to(dev)
+    key = "x".join(map(str, BIG_BWD))
+    times[key] = check_and_time(key, [k for k in REPLACES], (
+        xs, xps, torch.exp(host[2]).to(dev), host[4].to(dev)), BIG_BWD, err, reps=20)
+    return times
+
+
+def curve_calls(grids):
+    """Curve name -> a call (generator, eps) of it at the R grids and the
+    driver's sizes, and the shapes of its normals."""
+    pre_mu, pre_var, true_rhos, rr = grids
+    S, N, T = 100, 500, len(true_rhos)
+    es = [(N, 2), (N, S, 2), (N, S, 2)]
+    fam = [(T, 200, 2), (T, 200, 64, 2), (T, 200, 64, 2)]
+    return {
+        "crps_mean": (lambda g, e: analysis.crps_mean_error_curve(g, pre_mu, eps=e), (10_000,)),
+        "logs_mean": (lambda g, e: analysis.logs_mean_error_curve(g, pre_mu, eps=e), (10_000,)),
+        "crps_var": (lambda g, e: analysis.crps_var_error_curve(g, pre_var, eps=e), (10_000,)),
+        "logs_var": (lambda g, e: analysis.logs_var_error_curve(g, pre_var, eps=e), (10_000,)),
+        "dss_mean": (lambda g, e: analysis.dss_mean_error_curve(g, pre_mu, eps=e), (N, 2)),
+        "dss_var": (lambda g, e: analysis.dss_var_error_curve(g, pre_var, eps=e), (N, 2)),
+        "es_mean": (lambda g, e: analysis.es_mean_error_curve(g, pre_mu, eps=e), es),
+        "es_var": (lambda g, e: analysis.es_var_error_curve(g, pre_var, eps=e), es),
+        "dss_correlation_curve": (lambda g, e: analysis.dss_correlation_curve(
+            g, 0.5, rr, eps=e), (N, 2)),
+        "es_correlation_curve": (lambda g, e: analysis.es_correlation_curve(
+            g, 0.4, rr, num_data=200, eps=e), [(200, 2), (200, S, 2), (200, S, 2)]),
+        "dss_correlation_family": (lambda g, e: analysis.dss_correlation_family(
+            g, true_rhos, rr, eps=e), (T, N, 2)),
+        "es_correlation_family": (lambda g, e: analysis.es_correlation_family(
+            g, true_rhos, rr, num_sim=64, eps=e), fam),
+    }
+
+
+def analysis_curves(dev):
+    """Phase 13 (4)."""
+    host = torch.Generator().manual_seed(13)
+    cpu_calls = curve_calls(analysis_figures.sensitivity_grids("cpu"))
+    gpu_calls = curve_calls(analysis_figures.sensitivity_grids(dev))
+    worst = {}
+    t0 = time.perf_counter()
+    for name, (call, shapes) in cpu_calls.items():
+        eps = ([torch.randn(s, generator=host) for s in shapes] if isinstance(shapes, list)
+               else torch.randn(shapes, generator=host))
+        want = call(None, eps)
+        moved = [e.to(dev) for e in eps] if isinstance(eps, list) else eps.to(dev)
+        got = gpu_calls[name][0](None, moved).cpu()
+        worst[name] = float((got - want).abs().max() / want.abs().max())
+        assert torch.isfinite(got).all() and worst[name] <= CURVE_RTOL, (name, worst[name])
+    log(f"[analysis] the twelve curves at the R grids, CUDA against the CPU at the same normals "
+        f"({time.perf_counter() - t0:.1f} s): max abs over the curve's max, "
+        + ", ".join(f"{k} {v:.2g}" for k, v in worst.items()) + f" (tol {CURVE_RTOL})")
+    grids = analysis_figures.sensitivity_grids(dev)
+    pre_mu, pre_var, true_rhos, rr = (g.cpu() if torch.is_tensor(g) else g for g in grids)
+    generator = torch.Generator(dev).manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    c = {k: v.cpu() for k, v in analysis_figures.sensitivity_curves(generator, *grids).items()}
+    wall = time.perf_counter() - t0
+    zero = int(torch.argmin(pre_mu.abs()))
+    for name in ("crps_mean", "logs_mean", "dss_mean", "es_mean"):
+        assert int(c[name].argmin()) == zero, (name, c[name])
+    assert float(c["dss_mean"][zero]) == 0.0 and float(c["es_mean"][zero]) == 0.0
+    for name, lo, hi in (("crps_var", 0.5, 2.0), ("logs_var", 0.5, 2.0), ("dss_var", 0.5, 2.0),
+                         ("es_var", 0.4, 2.5)):
+        assert lo < float(pre_var[int(c[name].argmin())]) < hi, (name, c[name])
+    at_truth = []
+    for fam in ("dss_corr_family", "es_corr_family"):
+        for i, r in enumerate(true_rhos):
+            v = float(c[fam][i, int(torch.argmin((rr - r).abs()))])
+            assert abs(v) <= 1e-6, (fam, r, v)
+            at_truth.append(abs(v))
+    log(f"[analysis] the twelve curves from a CUDA generator in {wall:.2f} s: mean curves least "
+        f"at mu = 0 (dss, es 0 there), variance curves least at pre_sigma_sq "
+        + ", ".join(f"{k} {float(pre_var[int(c[k].argmin())]):.2f}"
+                    for k in ("crps_var", "logs_var", "dss_var", "es_var"))
+        + f", the families' largest |value| at their true rho {max(at_truth):.2g}")
+
+
+def phase_analysis(dev):
+    """Phase 13: the analysis suite. Returns the analysis_figures run's
+    kernel launches, the kernels' errors at its shapes and their times."""
+    err = {k: 0.0 for k in REPLACES}
+    times = analysis_surfaces(dev, err)
+    analysis_curves(dev)
+    # (5) The figure driver end to end, the counters zeroed just before.
+    gram_cuda.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = analysis_figures.main(["--no-png", "--outdir", ANALYSIS_OUT])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(gram_cuda.LAUNCHES)
+    assert all(v > 0 for v in launches.values()), launches
+    assert all(torch.isfinite(z).all() for z in out["surfaces"].values())
+    assert all(torch.isfinite(c).all() for c in out["curves"].values())
+    assert bool(out["fit"].ok) and torch.isfinite(out["prediction"].mean).all()
+    sizes = {f: os.path.getsize(os.path.join(ANALYSIS_OUT, f)) for f in out["files"]}
+    log(f"[analysis] analysis_figures --no-png: {wall:.2f} s ("
+        + ", ".join(f"{k} {v:.3f}" for k, v in out["timings"].items())
+        + f" s); wrote {sizes}; kernel launches {launches}; FITC fit final loss "
+        f"{float(out['fit'].loss_history[-1]):.6f}")
+    # (6) The parity report on the card.
+    with contextlib.redirect_stdout(io.StringIO()) as buf, \
+            contextlib.redirect_stderr(io.StringIO()):
+        rc = parity_report.main([])
+    report = json.loads(buf.getvalue())
+    assert rc == 0 and all(r["pass"] for r in report.values()), report
+    try:
+        parity_report.main(["--dtype", "float64"])
+        raise AssertionError("parity_report --dtype float64 ran on the card")
+    except ValueError as e:
+        refusal = str(e)
+    errs = {k: next(v for f, v in r.items() if f.startswith("max_")) for k, r in report.items()}
+    log("[analysis] parity_report float32 on the card, every target passes: "
+        + ", ".join(f"{k} {errs[k]:.2g}/{report[k]['target']:.0e}" for k in sorted(report))
+        + f"; float64 refused: {refusal}")
+    # (7) The fit's FitResult through a pytree checkpoint onto the card.
+    path = os.path.join(ANALYSIS_OUT, "fit_roundtrip.npz")
+    checkpoint.save_pytree(path, out["fit"])
+    back = checkpoint.load_pytree(path, out["fit"])
+    mine, theirs = checkpoint.tree_leaves(back), checkpoint.tree_leaves(out["fit"])
+    assert type(back) is type(out["fit"]) and len(mine) == len(theirs)
+    assert all(a.device == b.device and bits_equal(a, b) for a, b in zip(mine, theirs))
+    log(f"[analysis] the FitResult ({len(mine)} leaves, param_history "
+        f"{tuple(back.param_history.inducing.shape)} inducing) round-trips save_pytree / "
+        f"load_pytree onto {mine[0].device} bitwise")
+    return launches, err, times
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs a CUDA card")
@@ -2162,7 +2525,8 @@ def main():
     launches["precision"], _ = phase(11, phase_precision, dev, crps_fit, times)
     launches["sweeps"], launches["sweeps_replicates"], err12, btimes = phase(12, phase_sweeps,
                                                                              dev)
-    log(f"[phases] 1-12 in {time.perf_counter() - t0:.1f} s")
+    launches["analysis"], err13, atimes = phase(13, phase_analysis, dev)
+    log(f"[phases] 1-13 in {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, key in KERNELS:
         on_path = times[(name, *TIMED_SHAPES[0])]
@@ -2170,7 +2534,8 @@ def main():
                         "replaces": REPLACES[name],
                         "launches": sum(c[key] for c in launches.values()),
                         "launches_by_path": {p: c[key] for p, c in launches.items()},
-                        "max_abs_err": max(err[name], err12[name]), "ms": on_path["ms"],
+                        "max_abs_err": max(err[name], err12[name], err13[name]),
+                        "ms": on_path["ms"],
                         "plain_ms": on_path["plain_ms"], "bound_ms": on_path["bound_ms"],
                         "bound_by": on_path["bound_by"], "library_ms": None,
                         "shapes": {**{"x".join(map(str, s)): times[(name, *s)]
@@ -2178,7 +2543,9 @@ def main():
                                       if (name, *s) in times},
                                    **{"x".join(map(str, k[1:4])) + "/" + k[4]: t
                                       for k, t in times.items() if k[0] == name and len(k) == 5},
-                                   **{shape: t[name] for shape, t in btimes.items()}}})
+                                   **{shape: t[name] for shape, t in btimes.items()},
+                                   **{shape: t[name] for shape, t in atimes.items()
+                                      if name in t}}})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,10 @@ in the repository unchanged). Module names mirror ``gpscore/``:
 - ``gpscore_torch.metrics``  — MSE/SMSE/MSLL/coverage evaluation suite.
 - ``gpscore_torch.data``     — KIN40K loader (xlsx, npz, csv) and replicate
                                protocol.
-- ``gpscore_torch.utils``    — parameters, precision mode, timing and tracing.
+- ``gpscore_torch.analysis`` — objective surfaces, scoring-rule sensitivity
+                               curves, the CRPS illustration and their plots.
+- ``gpscore_torch.utils``    — parameters, pytree checkpoints, precision mode,
+                               timing and tracing.
 
 Importing the package pins IEEE fp32 contractions (TF32 off), the JAX
 package's default "highest" precision mode (:mod:`gpscore_torch.utils.precision`).
@@ -30,8 +33,8 @@ from gpscore_torch.utils import precision as _precision
 
 _precision.use_ieee_fp32()
 
-from gpscore_torch import data, fit, metrics, models, ops, scoring, utils  # noqa: E402
+from gpscore_torch import analysis, data, fit, metrics, models, ops, scoring, utils  # noqa: E402
 
 __version__ = "0.1.0"
 
-__all__ = ["data", "fit", "metrics", "models", "ops", "scoring", "utils"]
+__all__ = ["analysis", "data", "fit", "metrics", "models", "ops", "scoring", "utils"]

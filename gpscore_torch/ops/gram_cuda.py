@@ -33,7 +33,12 @@ xs [B, n, d], xps [B, m, d], sig [B] and g [B, n, m] give K [B, n, m] in one
 launch, each batch's Gram independent of the others and bitwise what an
 unbatched launch on its inputs gives. An input may also come unbatched
 beside batched ones (xs [n, d], sig one value): every batch shares it, at a
-batch stride of 0. A call with no 3-D input is the unbatched call.
+batch stride of 0. A call with no 3-D input is the unbatched call. The
+kernels take at most MAX_BATCH Grams a launch (the grid's z extent); a call
+of more launches them in consecutive chunks (:func:`batch_chunks`), each
+planned as a call of its own size, so a call of at most MAX_BATCH is one
+launch and every Gram of a larger call is computed as in a call of its
+chunk alone.
 """
 
 from __future__ import annotations
@@ -60,6 +65,7 @@ ROWS_CHUNK_MIN_COLS = 1024  # gram_bwd_rows: fewest columns of a chunk, when the
 FWD_COLS_PER_THREAD = 4  # gram_fwd: one float4 of a row per thread (kFwdColsPerThread)
 FWD_COL_THREADS = (8, 16, 32, 64)  # gram_fwd: the column-thread counts it takes
 FWD_ROWS_PER_THREAD = (8, 4, 2, 1)  # gram_fwd: its instantiations, most rows first
+MAX_BATCH = 65535  # Grams a launch: the grid's z extent (csrc/gram.cu bad_batch)
 
 # The card's peaks for the roofline bound (NVIDIA's H100 SXM data sheet, dense,
 # at the 700 W limit): device memory bandwidth, and fp32 outside the tensor
@@ -91,11 +97,12 @@ class Roofline(NamedTuple):
 
 
 def roofline(kernel: str, n: int, m: int, d: int, out_bytes: int = 4,
-             diag: bool = False, batch: int = 1) -> Roofline:
+             diag: bool = False, batch: int = 1, shared_x: bool = False) -> Roofline:
     """Roofline bound of one call of ``kernel`` ("gram_fwd", "gram_bwd_rows"
     or "gram_bwd_cols") at K of n x m on d inputs, ``batch`` such Grams in
     the call (bytes and FLOPs times ``batch``: every batch reads its own
-    inputs).
+    inputs). ``shared_x``: the call is K(x, x), one tensor given as both xs
+    and xps (n == m), so x is read once.
 
     Bytes: xs [n, d], xps [m, d] and sig are read by all three; the backward
     kernels also read g [n, m]; outputs are K [n, m] (forward, ``out_bytes``
@@ -105,7 +112,9 @@ def roofline(kernel: str, n: int, m: int, d: int, out_bytes: int = 4,
     and d FMAs, the scale, the exp and sig), 6d + 6 for either backward half
     (the forward's, W = g * K, the sum of W, d more differences and d more
     FMAs)."""
-    inputs = n * d + m * d + 1
+    if shared_x and n != m:
+        raise ValueError(f"shared_x needs a square K, not {n} x {m}")
+    inputs = n * d + (0 if shared_x else m * d) + 1
     out = 0
     if kernel == "gram_fwd":
         floats, flops = inputs + int(diag), (3 * d + 3) * n * m
@@ -309,6 +318,21 @@ def gram_bwd_plain(xs, xps, sig, g):
 # ---- kernel wrappers ---------------------------------------------------------
 
 
+def batch_chunks(batch: int):
+    """The launches of a call of ``batch`` Grams, as (first Gram, Grams): one
+    launch up to MAX_BATCH, else consecutive launches of MAX_BATCH and one of
+    the rest. A call of no Grams is one empty chunk."""
+    if batch <= MAX_BATCH:
+        return [(0, batch)]
+    return [(s, min(MAX_BATCH, batch - s)) for s in range(0, batch, MAX_BATCH)]
+
+
+def _at(t, start: int, bstride: int) -> int:
+    """``t``'s data pointer at Gram ``start`` of its batch (batch stride
+    ``bstride`` elements; 0 for a shared input, which every chunk reads whole)."""
+    return t.data_ptr() + start * bstride * t.element_size()
+
+
 def _check(xs, xps, sig, g=None) -> Optional[int]:
     """Raise on what the kernels do not take: fp32, row-major contiguous,
     [n, d] / [m, d] with 1 <= d <= MAX_D, one sig value, g [n, m], or the
@@ -403,11 +427,12 @@ OUT_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def gram_fwd_cuda(xs, xps, sig, out_dtype=None, diag_add=None):
-    """K [n, m] (or [B, n, m]) from the forward kernel, tiled by
-    :func:`fwd_plan`, in ``out_dtype`` (float32, None, bfloat16 or float16),
-    with the scalar tensor ``diag_add`` added where i == j before the one
-    rounding: inside the kernel for a 2-byte K, by one fp32 add after it for
-    an fp32 K (the fp32 kernel carries no diagonal code)."""
+    """K [n, m] (or [B, n, m]) from the forward kernel, one launch a chunk
+    of :func:`batch_chunks`, tiled by :func:`fwd_plan`, in ``out_dtype``
+    (float32, None, bfloat16 or float16), with the scalar tensor
+    ``diag_add`` added where i == j before the one rounding: inside the
+    kernel for a 2-byte K, by one fp32 add after it for an fp32 K (the fp32
+    kernel carries no diagonal code)."""
     _require_cuda(xs)
     batch = _check(xs, xps, sig)
     out_dtype = torch.float32 if out_dtype is None else out_dtype
@@ -420,80 +445,87 @@ def gram_fwd_cuda(xs, xps, sig, out_dtype=None, diag_add=None):
     lib = _build.load_library()
     n, d = xs.shape[-2:]
     m = xps.shape[-2]
-    plan = _device_plan(fwd_plan, xs.device, n, m, d, batch or 1)
     shape = (n, m) if batch is None else (batch, n, m)
     out = torch.empty(shape, dtype=out_dtype, device=xs.device)
-    if not plan.launches:  # an empty K
+    chunks = [(start, size, _device_plan(fwd_plan, xs.device, n, m, d, size))
+              for start, size in batch_chunks(batch or 1)]
+    if not chunks[0][2].launches:  # an empty K
         return out
     in_kernel = diag_add is not None and out_dtype != torch.float32
+    bs = [_bstride(t, batch) for t in (xs, xps, sig, out)]
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.gram_fwd(xs.data_ptr(), xps.data_ptr(), sig.data_ptr(),
-                          diag_add.data_ptr() if in_kernel else None, out.data_ptr(),
-                          n, m, d, plan.col_threads, plan.rows_per_thread, OUT_TYPES[out_dtype],
-                          batch or 1, _bstride(xs, batch), _bstride(xps, batch),
-                          _bstride(sig, batch), _bstride(out, batch), stream)
-    _raise_if_failed("gram_fwd", rc)
-    LAUNCHES["fwd"] += 1
+        for start, size, plan in chunks:
+            ptrs = [_at(t, start, b) for t, b in zip((xs, xps, sig, out), bs)]
+            rc = lib.gram_fwd(*ptrs[:3], diag_add.data_ptr() if in_kernel else None, ptrs[3],
+                              n, m, d, plan.col_threads, plan.rows_per_thread,
+                              OUT_TYPES[out_dtype], size, *bs, stream)
+            _raise_if_failed("gram_fwd", rc)
+            LAUNCHES["fwd"] += 1
     if diag_add is not None and not in_kernel:
         out.diagonal(dim1=-2, dim2=-1).add_(diag_add)
     return out
 
 
 def gram_bwd_rows_cuda(xs, xps, sig, g):
-    """(d_xs, rowsum) from the row kernel of the backward: one launch, tiled
-    by :func:`bwd_rows_plan`; [B, n, d] and [B, n] for a batched call."""
+    """(d_xs, rowsum) from the row kernel of the backward: one launch a
+    chunk of :func:`batch_chunks`, tiled by :func:`bwd_rows_plan`; [B, n, d]
+    and [B, n] for a batched call."""
     _require_cuda(xs)
     batch = _check(xs, xps, sig, g)
     lib = _build.load_library()
     n, d = xs.shape[-2:]
     m = xps.shape[-2]
-    plan = _device_plan(bwd_rows_plan, xs.device, n, m, d, batch or 1)
     lead = () if batch is None else (batch,)
     d_xs = torch.empty((*lead, n, d), dtype=torch.float32, device=xs.device)
     row = torch.empty((*lead, n), dtype=torch.float32, device=xs.device)
-    if not plan.launches:  # no rows
+    chunks = [(start, _device_plan(bwd_rows_plan, xs.device, n, m, d, size))
+              for start, size in batch_chunks(batch or 1)]
+    if not chunks[0][1].launches:  # no rows
         return d_xs, row
+    bs = [_bstride(t, batch) for t in (xs, xps, sig, g, d_xs)] + [0 if batch is None else n]
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream().cuda_stream
-        ticket, scratch = _workspace(xs.device, stream, plan.row_tiles, plan.scratch_shape,
-                                     plan.batch)
-        rc = lib.gram_bwd_rows(xs.data_ptr(), xps.data_ptr(), sig.data_ptr(), g.data_ptr(),
-                               d_xs.data_ptr(), row.data_ptr(), scratch.data_ptr(),
-                               ticket.data_ptr(), n, m, d, plan.lanes_per_row, plan.slices,
-                               plan.stage_cols, plan.chunk_cols, plan.batch,
-                               _bstride(xs, batch), _bstride(xps, batch), _bstride(sig, batch),
-                               _bstride(g, batch), _bstride(d_xs, batch),
-                               n if batch is not None else 0, stream)
-    _raise_if_failed("gram_bwd_rows", rc)
-    LAUNCHES["bwd_rows"] += 1
+        for _, plan in chunks:  # one workspace, sized for the largest chunk
+            ticket, scratch = _workspace(xs.device, stream, plan.row_tiles, plan.scratch_shape,
+                                         plan.batch)
+        for start, plan in chunks:
+            ptrs = [_at(t, start, b) for t, b in zip((xs, xps, sig, g, d_xs, row), bs)]
+            rc = lib.gram_bwd_rows(*ptrs, scratch.data_ptr(), ticket.data_ptr(), n, m, d,
+                                   plan.lanes_per_row, plan.slices, plan.stage_cols,
+                                   plan.chunk_cols, plan.batch, *bs, stream)
+            _raise_if_failed("gram_bwd_rows", rc)
+            LAUNCHES["bwd_rows"] += 1
     return d_xs, row
 
 
 def gram_bwd_cols_cuda(xs, xps, sig, g):
-    """d_xps from the column kernel of the backward: one launch, chunked by
-    :func:`bwd_cols_plan`; [B, m, d] for a batched call."""
+    """d_xps from the column kernel of the backward: one launch a chunk of
+    :func:`batch_chunks`, cut by :func:`bwd_cols_plan`; [B, m, d] for a
+    batched call."""
     _require_cuda(xs)
     batch = _check(xs, xps, sig, g)
     lib = _build.load_library()
     n, d = xs.shape[-2:]
     m = xps.shape[-2]
-    plan = _device_plan(bwd_cols_plan, xs.device, n, m, d, batch or 1)
     lead = () if batch is None else (batch,)
     d_xps = torch.empty((*lead, m, d), dtype=torch.float32, device=xs.device)
-    if not plan.launches:  # no columns
+    chunks = [(start, _device_plan(bwd_cols_plan, xs.device, n, m, d, size))
+              for start, size in batch_chunks(batch or 1)]
+    if not chunks[0][1].launches:  # no columns
         return d_xps
+    bs = [_bstride(t, batch) for t in (xs, xps, sig, g, d_xps)]
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream().cuda_stream
-        ticket, scratch = _workspace(xs.device, stream, plan.col_tiles, plan.scratch_shape,
-                                     plan.batch)
-        rc = lib.gram_bwd_cols(xs.data_ptr(), xps.data_ptr(), sig.data_ptr(), g.data_ptr(),
-                               d_xps.data_ptr(), scratch.data_ptr(), ticket.data_ptr(),
-                               n, m, d, plan.chunk_rows, plan.batch, _bstride(xs, batch),
-                               _bstride(xps, batch), _bstride(sig, batch), _bstride(g, batch),
-                               _bstride(d_xps, batch), stream)
-    _raise_if_failed("gram_bwd_cols", rc)
-    LAUNCHES["bwd_cols"] += 1
+        for _, plan in chunks:  # one workspace, sized for the largest chunk
+            ticket, scratch = _workspace(xs.device, stream, plan.col_tiles, plan.scratch_shape,
+                                         plan.batch)
+        for start, plan in chunks:
+            ptrs = [_at(t, start, b) for t, b in zip((xs, xps, sig, g, d_xps), bs)]
+            rc = lib.gram_bwd_cols(*ptrs, scratch.data_ptr(), ticket.data_ptr(), n, m, d,
+                                   plan.chunk_rows, plan.batch, *bs, stream)
+            _raise_if_failed("gram_bwd_cols", rc)
+            LAUNCHES["bwd_cols"] += 1
     return d_xps
 
 

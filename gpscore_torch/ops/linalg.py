@@ -69,24 +69,31 @@ def half_logdet(L):
     return torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), dim=-1)
 
 
-def safe_cholesky(A, ladder=_JITTER_LADDER):
+def safe_cholesky(A, ladder=_JITTER_LADDER, batch_dims: int = 0):
     """Cholesky with escalating-jitter retry. Returns ``(L, ok)``; ``ok`` is
     False only if every rung failed (L is then NaN). The jitter is relative to
     the mean diagonal.
 
     Eager counterpart of the JAX ``lax.cond`` ladder: every rung is factored
     and ``torch.where`` keeps the first that succeeded, so nothing waits on
-    the host.
+    the host. The NaN probe, the rung and ``ok`` are per element of the first
+    ``batch_dims`` axes, as under ``jax.vmap`` of the JAX function (``ok``
+    [*A.shape[:batch_dims]]); the stack after them (e.g. the folds of one
+    restart) shares one rung, as the unvmapped JAX function's does.
     """
     n = A.shape[-1]
     eye = torch.eye(n, dtype=A.dtype, device=A.device)
     scale = torch.mean(torch.diagonal(A, dim1=-2, dim2=-1), dim=-1)[..., None, None]
+
+    def failed(L):  # [*A.shape[:batch_dims]]: a NaN in the element's factor
+        return torch.isnan(L).flatten(batch_dims).any(dim=-1)
+
+    trail = [1] * (A.dim() - batch_dims)
     L = chol_factor(A + ladder[0] * scale * eye)
     for frac in ladder[1:]:
-        bad = torch.any(torch.isnan(L))
-        L = torch.where(bad, chol_factor(A + frac * scale * eye), L)
-    ok = torch.logical_not(torch.any(torch.isnan(L)))
-    return L, ok
+        L = torch.where(failed(L).reshape(*A.shape[:batch_dims], *trail),
+                        chol_factor(A + frac * scale * eye), L)
+    return L, torch.logical_not(failed(L))
 
 
 def spd_inverse(A=None, *, L=None):

@@ -144,7 +144,7 @@ def _normals(shape, like, generator, eps):
 
 def energy_score(
     mean, cov, y, num_sim: int = 300, beta: float = 1.0, sqrt_method: str = "chol",
-    *, generator=None, eps=None,
+    *, generator=None, eps=None, batch_dims: int = 0,
 ):
     """Monte-Carlo energy score of a multivariate-Gaussian block (mean, y
     [..., n], cov [..., n, n]; reference ``ES``, `kin40k-FULL-compare.py:70-101`):
@@ -153,15 +153,17 @@ def energy_score(
 
     with z, z' ~ N(0, C) drawn as eps root(C)^T: through the Cholesky factor
     with the jitter ladder of :func:`~gpscore_torch.ops.linalg.safe_cholesky`
-    (one rung for the whole batch), or, with ``sqrt_method="eigh"``, through
-    the reference's symmetric square root. ``eps = (e, e')``, each
-    [..., S, n], fixes the normals (JAX draws ``normal(k1, (S, n))``)."""
+    (one rung for the whole stack, or one for each element of the first
+    ``batch_dims`` axes, as ``jax.vmap`` over them takes it), or, with
+    ``sqrt_method="eigh"``, through the reference's symmetric square root.
+    ``eps = (e, e')``, each [..., S, n], fixes the normals (JAX draws
+    ``normal(k1, (S, n))``)."""
     if sqrt_method not in ("chol", "eigh"):
         raise ValueError(f"sqrt_method must be 'chol' or 'eigh', got {sqrt_method!r}")
     n = y.shape[-1]
     r = mean - y
     if sqrt_method == "chol":
-        L, _ = linalg.safe_cholesky(cov)
+        L, _ = linalg.safe_cholesky(cov, batch_dims=batch_dims)
         root_cov = L.mT  # z = eps L^T  =>  cov(z) = L L^T = C
     else:
         root_cov = linalg.symmetric_sqrt(cov)

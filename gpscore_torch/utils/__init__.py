@@ -1,3 +1,4 @@
+from gpscore_torch.utils.checkpoint import load_metrics, load_pytree, save_metrics, save_pytree
 from gpscore_torch.utils.params import (
     GPParams,
     batch_size,
@@ -19,6 +20,10 @@ from gpscore_torch.utils.precision import (
 from gpscore_torch.utils.profiling import timed, trace
 
 __all__ = [
+    "load_metrics",
+    "load_pytree",
+    "save_metrics",
+    "save_pytree",
     "GPParams",
     "batch_size",
     "init_rand_params",

@@ -17,12 +17,12 @@ leading [R] (log_signal_sq [R], log_length [R, d], inducing [R, m, d]):
 from __future__ import annotations
 
 import dataclasses
-import json
-import os
 from typing import Optional
 
 import numpy as np
 import torch
+
+from gpscore_torch.utils import checkpoint
 
 FIELDS = ("log_signal_sq", "log_length", "log_noise_sq", "inducing")
 
@@ -116,20 +116,11 @@ def init_rand_params(
 
 
 def save_params_checkpoint(path: str, p: GPParams) -> None:
-    """Write ``p`` in the ``.npz`` layout of `gpscore/utils/checkpoint.py:26-41`
-    (JAX ``save_pytree`` of a GPParams): ``leaf_i`` for the present fields in
-    field order (no ``inducing`` leaf when it is None) and ``__meta__``, the
-    JSON leaf count as uint8 bytes. Leaves may carry a leading replicate
-    dimension. The file appears whole or not at all."""
-    leaves = [t.detach().cpu().numpy() for t in p.leaves().values()]
-    arrays = {f"leaf_{i}": a for i, a in enumerate(leaves)}
-    arrays["__meta__"] = np.frombuffer(
-        json.dumps({"num_leaves": len(leaves)}).encode(), dtype=np.uint8
-    )
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        np.savez(f, **arrays)
-    os.replace(tmp, path)
+    """Write ``p`` with :func:`~gpscore_torch.utils.checkpoint.save_pytree`
+    (the layout of JAX ``save_pytree`` of a GPParams): ``leaf_i`` for the
+    present fields in field order, no ``inducing`` leaf when it is None.
+    Leaves may carry a leading replicate dimension."""
+    checkpoint.save_pytree(path, p)
 
 
 def params_from_checkpoint(path: str) -> GPParams:
@@ -137,13 +128,10 @@ def params_from_checkpoint(path: str) -> GPParams:
     sweep's ``--save-params`` output) or by :func:`save_params_checkpoint`:
     three leaves for the exact GP, four with the inducing points. The tensors
     land on the CPU."""
-    with np.load(path) as z:
-        meta = json.loads(bytes(z["__meta__"].tobytes()).decode())
-        n = meta["num_leaves"]
-        if n not in (3, 4):
-            raise ValueError(f"a GPParams checkpoint has 3 or 4 leaves, {path} has {n}")
-        arrays = {FIELDS[i]: z[f"leaf_{i}"] for i in range(n)}
-    return params_from_numpy(arrays)
+    leaves = checkpoint.load_leaves(path)
+    if len(leaves) not in (3, 4):
+        raise ValueError(f"a GPParams checkpoint has 3 or 4 leaves, {path} has {len(leaves)}")
+    return params_from_numpy(dict(zip(FIELDS, leaves)))
 
 
 def params_from_numpy(arrays: dict, device="cpu") -> GPParams:

@@ -684,3 +684,62 @@ def test_batched_replayed_sweep_equals_the_batched_eager_sweep(dev, model, rule)
     assert torch.equal(runs[True].loss_history, runs[False].loss_history)
     for f, t in runs[False].params.leaves().items():
         assert torch.equal(runs[True].params.leaves()[f], t), f
+
+
+# ---- batches past the grid's z limit, and the analysis suite -----------------------
+
+
+@pytest.mark.parametrize("B,shared", [(65535, False), (65535 + 4, False), (2 * 65535 + 7, True)])
+def test_a_batch_past_the_grid_limit_launches_in_chunks(dev, B, shared):
+    """Each kernel launches once per chunk of batch_chunks(B) (one up to
+    65,535); each chunk's Grams are bitwise that chunk called alone, and all
+    agree with the batched plain versions. ``shared``: xs shared by every
+    batch (stride 0) beside batched xps, sig and g."""
+    n, m, d = 6, 5, 2
+    rng = np.random.default_rng(B)
+    xs = torch.tensor(rng.uniform(-1, 1, (n, d) if shared else (B, n, d)).astype(np.float32),
+                      device=dev)
+    xps = torch.tensor(rng.uniform(-1, 1, (B, m, d)).astype(np.float32), device=dev)
+    sig = torch.tensor(rng.uniform(0.5, 2.0, B).astype(np.float32), device=dev)
+    g = torch.tensor(rng.standard_normal((B, n, m)).astype(np.float32), device=dev)
+    chunks = gram_cuda.batch_chunks(B)
+    calls = {"fwd": lambda *a: (gram_cuda.gram_fwd_cuda(*a[:3]),),
+             "bwd_rows": gram_cuda.gram_bwd_rows_cuda,
+             "bwd_cols": lambda *a: (gram_cuda.gram_bwd_cols_cuda(*a),)}
+    plains = {"fwd": lambda *a: (gram_cuda.gram_fwd_plain(*a[:3]),),
+              "bwd_rows": gram_cuda.gram_bwd_rows_plain,
+              "bwd_cols": lambda *a: (gram_cuda.gram_bwd_cols_plain(*a),)}
+    for key, call in calls.items():
+        gram_cuda.reset_launches()
+        got = call(xs, xps, sig, g)
+        assert gram_cuda.LAUNCHES[key] == len(chunks) == -(-B // 65535)
+        for start, size in chunks:
+            part = slice(start, start + size)
+            alone = call(xs if shared else xs[part], xps[part], sig[part], g[part])
+            assert all(torch.equal(a[part], b) for a, b in zip(got, alone)), (key, start)
+        for a, b in zip(got, plains[key](xs, xps, sig, g)):
+            assert (a - b).abs().max() <= 2e-5 + 1e-4 * b.abs().max(), key
+
+
+def test_objective_surface_on_cuda_matches_the_cpu(dev):
+    from gpscore_torch.analysis import objective_surface
+
+    rng = np.random.default_rng(0)
+    x = torch.tensor((2.0 * rng.standard_normal((20, 1))).astype(np.float32))
+    y = torch.tensor(rng.standard_normal(20).astype(np.float32))
+    ls, ns = torch.linspace(0.2, 4.0, 12), torch.linspace(0.05, 1.5, 10)
+    for rule in ("nlml", "crps", "logs", "wrong_crps"):
+        gram_cuda.reset_launches()
+        got = objective_surface(x.to(dev), y.to(dev), ls.to(dev), ns.to(dev), rule=rule).cpu()
+        assert gram_cuda.LAUNCHES["fwd"] == 1
+        want = objective_surface(x, y, ls, ns, rule=rule)
+        assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=0.0)
+
+
+def test_parity_report_passes_on_cuda_in_float32_and_refuses_float64(dev):
+    from gpscore_torch.experiments import parity_report
+
+    assert parity_report.main([]) == 0
+    with pytest.raises(ValueError, match="float32 only"):
+        parity_report.main(["--dtype", "float64"])

@@ -358,3 +358,68 @@ def test_exact_eval_predictive_metrics_match_jax():
     got = eval_predictive_metrics("exact", torch_params(p), t(x), t(y), t(xs), t(ys))
     for f in want._fields:
         close(getattr(got, f), getattr(want, f), 1e-5, 1e-6)
+
+
+def _old_safe_cholesky(A, ladder=(0.0, 1e-6, 1e-4, 1e-2)):
+    """safe_cholesky as it was before ``batch_dims``: one rung for the whole stack."""
+    eye = torch.eye(A.shape[-1], dtype=A.dtype)
+    scale = torch.mean(torch.diagonal(A, dim1=-2, dim2=-1), dim=-1)[..., None, None]
+    L = tlinalg.chol_factor(A + ladder[0] * scale * eye)
+    for frac in ladder[1:]:
+        L = torch.where(torch.any(torch.isnan(L)), tlinalg.chol_factor(A + frac * scale * eye), L)
+    return L, torch.logical_not(torch.any(torch.isnan(L)))
+
+
+def _jitter_stack(n=5, seed=3):
+    """[3, n, n]: SPD, the all-ones matrix (its factor fails without jitter
+    and holds at the 1e-6 rung), SPD."""
+    rng = np.random.default_rng(seed)
+    mats = []
+    for i in range(3):
+        X = rng.standard_normal((n, n)).astype(np.float32)
+        spd = X @ X.T + n * np.eye(n, dtype=np.float32)
+        mats.append(np.ones((n, n), np.float32) if i == 1 else spd)
+    return np.stack(mats)
+
+
+def test_safe_cholesky_takes_a_rung_per_batch_element_as_jax_vmap_does():
+    """batch_dims=1: each element picks its own rung, as jax.vmap(safe_cholesky)
+    does; each is bitwise its solo call, and ok is per element."""
+    A = _jitter_stack()
+    L, ok = tlinalg.safe_cholesky(t(A), batch_dims=1)
+    jL, jok = jax.vmap(jlinalg.safe_cholesky)(jnp.asarray(A))
+    assert ok.shape == (3,) and ok.tolist() == np.asarray(jok).tolist() == [True] * 3
+    close(L, jL, 1e-5, 1e-6)
+    for i in range(3):
+        solo, solo_ok = tlinalg.safe_cholesky(t(A[i]))
+        assert torch.equal(L[i], solo) and bool(solo_ok)
+    # The healthy elements took no jitter: exactly their plain factors.
+    assert torch.equal(L[0], tlinalg.chol_factor(t(A[0])))
+    # A stack after the batch axes shares its element's rung: [2, 3, n, n].
+    L2, ok2 = tlinalg.safe_cholesky(t(np.stack([A, A[::-1].copy()])), batch_dims=1)
+    assert ok2.shape == (2,) and torch.equal(L2[0], _old_safe_cholesky(t(A))[0])
+
+
+def test_safe_cholesky_by_default_takes_one_rung_for_the_stack():
+    """batch_dims=0 is the function as it was, bit for bit: the whole stack
+    takes the rung its worst element needs."""
+    A = t(_jitter_stack())
+    L, ok = tlinalg.safe_cholesky(A)
+    L0, ok0 = _old_safe_cholesky(A)
+    assert torch.equal(L, L0) and ok.shape == () and bool(ok) == bool(ok0)
+    assert not torch.equal(L[0], tlinalg.chol_factor(A[0]))  # jittered with its neighbour
+
+
+def test_energy_score_batch_dims_keeps_each_elements_rung():
+    """energy_score(..., batch_dims=1) on a stack with one jittered element
+    gives each element's solo score."""
+    A = _jitter_stack(n=4)
+    rng = np.random.default_rng(8)
+    mean, y = (t(rng.standard_normal((3, 4)).astype(np.float32)) for _ in range(2))
+    eps = tuple(t(rng.standard_normal((3, 16, 4)).astype(np.float32)) for _ in range(2))
+    got = trules.energy_score(mean, t(A), y, num_sim=16, eps=eps, batch_dims=1)
+    want = torch.stack([trules.energy_score(mean[i], t(A[i]), y[i], num_sim=16,
+                                            eps=(eps[0][i], eps[1][i])) for i in range(3)])
+    close(got, want.numpy(), 1e-6)
+    shared = trules.energy_score(mean, t(A), y, num_sim=16, eps=eps)  # one rung: jittered
+    assert not torch.equal(shared[0], want[0])

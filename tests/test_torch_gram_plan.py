@@ -326,6 +326,19 @@ def test_roofline_counts_each_byte_once(kernel, n, m, d, floats, flops):
     assert r.bound_by == ("bytes" if 4 * floats / 3.35e12 >= flops / 67e12 else "operations")
 
 
+@pytest.mark.parametrize("kernel", ["gram_fwd", "gram_bwd_rows", "gram_bwd_cols"])
+def test_roofline_reads_a_shared_x_once(kernel):
+    """K(x, x) given one tensor as xs and xps (a surface's Gram) reads x
+    once: at 2,500 x 20 x 20 x 1, 2,500 * 20 floats fewer, the same FLOPs."""
+    both = roofline(kernel, 20, 20, 1, batch=2500)
+    once = roofline(kernel, 20, 20, 1, batch=2500, shared_x=True)
+    assert both.bytes - once.bytes == 4 * 2500 * 20 and once.flops == both.flops
+    if kernel == "gram_fwd":
+        assert once.bytes == 2500 * (4 * (20 + 1) + 4 * 400) == 4_210_000
+    with pytest.raises(ValueError):
+        roofline(kernel, 20, 5, 1, shared_x=True)
+
+
 def test_roofline_at_the_large_n_handover():
     """8192 x 8192 x 8: 269 MB, about 80 us, by bytes, for every kernel; the
     backward's FLOPs alone would take 54 us."""
@@ -383,3 +396,20 @@ def test_roofline_of_a_batch_is_the_batch_times_one():
         one, b16 = roofline(kernel, 500, 20, 8), roofline(kernel, 500, 20, 8, batch=16)
         assert b16.bytes == 16 * one.bytes and b16.flops == 16 * one.flops
         assert b16.bound_us == pytest.approx(16 * one.bound_us) and b16.bound_by == one.bound_by
+
+
+@pytest.mark.parametrize("batch,chunks", [
+    (0, [(0, 0)]),                    # no Grams: one empty chunk, which launches nothing
+    (1, [(0, 1)]),
+    (65535, [(0, 65535)]),            # the grid's z limit: still one launch
+    (65536, [(0, 65535), (65535, 1)]),
+    (200000, [(0, 65535), (65535, 65535), (131070, 65535), (196605, 3395)]),
+])
+def test_batch_chunks_cut_a_call_at_the_grids_z_limit(batch, chunks):
+    """A call of more than 65,535 Grams launches in consecutive chunks that
+    cover the batch once, in order; up to the limit it is one launch."""
+    assert gram_cuda.MAX_BATCH == 65535
+    got = gram_cuda.batch_chunks(batch)
+    assert got == chunks
+    assert sum(size for _, size in got) == batch
+    assert all(s == prev + size for (prev, size), (s, _) in zip(got, got[1:]))
