@@ -24,7 +24,12 @@ Phases, none of whose failures is caught:
    and device time per call (torch.profiler's CUDA events, summed), and
    gram_fwd's time per call at 30720x30720x8 (CUDA events alone), beside the
    roofline bound (gram_cuda.roofline) and the share of it the kernel's time
-   reaches (gpscore_torch/bench_gram.py does the timing).
+   reaches (gpscore_torch/bench_gram.py does the timing). The repair of the
+   Gram kernels: the d-chunked builds at 500x500x65 and 9700x20x130 and the
+   float64 builds at 500x20x8, 500x500x8 and 8192x8192x8, each kernel
+   against its plain version (values and both gradients), a second call
+   bitwise the first, timed beside its bound (fp64: the 34 TFLOP/s fp64
+   rate); then parity_report --dtype float64 on the card, every 5e-9 target.
 4. The FITC slice: the five-rule KIN40K FITC-20 fit (n = 500, d = 8, m = 20)
    from the committed initial parameters, 25 GD steps per rule through fit_gd
    on CUDA (its default there: three eager steps, then 22 replays of the step
@@ -160,23 +165,38 @@ Phases, none of whose failures is caught:
    same normals, then drawn from a CUDA generator, their minima at the truth;
    (5) ``analysis_figures.main(["--no-png", ...])`` end to end, the launch
    counters zeroed just before and read just after (the "analysis" path); (6)
-   ``parity_report`` on the card in float32, every target passing, and its
-   float64 refusal there; (7) the fit's FitResult with its parameter history
-   through save_pytree / load_pytree onto the card, bitwise.
+   ``parity_report`` on the card in float32, every target passing; (7) the
+   fit's FitResult with its parameter history through save_pytree /
+   load_pytree onto the card, bitwise.
+14. The mesh and the distributed dense stack (``gpscore_torch.parallel``) on
+   one rank under NCCL (``init_distributed`` with a ``file://`` store, world
+   size 1; the group destroyed at the end). With the launch counters zeroed
+   just before and read just after (the "sharded" path): ``sharded_gram`` at
+   30720x30720x8, bitwise ``gram_fwd`` (whose launch is left out of the
+   count); ``sharded_restart_sweep`` at multi_restart's defaults (16 FITC-20
+   crps restarts, 2000 iterations), bitwise ``restart_sweep``; the sharded
+   LOO crps and k-fold dss steps at n = 30,720 (phase 8's data and
+   parameters, block 256): time, peak in n^2 * 4 B (at most 6), loss and
+   gradient against phase 8's and phase 9's float64 witnesses within their
+   limits; ``sharded_cholesky``, ``sharded_tri_solve_lower`` and
+   ``sharded_nlml`` at n = 8192 against float64; ``dryrun_multichip`` legs
+   (1)-(6) on the one rank.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit;
 before it, one JSON line describes every kernel: ``ms``, ``plain_ms``,
 ``bound_ms`` and ``bound_by`` at the FITC path's 500x20x8 (``library_ms`` is
 null: no single PyTorch call computes the ARD Gram or either half of its
 VJP), ``launches`` summed over the FITC, exact, large-n, large-n fold, graph,
-precision, two sweep and analysis paths (each path's count under
+precision, two sweep, analysis and sharded paths (each path's count under
 ``launches_by_path``; a graph's replays are counted, gram_fwd's 2-byte
 launches under gram_fwd), and
 under ``shapes`` the per-call and device
 times, the bound and the roofline share at every timed shape, with
 ``timed_by`` naming the source of the share's time (``torch.profiler``:
 ``device_ms``; ``cuda_events``: ``ms``, and no ``device_ms``); gram_fwd's
-2-byte shapes end in ``/bf16`` or ``/f16``, the batched ones are keyed
+2-byte shapes end in ``/bf16`` or ``/f16``, the float64 ones in ``/f64``
+(``500x500x8/f64``; their bound at the fp64 rate), the d-chunked ones are
+keyed as the others (``500x500x65``), the batched ones are keyed
 ``BxNxMxD`` (``16x500x20x8``) and add ``loop_ms``, a loop of B unbatched
 launches; phase 13's shapes (``2500x20x20x1``, ``90000x20x20x1``,
 ``70000x20x5x1``, ``2500x500x500x1``) have no loop, and their surface
@@ -198,6 +218,7 @@ import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import gpscore_torch
 from gpscore_torch import analysis, bench
@@ -213,6 +234,11 @@ from gpscore_torch.models import exact as exact_mod
 from gpscore_torch.ops import _build, gram_cuda, linalg, loo_fused, potri_inplace
 from gpscore_torch.ops.kernels import gram
 from gpscore_torch.ops.loo_fused import auto_block
+from gpscore_torch.parallel import (add_noise_sharded, init_distributed, make_mesh, restart_sweep,
+                                    shard_rows, sharded_cholesky, sharded_gram,
+                                    sharded_loo_value_and_grad, sharded_nlml,
+                                    sharded_restart_sweep, sharded_tri_solve_lower)
+from gpscore_torch.parallel.dryrun import dryrun_multichip
 from gpscore_torch.scoring import rules
 from gpscore_torch.utils import (batch_size, checkpoint, init_rand_params, init_unit_params,
                                  params_from_numpy, params_to_numpy, precision, select_params)
@@ -245,10 +271,22 @@ TIMED_SHAPES = [(500, 20, 8), (20, 20, 8), (500, 500, 8), (9700, 20, 8), (120, 1
 # alone: all of K at n = 30,720 (one launch a step and one an evaluation),
 # and the evaluation's K(x, x*) for a chunk of 2048 test points.
 FWD_SHAPES = [(30720, 30720, 8), (30720, 2048, 8)]
+# The sharded steps' backward on one rank (phase 14): the cotangent of
+# K(x_local, x) is [n/p, n], all of K at p = 1 and n = 30,720, a shape whose
+# plans and chunks no other path gives the two backward kernels.
+MESH_BWD_SHAPES = [(30720, 30720, 8)]
+# The repair: the d-chunked fp32 builds (d past 64) and the float64 builds.
+CHUNK_SHAPES = [(500, 500, 65), (9700, 20, 130)]
+F64_SHAPES = [(500, 20, 8), (500, 500, 8), (8192, 8192, 8)]
+# float64 kernel against its plain version (the cross-term form in float64,
+# whose cancellation leaves ~1e-16 * |xs|^2): K and the backward.
+F64_FWD_ATOL, F64_BWD_ATOL, F64_BWD_RTOL = 1e-12, 1e-11, 1e-11
 KERNELS = [("gram_fwd", "fwd"), ("gram_bwd_rows", "bwd_rows"), ("gram_bwd_cols", "bwd_cols")]
-# Per kernel: gram_fwd's rows per thread times its three output types, the
-# backward's DMAX buckets, each unbatched and batched.
-INSTANTIATIONS = {"gram_fwd": 24, "gram_bwd_rows": 8, "gram_bwd_cols": 8}
+# Per kernel, each unbatched and batched: gram_fwd's rows per thread times its
+# three fp32 output types and its fp64 one, each unchunked and d-chunked; the
+# backward's fp32 DMAX buckets (8, 16, 32, 64), its fp64 ones (8, 16, 32) and
+# its d-chunked kernel in fp32 and fp64.
+INSTANTIATIONS = {"gram_fwd": 64, "gram_bwd_rows": 18, "gram_bwd_cols": 18}
 # The plain forward uses the cross-term form, whose cancellation leaves
 # ~1e-7 * |xs|^2 in the exponent; K <= sig = e here.
 FWD_ATOL = 2e-5
@@ -396,6 +434,17 @@ BIG_BWD = (70000, 20, 5, 1)  # a batched backward past the limit: B, n, m, d
 # curve's largest magnitude (a relative change is ~0 at the truth).
 CURVE_RTOL = 1e-5
 ANALYSIS_OUT = "build/analysis_figures"  # gitignored, beside the kernel build
+# Phase 14.
+MESH_BLOCK = 256  # the sharded steps' panel width at n = 30,720
+MESH_SMALL_N = 8192  # the Cholesky family against float64
+MESH_PEAK_LIMIT_N2 = 6.0  # a sharded step's peak on one rank, in n^2 * 4 B
+# The sharded factor and forward substitution against float64, relative to
+# the largest entry (the in-place factor reads 4.9e-6, phase 8), and the
+# NLML (JAX's own tolerance for the sharded NLML, tests/test_parallel.py).
+MESH_FACTOR_RTOL, MESH_SOLVE_RTOL, MESH_NLML_RTOL = 1e-5, 1e-4, 2e-5
+# Phase 8's crps and phase 9's dss float64 step-0 witnesses at n = 30,720,
+# kept for phase 14's sharded steps on the same data and parameters.
+F64_WITNESS = {}
 
 
 def log(*a):
@@ -437,8 +486,49 @@ def fwd_inputs(n, m, d, dev, seed):
     return xs, xps, torch.tensor(np.e, dtype=torch.float32, device=dev)
 
 
+def check_repair(dev, err):
+    """The d-chunked fp32 and the float64 kernels against their plain
+    versions (values and both gradients), a second call bitwise the first."""
+    cases = [(s, torch.float32) for s in CHUNK_SHAPES] + [(s, torch.float64) for s in F64_SHAPES]
+    for s, ((n, m, d), dt) in enumerate(cases):
+        xs, xps, sig, g = kernel_inputs(n, m, d, dev, seed=200 + s, dtype=dt)
+        f64 = dt == torch.float64
+        f_tol, b_atol, b_rtol = ((F64_FWD_ATOL, F64_BWD_ATOL, F64_BWD_RTOL) if f64
+                                 else (FWD_ATOL, BWD_ATOL, BWD_RTOL))
+        calls = kernel_calls().values()
+        got, again, want = ([o for pair in calls for o in pair[i](xs, xps, sig, g)]
+                            for i in (0, 0, 1))
+        assert all(a.dtype == dt for a in got), (n, m, d, [a.dtype for a in got])
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), (n, m, d, dt, "second call")
+        errs = {}
+        for name, a, b in zip(("K", "d_xs", "rowsum", "d_xps"), got, want):
+            e = float((a - b).abs().max())
+            tol = f_tol if name == "K" else b_atol + b_rtol * float(b.abs().max())
+            assert torch.isfinite(a).all() and e <= tol, (n, m, d, dt, name, e, tol)
+            errs[name] = e
+        torch.cuda.synchronize()
+        if not f64:  # the fp32 error columns of the kernels line
+            err["gram_fwd"] = max(err["gram_fwd"], errs["K"])
+            err["gram_bwd_rows"] = max(err["gram_bwd_rows"], errs["d_xs"], errs["rowsum"])
+            err["gram_bwd_cols"] = max(err["gram_bwd_cols"], errs["d_xps"])
+        log(f"[repair] {n}x{m}x{d} {str(dt)[6:]}"
+            f"{' (d-chunked)' if d > gram_cuda.max_unchunked_d(xs.element_size()) else ''}: "
+            + ", ".join(f"{k} err {v:.3g}" for k, v in errs.items())
+            + f" (tol {f_tol}; {b_atol} + {b_rtol} * max|ref|); second call bitwise equal")
+    with contextlib.redirect_stdout(io.StringIO()) as buf, \
+            contextlib.redirect_stderr(io.StringIO()):
+        rc = parity_report.main(["--dtype", "float64"])
+    report = json.loads(buf.getvalue())
+    assert rc == 0 and all(r["pass"] and r["target"] == 5e-9 for r in report.values()), report
+    errs = {k: next(v for f, v in r.items() if f.startswith("max_")) for k, r in report.items()}
+    log("[repair] parity_report --dtype float64 on the card (the Gram through the float64 "
+        "kernel), every 5e-9 target passes: "
+        + ", ".join(f"{k} {errs[k]:.2g}" for k in sorted(report)))
+
+
 def phase_kernels(dev):
     err = {k: 0.0 for k in REPLACES}
+    check_repair(dev, err)
     for s, (n, m, d) in enumerate(KERNEL_SHAPES):
         xs, xps, sig, g = kernel_inputs(n, m, d, dev, seed=s, square=(n, m) in SQUARE)
         K = gram_cuda.gram_fwd_cuda(xs, xps, sig)
@@ -487,7 +577,8 @@ def phase_kernels(dev):
     # windows lost that kernel's events (three in a row), so there the time is
     # CUDA events alone: a call is milliseconds of one kernel, under which the
     # wrapper's host time hides, and the roofline share is taken of "ms".
-    times = time_shapes(TIMED_SHAPES, dev, log=log)
+    times = time_shapes(TIMED_SHAPES + CHUNK_SHAPES, dev, log=log)
+    times.update(time_shapes(F64_SHAPES, dev, log=log, dtype=torch.float64))
     times.update(time_shapes([s for s in FWD_SHAPES if s[0] != s[1]], dev,
                              names=("gram_fwd",), log=log))
     for t in times.values():
@@ -502,11 +593,44 @@ def phase_kernels(dev):
                                             "timed_by": "cuda_events"}
         log(f"[time] gram_fwd {n}x{m}x{d}: per call kernel {t['ms']:.5f} ms, plain "
             f"{t['plain_ms']:.5f} ms (CUDA events, back to back; no profiler time)")
-    for (name, n, m, d), t in times.items():
-        bound = gram_cuda.roofline(name, n, m, d)
+    for s, (n, m, d) in enumerate(MESH_BWD_SHAPES):
+        xs, xps, sig = fwd_inputs(n, m, d, dev, seed=300 + s)
+        g = torch.randn((n, m), generator=torch.Generator(device=dev).manual_seed(300 + s),
+                        device=dev)
+        pairs = kernel_pairs(xs, xps, sig, g)
+        errs = {}
+        for name in ("gram_bwd_rows", "gram_bwd_cols"):
+            kern, plain = pairs[name]
+            got, again, want = ((r if isinstance(r, tuple) else (r,)) for r in (kern(), kern(),
+                                                                                 plain()))
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), (n, m, d, name)
+            for part, a, b in zip(("d_xs", "rowsum") if len(got) == 2 else ("d_xps",), got,
+                                  want):
+                e = float((a - b).abs().max())
+                tol = BWD_ATOL + BWD_RTOL * float(b.abs().max())
+                assert torch.isfinite(a).all() and e <= tol, (n, m, d, part, e, tol)
+                errs[part] = e
+                err[name] = max(err[name], e)
+            del got, again, want
+            p1, k1, k2, p2 = (cuda_ms(f, reps=r, warmup=2) for f, r in
+                              ((plain, 5), (kern, 20), (kern, 20), (plain, 5)))
+            times[(name, n, m, d)] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                                      "timed_by": "cuda_events"}
+        del xs, xps, g, pairs
+        torch.cuda.empty_cache()
+        log(f"[kernels] {n}x{m}x{d} (the sharded steps' backward at p = 1): bwd err "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+            + f" (tol {BWD_ATOL} + {BWD_RTOL} * max|ref|); second call bitwise equal; per call "
+            + ", ".join(f"{k} {times[(k, n, m, d)]['ms']:.4f} ms (plain "
+                        f"{times[(k, n, m, d)]['plain_ms']:.4f})"
+                        for k in ("gram_bwd_rows", "gram_bwd_cols"))
+            + " (CUDA events, back to back)")
+    for (name, n, m, d, *kind), t in times.items():
+        bound = gram_cuda.roofline(name, n, m, d, elem=8 if kind else 4)
         t.update(bound_ms=bound.bound_us / 1e3, bound_by=bound.bound_by,
                  roofline_share=bound.bound_us / 1e3 / t.get("device_ms", t["ms"]))
-        log(f"[bound] {name} {n}x{m}x{d}: {bound.bytes} bytes, {bound.flops} FLOP: "
+        log(f"[bound] {name} {n}x{m}x{d}{'/' + kind[0] if kind else ''}: {bound.bytes} bytes, "
+            f"{bound.flops} FLOP: "
             f"{bound.bound_us:.4f} us, by {bound.bound_by}; "
             f"{'device time' if 'device_ms' in t else 'time per call'} reaches "
             f"{t['roofline_share']:.3f} of it")
@@ -1008,6 +1132,7 @@ def phase_large_n(dev):
         if rule == "crps":
             assert peak_f <= PEAK_LIMIT_N2 * n2, (peak_f / n2, PEAK_LIMIT_N2)
         streamed[rule], g64s[rule] = gf, g64
+        F64_WITNESS[rule] = (v64, g64)
         torch.cuda.empty_cache()
     f = "log_signal_sq"
     closed = closed_form_log_signal(p0, x, y, {r: g["log_noise_sq"] for r, g in streamed.items()})
@@ -1194,6 +1319,7 @@ def phase_folds(dev):
     inverse = f64_inverse(x, y, p0)
     for rule in FOLD_RULES:
         v64, g64 = f64_step0(rule, x, y, p0, eps=eps, inverse=inverse)
+        F64_WITNESS[rule] = (v64, g64)
         vf, gf = fused[rule]
         near = {k: (abs(float(v) - v64) / abs(v64),
                     {f: grad_rel({f: g[f]}, {f: g64[f]}) for f in g64})
@@ -1452,12 +1578,12 @@ def phase_graph(dev):
     differ = fits_equal(again, eager_crps, GRAPH_SYNC_STEPS)
     assert not differ, ("beside a larger workspace on another stream", differ)
     side = train._capture_stream(dev)
-    held = gram_cuda._WORKSPACES[(dev, side.cuda_stream)]
+    held = gram_cuda._WORKSPACES[(dev, side.cuda_stream, torch.float32)]
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # replaces the capture stream's workspace, the graph gone
         got = gram_cuda.gram_bwd_cuda(*big)
     torch.cuda.current_stream().wait_stream(side)
-    grown = gram_cuda._WORKSPACES[(dev, side.cuda_stream)]
+    grown = gram_cuda._WORKSPACES[(dev, side.cuda_stream, torch.float32)]
     assert grown[1].numel() > held[1].numel(), (grown[1].numel(), held[1].numel())
     del held
     assert all(torch.equal(a, b) for a, b in zip(got, want)), "capture stream's workspace"
@@ -2472,15 +2598,10 @@ def phase_analysis(dev):
         rc = parity_report.main([])
     report = json.loads(buf.getvalue())
     assert rc == 0 and all(r["pass"] for r in report.values()), report
-    try:
-        parity_report.main(["--dtype", "float64"])
-        raise AssertionError("parity_report --dtype float64 ran on the card")
-    except ValueError as e:
-        refusal = str(e)
     errs = {k: next(v for f, v in r.items() if f.startswith("max_")) for k, r in report.items()}
     log("[analysis] parity_report float32 on the card, every target passes: "
         + ", ".join(f"{k} {errs[k]:.2g}/{report[k]['target']:.0e}" for k in sorted(report))
-        + f"; float64 refused: {refusal}")
+        + " (float64: phase 3)")
     # (7) The fit's FitResult through a pytree checkpoint onto the card.
     path = os.path.join(ANALYSIS_OUT, "fit_roundtrip.npz")
     checkpoint.save_pytree(path, out["fit"])
@@ -2492,6 +2613,147 @@ def phase_analysis(dev):
         f"{tuple(back.param_history.inducing.shape)} inducing) round-trips save_pytree / "
         f"load_pytree onto {mine[0].device} bitwise")
     return launches, err, times
+
+
+def mesh_steps(dev, mesh):
+    """Phase 14 (3): the sharded LOO crps and k-fold dss steps at n = 30,720
+    (phase 8's data and parameters) on the one-rank mesh: a first step with
+    its peak memory, a second timed, each held against the float64 witness
+    at phase 8's limits (crps) and phase 9's (dss)."""
+    n, n2 = LARGE_N, 4.0 * LARGE_N * LARGE_N
+    x, y, _, _ = (t.to(dev) for t in large_n.make_data(n, LARGE_D, LARGE_TEST))
+    p0 = init_unit_params(LARGE_D, isotropic=False, device=dev)
+    out = {}
+    for rule, limits in (("crps", F64_GRAD_RTOL), ("dss", FOLD_F64_GRAD_RTOL)):
+        def step():
+            v, g = sharded_loo_value_and_grad(p0, shard_rows(x, mesh), y, mesh, rule=rule,
+                                              block=MESH_BLOCK)
+            return v, g.leaves()
+        torch.cuda.empty_cache()
+        (v, g), peak = peak_of(step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if rule not in F64_WITNESS:
+            torch.cuda.empty_cache()
+            F64_WITNESS[rule] = f64_step0(rule, x, y, p0)
+        v64, g64 = F64_WITNESS[rule]
+        lr_ = abs(float(v) - v64) / abs(v64)
+        ge = {f: grad_rel({f: g[f]}, {f: g64[f]}) for f in g64}
+        log(f"[mesh] sharded {rule} step at n = {n}, block {MESH_BLOCK}, one rank: {wall:.3f} s, "
+            f"peak {peak / n2:.3f} n^2 * 4 B (limit {MESH_PEAK_LIMIT_N2}); against float64 loss "
+            f"rel {lr_:.3g} (tol {LARGE_LOSS_RTOL}), grad rel by leaf "
+            + ", ".join(f"{f} {e:.3g}" for f, e in ge.items()) + f" (tol {limits})")
+        assert lr_ <= LARGE_LOSS_RTOL and all(e <= limits[f] for f, e in ge.items()), \
+            (rule, lr_, ge)
+        assert peak <= MESH_PEAK_LIMIT_N2 * n2, (rule, peak / n2)
+        out[rule] = {"step_s": wall, "peak_n2": peak / n2, "loss_rel_f64": lr_,
+                     "grad_rel_f64": ge}
+    del x, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_cholesky(dev, mesh):
+    """Phase 14 (4): sharded_cholesky, sharded_tri_solve_lower and
+    sharded_nlml at n = 8192 on the one-rank mesh against float64."""
+    n = MESH_SMALL_N
+    x, y, _, _ = (t.to(dev) for t in large_n.make_data(n, LARGE_D, LARGE_TEST))
+    p0 = init_unit_params(LARGE_D, isotropic=False, device=dev)
+    with torch.no_grad():
+        K = sharded_gram(shard_rows(x, mesh), p0.log_signal_sq, p0.log_length, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        L = sharded_cholesky(add_noise_sharded(K.clone(), p0.noise_sq, mesh), mesh,
+                             block=MESH_BLOCK)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        w = sharded_tri_solve_lower(L, y, mesh, block=MESH_BLOCK)
+        nl = float(sharded_nlml(K, y, p0.noise_sq, mesh, block=MESH_BLOCK))
+        L64 = f64_factor(x, p0)[3]
+        w64 = torch.linalg.solve_triangular(L64, y.double()[:, None], upper=False)[:, 0]
+        nl64 = float(0.5 * n * np.log(2.0 * np.pi) + torch.log(L64.diagonal()).sum()
+                     + 0.5 * w64 @ w64)
+        e_l, e_w, e_n = rel_max(L, L64), rel_max(w, w64), abs(nl - nl64) / abs(nl64)
+    log(f"[mesh] n = {n}, block {MESH_BLOCK}: sharded_cholesky {wall:.3f} s, against float64 "
+        f"{e_l:.3g} (tol {MESH_FACTOR_RTOL}); sharded_tri_solve_lower {e_w:.3g} (tol "
+        f"{MESH_SOLVE_RTOL}); sharded_nlml {nl:.8g} vs {nl64:.10g}, rel {e_n:.3g} (tol "
+        f"{MESH_NLML_RTOL})")
+    assert e_l <= MESH_FACTOR_RTOL and e_w <= MESH_SOLVE_RTOL and e_n <= MESH_NLML_RTOL, \
+        (e_l, e_w, e_n)
+    del K, L, L64
+    torch.cuda.empty_cache()
+    return {"cholesky_s": wall, "factor_rel_f64": e_l, "solve_rel_f64": e_w, "nlml_rel_f64": e_n}
+
+
+def phase_mesh(dev):
+    """Phase 14: the mesh and the distributed dense stack on one rank under
+    NCCL. Returns the sharded path's Gram launches and its records."""
+    os.makedirs("build", exist_ok=True)
+    store = os.path.abspath(os.path.join("build", f"smoke_store_{os.getpid()}"))
+    if os.path.exists(store):
+        os.unlink(store)
+    mdev = init_distributed(dev, init_method=f"file://{store}", world_size=1, rank=0)
+    try:
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        mesh = make_mesh(devices=mdev)
+        log(f"[mesh] one NCCL rank on {mdev}: mesh {mesh.shape}")
+        x, _, _, _ = (t.to(dev) for t in large_n.make_data(LARGE_N, LARGE_D, LARGE_TEST))
+        p0 = init_unit_params(LARGE_D, isotropic=False, device=dev)
+        s = kin40k_replicate_split(load_kin40k(None), 0, device=dev)
+        pb = sweep_start(dev, SWEEP_R)
+        sched = SCHEDULES[("kin40k_fitc", "crps")]
+        floss = make_objective("crps", model="fitc")
+        # The sharded path, counted: the Gram, the sweep, the two steps, the
+        # Cholesky family and the dry run.
+        torch.cuda.synchronize()
+        gram_cuda.reset_launches()
+        K_sh = sharded_gram(shard_rows(x, mesh), p0.log_signal_sq, p0.log_length, mesh)
+        # Against the unsharded launch, which the sharded path's count leaves out.
+        counted = dict(gram_cuda.LAUNCHES)
+        xs = gram_cuda.scale_inputs(x, p0.log_length)
+        same = torch.equal(K_sh, gram_cuda.gram_fwd_cuda(xs, xs, torch.exp(p0.log_signal_sq)))
+        log(f"[mesh] sharded_gram at {LARGE_N}x{LARGE_N}x{LARGE_D}: bitwise gram_fwd: {same}")
+        assert same
+        del K_sh, xs
+        torch.cuda.empty_cache()
+        gram_cuda.LAUNCHES.update(counted)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        swept = sharded_restart_sweep(floss, pb, s.train_x, s.train_y, sched.iters, sched.lr,
+                                      mesh, lr_inducing=sched.lr_inducing)
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        records = {"sweep_s": sweep_s, **mesh_steps(dev, mesh), **mesh_cholesky(dev, mesh)}
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            dry = dryrun_multichip(mdev)
+        torch.cuda.synchronize()
+        dry_s = time.perf_counter() - t0
+        launches = dict(gram_cuda.LAUNCHES)
+        log(f"[mesh] the sharded path (Gram, sweep, the two steps, the Cholesky family, the dry "
+            f"run): kernel launches {launches}")
+        for k, v in launches.items():
+            assert v > 0, f"kernel {k} was not launched on the sharded path"
+        log(f"[mesh] dryrun_multichip legs (1)-(6) on one rank in {dry_s:.2f} s: {dry}")
+        # Against the unsharded sweep (not counted).
+        ref = restart_sweep(floss, pb, s.train_x, s.train_y, sched.iters, sched.lr,
+                            lr_inducing=sched.lr_inducing)
+        differ = [f for f in ("loss_history", "ok", "stall_iters")
+                  if not bits_equal(getattr(swept, f), getattr(ref, f))]
+        differ += [f for f, t in swept.params.leaves().items()
+                   if not bits_equal(t, getattr(ref.params, f))]
+        log(f"[mesh] sharded_restart_sweep, {SWEEP_R} FITC-20 crps restarts x {sched.iters} "
+            f"iterations in {sweep_s:.3f} s: bitwise restart_sweep (loss history, ok, "
+            f"stall_iters, every parameter): {not differ}")
+        assert not differ, differ
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.unlink(store)
+    return launches, records
 
 
 def main():
@@ -2526,7 +2788,8 @@ def main():
     launches["sweeps"], launches["sweeps_replicates"], err12, btimes = phase(12, phase_sweeps,
                                                                              dev)
     launches["analysis"], err13, atimes = phase(13, phase_analysis, dev)
-    log(f"[phases] 1-13 in {time.perf_counter() - t0:.1f} s")
+    launches["sharded"], _ = phase(14, phase_mesh, dev)
+    log(f"[phases] 1-14 in {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, key in KERNELS:
         on_path = times[(name, *TIMED_SHAPES[0])]
@@ -2539,8 +2802,8 @@ def main():
                         "plain_ms": on_path["plain_ms"], "bound_ms": on_path["bound_ms"],
                         "bound_by": on_path["bound_by"], "library_ms": None,
                         "shapes": {**{"x".join(map(str, s)): times[(name, *s)]
-                                      for s in TIMED_SHAPES + FWD_SHAPES
-                                      if (name, *s) in times},
+                                      for s in TIMED_SHAPES + FWD_SHAPES + CHUNK_SHAPES
+                                      + MESH_BWD_SHAPES if (name, *s) in times},
                                    **{"x".join(map(str, k[1:4])) + "/" + k[4]: t
                                       for k, t in times.items() if k[0] == name and len(k) == 5},
                                    **{shape: t[name] for shape, t in btimes.items()},

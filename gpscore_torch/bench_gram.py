@@ -87,19 +87,21 @@ def device_ms(fn, reps=50, warmup=5, floor_ms=0.0):
                        f"{floor_ms:.5f} ms)")
 
 
-def kernel_inputs(n, m, d, dev, seed, square=False):
+def kernel_inputs(n, m, d, dev, seed, square=False, dtype=torch.float32):
     """Scaled inputs as the main path makes them: KIN40K-like x in [-1, 1],
-    log lengths in [0, 1], sig = e, g standard normal; xps = xs when
-    ``square`` (a K(u, u))."""
+    log lengths in [0, 1] (plus log(d / 8) / 2 past 64 features, so that the
+    squared distance stays at KIN40K's d = 8 scale), sig = e, g standard normal;
+    xps = xs when ``square`` (a K(u, u)). ``dtype``: float32 or float64
+    (the same draws, cast)."""
     rng = np.random.default_rng(seed)
-    ll = rng.uniform(0.0, 1.0, d).astype(np.float32)
+    ll = rng.uniform(0.0, 1.0, d) + (0.5 * np.log(d / 8.0) if d > 64 else 0.0)
     x = rng.uniform(-1.0, 1.0, (n, d)).astype(np.float32)
     xp = x if square else rng.uniform(-1.0, 1.0, (m, d)).astype(np.float32)
-    inv = np.exp(-ll)
-    xs = torch.tensor(x * inv, device=dev)
-    xps = torch.tensor(xp * inv, device=dev)
-    g = torch.tensor(rng.standard_normal((n, m), dtype=np.float32), device=dev)
-    return xs, xps, torch.tensor(np.e, dtype=torch.float32, device=dev), g
+    inv = np.exp(-ll.astype(np.float32))
+    xs = torch.tensor(x * inv, device=dev, dtype=dtype)
+    xps = torch.tensor(xp * inv, device=dev, dtype=dtype)
+    g = torch.tensor(rng.standard_normal((n, m), dtype=np.float32), device=dev, dtype=dtype)
+    return xs, xps, torch.tensor(np.e, dtype=dtype, device=dev), g
 
 
 def kernel_pairs(xs, xps, sig, g):
@@ -130,18 +132,21 @@ def time_line(name, shape, t):
             f"ms, plain {t['plain_device_ms']:.5f} ms")
 
 
-def time_shapes(shapes, dev, names=None, seed=99, log=print):
-    """{(kernel, n, m, d): time_pair(...)} at every shape."""
+def time_shapes(shapes, dev, names=None, seed=99, log=print, dtype=torch.float32):
+    """{(kernel, n, m, d): time_pair(...)} at every shape; for float64
+    inputs the keys end in "f64" and the bound is the fp64 one."""
     times = {}
+    f64 = dtype == torch.float64
     for shape in shapes:
-        pairs = kernel_pairs(*kernel_inputs(*shape, dev, seed))
+        pairs = kernel_pairs(*kernel_inputs(*shape, dev, seed, dtype=dtype))
         for name, (kern, plain) in pairs.items():
             if names is None or name in names:
                 # An older checkout's gram_cuda may have no roofline.
-                bound = (gram_cuda.roofline(name, *shape).bound_us / 1e3
-                         if hasattr(gram_cuda, "roofline") else 0.0)
-                times[(name, *shape)] = t = time_pair(kern, plain, bound)
-                log(time_line(name, shape, t))
+                bound = (gram_cuda.roofline(name, *shape, **({"elem": 8} if f64 else {})).bound_us
+                         / 1e3 if hasattr(gram_cuda, "roofline") else 0.0)
+                times[(name, *shape, *(("f64",) if f64 else ()))] = t = time_pair(kern, plain,
+                                                                                   bound)
+                log(time_line(name, (*shape, *(("f64",) if f64 else ())), t))
     return times
 
 

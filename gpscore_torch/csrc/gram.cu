@@ -22,10 +22,25 @@
 //   fwd_plan, bwd_rows_plan, bwd_cols_plan), which size them from the card's
 //   SM count; every call is one launch.
 //
-// All arrays are row-major, contiguous fp32 (gram_fwd's output may also be
-// bfloat16 or float16); sig is a device scalar, so no launch needs a host
-// sync. Every entry point launches on the caller's stream and returns
-// cudaGetLastError().
+// All arrays are row-major and contiguous, of one element type T: fp32
+// (gram_fwd's output may then also be bfloat16 or float16), or fp64 through
+// the *_f64 entry points, whose instantiations are the same kernels on 8-byte
+// elements (16-byte cp.async copies of 2 doubles, shared-memory stages sized
+// in bytes by the wrappers' plans, fma and exp in double; no 2-byte output).
+// sig is a device scalar, so no launch needs a host sync. Every entry point
+// launches on the caller's stream and returns cudaGetLastError().
+//
+// Any d: the instantiations above keep their d buckets (gram_fwd any d that
+// its shared memory holds, the backward DMAX of 8 to kMaxD; in fp64 to
+// kMaxD / 2). Past them a call takes the d-chunked instantiations, which
+// walk d in chunks of 256 bytes (Elem<T>::kDChunk: 64 floats, 32 doubles)
+// in their own bodies: gram_fwd stages one chunk of xs and xps at a time and
+// sums the squared distance over every chunk before the exp, in ascending k
+// as the unchunked one does, so K is bitwise what a wide unchunked build
+// would give; the backward's chunked kernels (gram_bwd_rows_kernel_dchunk,
+// gram_bwd_cols_kernel_dchunk) form W = g * K from the whole distance and
+// write d_xs / d_xps one chunk of d at a time, recomputing the distance per
+// chunk.
 //
 // The batch axis (a sweep's restarts or replicates; gpscore_torch/parallel/
 // sweeps.py): every kernel takes B independent Grams in one launch, the batch
@@ -54,7 +69,7 @@
 
 namespace {
 
-constexpr int kMaxD = 64;
+constexpr int kMaxD = 64;                        // widest d of the unchunked fp32 backward
 constexpr int kWarpsPerBlock = 8;                // every kernel: 8 warps a block
 constexpr int kThreads = 32 * kWarpsPerBlock;
 constexpr int kColsTile = 32;                    // gram_bwd_cols: columns per block, one per lane
@@ -63,7 +78,36 @@ constexpr int kSumBatch = 32;                    // both backward kernels: chunk
 constexpr int kFwdColsPerThread = 4;             // gram_fwd: one float4 of a row per thread
 constexpr unsigned kFullMask = 0xffffffffu;
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+// Per element type: kVec elements a 16-byte copy; kDChunk the d-chunk of the
+// chunked instantiations (256 bytes); kMaxDT the widest d of the unchunked
+// backward (its acc and xj registers: 2 * kMaxD * 4 bytes a thread).
+template <typename T>
+struct Elem {
+  static constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  static constexpr int kDChunk = kMaxD * 4 / static_cast<int>(sizeof(T));
+  static constexpr int kMaxDT = kMaxD * 4 / static_cast<int>(sizeof(T));
+};
+
+__device__ __forceinline__ float fma_t(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double fma_t(double a, double b, double c) { return fma(a, b, c); }
+__device__ __forceinline__ float exp_t(float v) { return expf(v); }
+__device__ __forceinline__ double exp_t(double v) { return exp(v); }
+
+// 16 bytes of shared memory (16-byte aligned) into registers.
+__device__ __forceinline__ void load16(const float* p, float* v) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+__device__ __forceinline__ void load16(const double* p, double* v) {
+  const double2 q = *reinterpret_cast<const double2*>(p);
+  v[0] = q.x;
+  v[1] = q.y;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
 }
@@ -71,6 +115,13 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+// One element: cp_async4 for a float, an 8-byte copy for a double.
+__device__ __forceinline__ void cp_async_elem(float* dst, const float* src) { cp_async4(dst, src); }
+__device__ __forceinline__ void cp_async_elem(double* dst, const double* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -93,52 +144,70 @@ struct Batch {
   long long xs, xps, sig, g, out0, out1;
 };
 
-// Copy count contiguous floats to shared memory, every thread of the block
+// Copy count contiguous elements to shared memory, every thread of the block
 // taking a share; dst is 16-byte aligned.
-__device__ __forceinline__ void stage_span(float* dst, const float* src, int count) {
+template <typename T>
+__device__ __forceinline__ void stage_span(T* dst, const T* src, int count) {
+  constexpr int V = Elem<T>::kVec;
   int e = threadIdx.x;
   if (aligned16(src)) {
-    for (int v = threadIdx.x; v < count / 4; v += kThreads) cp_async16(dst + 4 * v, src + 4 * v);
-    e += count & ~3;
+    for (int v = threadIdx.x; v < count / V; v += kThreads) cp_async16(dst + V * v, src + V * v);
+    e += count & ~(V - 1);
   }
-  for (; e < count; e += kThreads) cp_async4(dst + e, src + e);
+  for (; e < count; e += kThreads) cp_async_elem(dst + e, src + e);
+}
+
+// Copy rows x cols elements at row pitches src_pitch and dst_pitch, one
+// element a copy (the chunked gram_fwd's slices of xs rows).
+template <typename T>
+__device__ __forceinline__ void stage_elems(T* dst, int dst_pitch, const T* src, size_t src_pitch,
+                                            int rows, int cols) {
+  for (int e = threadIdx.x; e < rows * cols; e += kThreads) {
+    const int r = e / cols;
+    const int c = e - r * cols;
+    cp_async_elem(dst + r * dst_pitch + c, src + r * src_pitch + c);
+  }
 }
 
 // Copy the g tile rows [i0, i0 + rows) x columns [j0, j0 + w) to dst with row
-// pitch kColsTile. With m % 4 == 0 every row starts 16-byte aligned (j0 is a
-// multiple of 4) and w is a multiple of 4.
-__device__ __forceinline__ void stage_g(float* dst, const float* g, int i0, int rows, int j0,
+// pitch kColsTile. With m % 4 == 0 (fp64: m % 2 == 0) every row starts
+// 16-byte aligned (j0 is a multiple of 32) and w is a multiple of 4 (2).
+template <typename T>
+__device__ __forceinline__ void stage_g(T* dst, const T* g, int i0, int rows, int j0,
                                         int w, int m) {
-  const float* src = g + (size_t)i0 * m + j0;
-  if ((m & 3) == 0 && aligned16(src)) {
-    const int per_row = w / 4;
+  constexpr int V = Elem<T>::kVec;
+  const T* src = g + (size_t)i0 * m + j0;
+  if ((m & (V - 1)) == 0 && aligned16(src)) {
+    const int per_row = w / V;
     for (int v = threadIdx.x; v < rows * per_row; v += kThreads) {
       const int r = v / per_row;
-      const int c = 4 * (v - r * per_row);
+      const int c = V * (v - r * per_row);
       cp_async16(dst + r * kColsTile + c, src + (size_t)r * m + c);
     }
   } else {
     for (int e = threadIdx.x; e < rows * w; e += kThreads) {
       const int r = e / w;
       const int c = e - r * w;
-      cp_async4(dst + r * kColsTile + c, src + (size_t)r * m + c);
+      cp_async_elem(dst + r * kColsTile + c, src + (size_t)r * m + c);
     }
   }
 }
 
-// Copy a tile of `rows` rows x `cols` floats (row pitches src_pitch and
+// Copy a tile of `rows` rows x `cols` elements (row pitches src_pitch and
 // dst_pitch) to shared memory through L1 (cp.async.ca): 16 bytes a copy when
-// vec (cols, both pitches and both bases 16-byte aligned), 4 otherwise. Every
+// vec (cols, both pitches and both bases 16-byte aligned), one element otherwise. Every
 // block of a row tile of gram_bwd_rows reads the same xps rows; through L1
 // the blocks that share an SM fetch them from L2 once (with cp.async.cg,
 // which bypasses L1, 500 x 500 x 8 took 8.2 us instead of 5.2).
-__device__ __forceinline__ void stage_tile(float* dst, int dst_pitch, const float* src,
+template <typename T>
+__device__ __forceinline__ void stage_tile(T* dst, int dst_pitch, const T* src,
                                            size_t src_pitch, int rows, int cols, bool vec) {
+  constexpr int V = Elem<T>::kVec;
   if (vec) {
-    const int per_row = cols / 4;
+    const int per_row = cols / V;
     for (int v = threadIdx.x; v < rows * per_row; v += kThreads) {
       const int r = v / per_row;
-      const int c = 4 * (v - r * per_row);
+      const int c = V * (v - r * per_row);
       const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(dst + r * dst_pitch + c));
       asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(sa),
                    "l"(src + r * src_pitch + c) : "memory");
@@ -147,7 +216,7 @@ __device__ __forceinline__ void stage_tile(float* dst, int dst_pitch, const floa
     for (int e = threadIdx.x; e < rows * cols; e += kThreads) {
       const int r = e / cols;
       const int c = e - r * cols;
-      cp_async4(dst + r * dst_pitch + c, src + r * src_pitch + c);
+      cp_async_elem(dst + r * dst_pitch + c, src + r * src_pitch + c);
     }
   }
 }
@@ -198,6 +267,17 @@ __device__ __forceinline__ void stage_tile(float* dst, int dst_pitch, const floa
 // sum is rounded once to nearest. The four outputs of a row go out as one
 // store of 4 * sizeof(OutT) bytes where aligned: 16 bytes for float, 8 for
 // the 2-byte types. The output bytes halve, so does the bound at 30720^2.
+//
+// In fp64 (T = OutT = double) the same kernel on 8-byte elements: the k loop
+// reads the four columns of xps as two 16-byte loads, the output goes out as
+// two 16-byte stores, and sums and exp are double. The bound is the fp64
+// rate, 34 TFLOP/s without tensor cores, past a few inputs.
+//
+// kChunk (d past Elem<T>::kDChunk): shared memory holds one chunk of d of
+// the block's xs rows and xps columns at a time; the block stages chunk
+// after chunk, each thread adding each chunk's terms to its sums in
+// ascending k, and the exp comes once every chunk is in. Threads with no
+// columns stay for the barriers of every chunk.
 template <typename OutT>
 struct Out4;
 
@@ -207,6 +287,16 @@ struct Out4<float> {
   __device__ __forceinline__ static float one(float v) { return v; }
   __device__ __forceinline__ static void store(float* o, const float* v) {
     *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+
+template <>
+struct Out4<double> {
+  static constexpr bool kDiag = false;
+  __device__ __forceinline__ static double one(double v) { return v; }
+  __device__ __forceinline__ static void store(double* o, const double* v) {
+    reinterpret_cast<double2*>(o)[0] = make_double2(v[0], v[1]);
+    reinterpret_cast<double2*>(o)[1] = make_double2(v[2], v[3]);
   }
 };
 
@@ -238,12 +328,13 @@ struct Out4<__half> {
   }
 };
 
-template <int RT, typename OutT, bool kBatched>
+template <typename T, int RT, typename OutT, bool kBatched, bool kChunk>
 __global__ void __launch_bounds__(kThreads)
-gram_fwd_kernel(const float* __restrict__ xs, const float* __restrict__ xps,
-                const float* __restrict__ sig, const float* __restrict__ diag,
+gram_fwd_kernel(const T* __restrict__ xs, const T* __restrict__ xps,
+                const T* __restrict__ sig, const T* __restrict__ diag,
                 OutT* __restrict__ out, int n, int m, int d, int col_threads, Batch bs) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
   if constexpr (kBatched) {
     const long long b = blockIdx.z;
     xs += b * bs.xs;
@@ -258,54 +349,75 @@ gram_fwd_kernel(const float* __restrict__ xs, const float* __restrict__ xps,
   const int j0 = blockIdx.x * col_tile;
   const int rows = min(rows_tile, n - i0);
   const int w = min(col_tile, m - j0);
-  float* xs_s = smem;                      // [rows_tile][d]
-  float* xpt_s = smem + rows_tile * d;     // [d][col_tile]: xps transposed
-  stage_span(xs_s, xs + (size_t)i0 * d, rows * d);
-  if (threadIdx.x < w) {
-    const float* src = xps + (size_t)(j0 + threadIdx.x) * d;
-    for (int k = 0; k < d; ++k) cp_async4(xpt_s + k * col_tile + threadIdx.x, src + k);
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
+  const int dw = kChunk ? Elem<T>::kDChunk : d;  // the d of one stage
+  T* xs_s = smem;                      // [rows_tile][dw]
+  T* xpt_s = smem + rows_tile * dw;    // [dw][col_tile]: xps transposed
 
   const int tx = threadIdx.x & (col_threads - 1);  // col_threads is a power of two
   const int ty = threadIdx.x >> (__ffs(col_threads) - 1);
   const int c = kFwdColsPerThread * tx;
-  if (c >= w) return;
-  float d2[RT][kFwdColsPerThread];
+  T d2[RT][kFwdColsPerThread];
 #pragma unroll
   for (int r = 0; r < RT; ++r) {
 #pragma unroll
-    for (int q = 0; q < kFwdColsPerThread; ++q) d2[r][q] = 0.f;
+    for (int q = 0; q < kFwdColsPerThread; ++q) d2[r][q] = T(0);
   }
   // Columns of the tile past w and rows past `rows` read shared memory that
   // was not filled; their sums are never stored.
-  for (int k = 0; k < d; ++k) {
-    const float4 xp = *reinterpret_cast<const float4*>(xpt_s + k * col_tile + c);
+  const auto accumulate = [&](int kw) {
+    for (int k = 0; k < kw; ++k) {
+      T xp[kFwdColsPerThread];
 #pragma unroll
-    for (int r = 0; r < RT; ++r) {
-      const float xi = xs_s[(ty + r * row_groups) * d + k];
-      float t = xi - xp.x;
-      d2[r][0] = fmaf(t, t, d2[r][0]);
-      t = xi - xp.y;
-      d2[r][1] = fmaf(t, t, d2[r][1]);
-      t = xi - xp.z;
-      d2[r][2] = fmaf(t, t, d2[r][2]);
-      t = xi - xp.w;
-      d2[r][3] = fmaf(t, t, d2[r][3]);
+      for (int q = 0; q < kFwdColsPerThread; q += Elem<T>::kVec)
+        load16(xpt_s + k * col_tile + c + q, xp + q);
+#pragma unroll
+      for (int r = 0; r < RT; ++r) {
+        const T xi = xs_s[(ty + r * row_groups) * dw + k];
+#pragma unroll
+        for (int q = 0; q < kFwdColsPerThread; ++q) {
+          const T t = xi - xp[q];
+          d2[r][q] = fma_t(t, t, d2[r][q]);
+        }
+      }
     }
+  };
+  if constexpr (!kChunk) {
+    stage_span(xs_s, xs + (size_t)i0 * d, rows * d);
+    if (threadIdx.x < w) {
+      const T* src = xps + (size_t)(j0 + threadIdx.x) * d;
+      for (int k = 0; k < d; ++k) cp_async_elem(xpt_s + k * col_tile + threadIdx.x, src + k);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    if (c >= w) return;
+    accumulate(d);
+  } else {
+    for (int k0 = 0; k0 < d; k0 += dw) {
+      const int kw = min(dw, d - k0);
+      stage_elems(xs_s, dw, xs + (size_t)i0 * d + k0, d, rows, kw);
+      if (threadIdx.x < w) {
+        const T* src = xps + (size_t)(j0 + threadIdx.x) * d + k0;
+        for (int k = 0; k < kw; ++k) cp_async_elem(xpt_s + k * col_tile + threadIdx.x, src + k);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      if (c < w) accumulate(kw);
+      __syncthreads();  // the next chunk refills the stage just read
+    }
+    if (c >= w) return;
   }
-  const float s = *sig;
+  const T s = *sig;
   const bool vec = (m & 3) == 0 &&
                    (reinterpret_cast<uintptr_t>(out) & (kFwdColsPerThread * sizeof(OutT) - 1)) == 0;
 #pragma unroll
   for (int r = 0; r < RT; ++r) {
     const int ri = ty + r * row_groups;
     if (ri >= rows) break;
-    float v[kFwdColsPerThread];
+    T v[kFwdColsPerThread];
 #pragma unroll
-    for (int q = 0; q < kFwdColsPerThread; ++q) v[q] = s * expf(-0.5f * d2[r][q]);
+    for (int q = 0; q < kFwdColsPerThread; ++q) v[q] = s * exp_t(T(-0.5) * d2[r][q]);
     if constexpr (Out4<OutT>::kDiag) {
       if (diag != nullptr) {
         const int q = i0 + ri - (j0 + c);  // the column of this row's diagonal, if it is ours
@@ -391,9 +503,19 @@ __host__ __device__ constexpr int rows_xps_pitch(int d, bool vec) {
   return vec ? (((d + 3) / 4) | 1) * 4 : (d | 1);
 }
 
-__host__ __device__ constexpr int round4(int v) { return (v + 3) & ~3; }
+// The same in fp64: an odd number of 16-byte pairs of doubles.
+template <typename T>
+__host__ __device__ constexpr int rows_xps_pitch_t(int d, bool vec) {
+  return sizeof(T) == 4 ? rows_xps_pitch(d, vec) : (vec ? (((d + 1) / 2) | 1) * 2 : (d | 1));
+}
 
-// Shared memory of gram_bwd_rows, in floats: the block's xs rows, then
+// Elements rounded up to 16 bytes.
+template <typename T>
+__host__ __device__ constexpr int round16(int v) {
+  return (v + Elem<T>::kVec - 1) & ~(Elem<T>::kVec - 1);
+}
+
+// Shared memory of gram_bwd_rows, in elements: the block's xs rows, then
 // `buffers` stages of (xps rows, g tile), or, after the column loop, the
 // slices' partials in their place.
 struct RowsSmem {
@@ -401,34 +523,39 @@ struct RowsSmem {
   int xs, xps, stage, total;         // region sizes
 };
 
+template <typename T>
 __host__ __device__ inline RowsSmem rows_smem(int d, int rows_tile, int lanes, int slices,
                                              int stage_cols, int buffers, bool vec) {
   RowsSmem s;
-  s.xs_pitch = rows_xps_pitch(d, (d & 3) == 0);
-  s.xps_pitch = rows_xps_pitch(d, vec);
+  s.xs_pitch = rows_xps_pitch_t<T>(d, (d & (Elem<T>::kVec - 1)) == 0);
+  s.xps_pitch = rows_xps_pitch_t<T>(d, vec);
   s.g_pitch = stage_cols + (lanes < 32 ? lanes : 0);
-  s.xs = round4(rows_tile * s.xs_pitch);
-  s.xps = round4(stage_cols * s.xps_pitch);
-  s.stage = s.xps + round4(rows_tile * s.g_pitch);
+  s.xs = round16<T>(rows_tile * s.xs_pitch);
+  s.xps = round16<T>(stage_cols * s.xps_pitch);
+  s.stage = s.xps + round16<T>(rows_tile * s.g_pitch);
   const int part = slices > 1 ? slices * rows_tile * (d + 1) : 0;
   s.total = s.xs + (buffers * s.stage > part ? buffers * s.stage : part);
   return s;
 }
 
-template <int DMAX, bool kBatched>
-__global__ void __launch_bounds__(kThreads, DMAX <= 16 ? 2 : 1)
-gram_bwd_rows_kernel(const float* __restrict__ xs, const float* __restrict__ xps,
-                     const float* __restrict__ sig, const float* __restrict__ g,
-                     float* __restrict__ d_xs, float* __restrict__ rowsum,
-                     float* __restrict__ scratch, int* __restrict__ ticket,
+// In fp64 (T = double) DMAX goes to 32 (acc and xj stay 2 * 32 doubles a
+// thread) and every build asks for one block an SM.
+template <typename T, int DMAX, bool kBatched>
+__global__ void __launch_bounds__(kThreads, DMAX <= 16 && sizeof(T) == 4 ? 2 : 1)
+gram_bwd_rows_kernel(const T* __restrict__ xs, const T* __restrict__ xps,
+                     const T* __restrict__ sig, const T* __restrict__ g,
+                     T* __restrict__ d_xs, T* __restrict__ rowsum,
+                     T* __restrict__ scratch, int* __restrict__ ticket,
                      int n, int m, int d, int lanes_per_row, int slices, int stage_cols,
                      int chunk_cols, Batch bs) {
-  extern __shared__ __align__(16) float smem[];
+  constexpr int V = Elem<T>::kVec;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
   __shared__ int is_last;
   bool vec_base = true;
   if constexpr (kBatched) {
     // Decided on the batch's base pointer, as the launch sizes shared memory.
-    vec_base = aligned16(xps) && (bs.xps & 3) == 0;
+    vec_base = aligned16(xps) && (bs.xps & (V - 1)) == 0;
     const long long b = blockIdx.z;
     xs += b * bs.xs;
     xps += b * bs.xps;
@@ -454,45 +581,46 @@ gram_bwd_rows_kernel(const float* __restrict__ xs, const float* __restrict__ xps
   const int col0 = chunk * chunk_cols;
   const int col_end = min(m, col0 + chunk_cols);
   const int stages = (max(col_end - col0, 0) + stage_cols - 1) / stage_cols;
-  const bool vec = (d & 3) == 0 && (kBatched ? vec_base : aligned16(xps));
-  const RowsSmem lay = rows_smem(d, rows_tile, lanes_per_row, slices, stage_cols,
-                                 chunk_cols > stage_cols ? 2 : 1, vec);
-  // With m and stage_cols multiples of 4, every stage's g rows start 16-byte
-  // aligned and are a multiple of 4 wide.
-  const bool g_vec = (m & 3) == 0 && (stage_cols & 3) == 0 && (lay.g_pitch & 3) == 0 &&
-                     aligned16(g);
-  float* xs_s = smem;                  // [rows_tile][xs_pitch]
-  float* stage_s = smem + lay.xs;      // buffers x ([stage_cols][xps_pitch], [rows_tile][g_pitch])
-  float* part_s = stage_s;             // [slices][rows_tile][d + 1], after the column loop
+  const bool vec = (d & (V - 1)) == 0 && (kBatched ? vec_base : aligned16(xps));
+  const RowsSmem lay = rows_smem<T>(d, rows_tile, lanes_per_row, slices, stage_cols,
+                                    chunk_cols > stage_cols ? 2 : 1, vec);
+  // With m and stage_cols multiples of 4 (fp64: 2), every stage's g rows
+  // start 16-byte aligned and are a multiple of 16 bytes wide.
+  const bool g_vec = (m & (V - 1)) == 0 && (stage_cols & (V - 1)) == 0 &&
+                     (lay.g_pitch & (V - 1)) == 0 && aligned16(g);
+  T* xs_s = smem;                  // [rows_tile][xs_pitch]
+  T* stage_s = smem + lay.xs;      // buffers x ([stage_cols][xps_pitch], [rows_tile][g_pitch])
+  T* part_s = stage_s;             // [slices][rows_tile][d + 1], after the column loop
   // Loaded before the copies are issued: the asm of cp.async orders every
   // later load after it, and this one would wait out a round trip of its own.
-  const float s = *sig;
+  const T s = *sig;
 
   const auto load_stage = [&](int st) {
     const int j0 = col0 + st * stage_cols;
     const int w = min(stage_cols, col_end - j0);
-    float* buf = stage_s + (st & 1) * lay.stage;
+    T* buf = stage_s + (st & 1) * lay.stage;
     stage_tile(buf, lay.xps_pitch, xps + (size_t)j0 * d, d, w, d, vec);
     stage_tile(buf + lay.xps, lay.g_pitch, g + (size_t)i0 * m + j0, m, rows, w, g_vec);
   };
-  stage_tile(xs_s, lay.xs_pitch, xs + (size_t)i0 * d, d, rows, d, (d & 3) == 0 && aligned16(xs));
+  stage_tile(xs_s, lay.xs_pitch, xs + (size_t)i0 * d, d, rows, d,
+             (d & (V - 1)) == 0 && aligned16(xs));
   if (stages > 0) load_stage(0);
   cp_async_commit();
 
   constexpr bool kXsInRegisters = DMAX <= 16;
-  float xi_r[kXsInRegisters ? DMAX : 1];
+  T xi_r[kXsInRegisters ? DMAX : 1];
   // Rows past `rows` read shared memory that was not filled, with g taken
   // as 0; their sums are never stored.
-  const float* xi_s = xs_s + r * lay.xs_pitch;  // the L lanes of a row read one address
+  const T* xi_s = xs_s + r * lay.xs_pitch;  // the L lanes of a row read one address
   const auto xi = [&](int k) {
     if constexpr (kXsInRegisters) return xi_r[k];
     else return xi_s[k];
   };
   const int step = lanes_per_row * slices;
-  float acc[DMAX];
-  float rs = 0.f;
+  T acc[DMAX];
+  T rs = T(0);
 #pragma unroll
-  for (int k = 0; k < DMAX; ++k) acc[k] = 0.f;
+  for (int k = 0; k < DMAX; ++k) acc[k] = T(0);
   for (int st = 0; st < stages; ++st) {
     if (st + 1 < stages) {
       load_stage(st + 1);
@@ -505,44 +633,38 @@ gram_bwd_rows_kernel(const float* __restrict__ xs, const float* __restrict__ xps
     if constexpr (kXsInRegisters) {
       if (st == 0) {
 #pragma unroll
-        for (int k = 0; k < DMAX; ++k) xi_r[k] = k < d ? xi_s[k] : 0.f;
+        for (int k = 0; k < DMAX; ++k) xi_r[k] = k < d ? xi_s[k] : T(0);
       }
     }
-    const float* xb = stage_s + (st & 1) * lay.stage;
-    const float* gb = xb + lay.xps + r * lay.g_pitch;
+    const T* xb = stage_s + (st & 1) * lay.stage;
+    const T* gb = xb + lay.xps + r * lay.g_pitch;
     const int w = min(stage_cols, col_end - (col0 + st * stage_cols));
     for (int j = sl * lanes_per_row + cl; j < w; j += step) {
-      const float* xp = xb + j * lay.xps_pitch;
-      float xj[DMAX];
+      const T* xp = xb + j * lay.xps_pitch;
+      T xj[DMAX];
       if (vec) {
 #pragma unroll
-        for (int k = 0; k < DMAX; k += 4) {
-          if (k < d) {
-            const float4 v = *reinterpret_cast<const float4*>(xp + k);
-            xj[k] = v.x;
-            xj[k + 1] = v.y;
-            xj[k + 2] = v.z;
-            xj[k + 3] = v.w;
-          }
+        for (int k = 0; k < DMAX; k += V) {
+          if (k < d) load16(xp + k, xj + k);
         }
       } else {
 #pragma unroll
-        for (int k = 0; k < DMAX; ++k) xj[k] = k < d ? xp[k] : 0.f;
+        for (int k = 0; k < DMAX; ++k) xj[k] = k < d ? xp[k] : T(0);
       }
-      const float gj = row_ok ? gb[j] : 0.f;
-      float d2 = 0.f;
+      const T gj = row_ok ? gb[j] : T(0);
+      T d2 = T(0);
 #pragma unroll
       for (int k = 0; k < DMAX; ++k) {
         if (k < d) {
-          const float t = xi(k) - xj[k];  // same operand order as the forward
-          d2 = fmaf(t, t, d2);
+          const T t = xi(k) - xj[k];  // same operand order as the forward
+          d2 = fma_t(t, t, d2);
         }
       }
-      const float wv = gj * (s * expf(-0.5f * d2));
+      const T wv = gj * (s * exp_t(T(-0.5) * d2));
       rs += wv;
 #pragma unroll
       for (int k = 0; k < DMAX; ++k) {
-        if (k < d) acc[k] = fmaf(wv, xj[k] - xi(k), acc[k]);
+        if (k < d) acc[k] = fma_t(wv, xj[k] - xi(k), acc[k]);
       }
     }
     if (st + 1 < stages) __syncthreads();  // the next iteration refills the buffer just read
@@ -562,7 +684,7 @@ gram_bwd_rows_kernel(const float* __restrict__ xs, const float* __restrict__ xps
   // chunk, else this chunk's slot of scratch.
   const int width = d + 1;
   const bool one_chunk = gridDim.y == 1;
-  const auto emit = [&](int row, int k, float v) {
+  const auto emit = [&](int row, int k, T v) {
     const int i = i0 + row;
     if (!one_chunk) scratch[((size_t)chunk * n + i) * width + k] = v;
     else if (k < d) d_xs[(size_t)i * d + k] = v;
@@ -581,7 +703,7 @@ gram_bwd_rows_kernel(const float* __restrict__ xs, const float* __restrict__ xps
     // every thread is done with them), added in slice order.
     __syncthreads();
     if (cl == 0) {
-      float* p = part_s + (sl * rows_tile + r) * width;
+      T* p = part_s + (sl * rows_tile + r) * width;
 #pragma unroll
       for (int k = 0; k < DMAX; ++k) {
         if (k < d) p[k] = acc[k];
@@ -590,7 +712,7 @@ gram_bwd_rows_kernel(const float* __restrict__ xs, const float* __restrict__ xps
     }
     __syncthreads();
     for (int e = threadIdx.x; e < rows * width; e += kThreads) {
-      float v = part_s[e];
+      T v = part_s[e];
       for (int q = 1; q < slices; ++q) v += part_s[q * rows_tile * width + e];
       const int row = e / width;
       emit(row, e - row * width, v);
@@ -608,17 +730,17 @@ gram_bwd_rows_kernel(const float* __restrict__ xs, const float* __restrict__ xps
   __syncthreads();
   if (!is_last) return;
   __threadfence();
-  const float* parts = scratch + (size_t)i0 * width;
+  const T* parts = scratch + (size_t)i0 * width;
   const size_t chunk_stride = (size_t)n * width;
   const int n_chunks = gridDim.y;
   for (int e = threadIdx.x; e < rows * width; e += kThreads) {
     // As in gram_bwd_cols: loads in batches, adds in chunk order, from L2.
-    float v = 0.f;
+    T v = T(0);
     for (int q0 = 0; q0 < n_chunks; q0 += kSumBatch) {
-      float batch[kSumBatch];
+      T batch[kSumBatch];
 #pragma unroll
       for (int u = 0; u < kSumBatch; ++u) {
-        batch[u] = q0 + u < n_chunks ? __ldcg(parts + (q0 + u) * chunk_stride + e) : 0.f;
+        batch[u] = q0 + u < n_chunks ? __ldcg(parts + (q0 + u) * chunk_stride + e) : T(0);
       }
 #pragma unroll
       for (int u = 0; u < kSumBatch; ++u) {
@@ -676,7 +798,7 @@ gram_bwd_rows_kernel(const float* __restrict__ xs, const float* __restrict__ xps
 // which only starts when every block has written its own; a block that walks
 // several stages takes ~2 us a stage, one cp.async round trip each.
 
-// Shared memory of gram_bwd_cols, in floats: the block's xps rows, then either
+// Shared memory of gram_bwd_cols, in elements: the block's xps rows, then either
 // two stages (g tile and xs rows each) or, after the row loop, the 8 warps'
 // partials with an odd row pitch (bank-conflict free stores).
 __host__ __device__ constexpr int bwd_cols_smem_floats(int d) {
@@ -686,14 +808,16 @@ __host__ __device__ constexpr int bwd_cols_smem_floats(int d) {
 }
 
 // minBlocksPerSM = 1: without it ptxas aims at 64 registers and spills at
-// d <= 8; the grids here put one or two blocks on an SM.
-template <int DMAX, bool kBatched>
+// d <= 8; the grids here put one or two blocks on an SM. In fp64 DMAX goes
+// to 32 (xj and acc: 2 * 32 doubles a thread).
+template <typename T, int DMAX, bool kBatched>
 __global__ void __launch_bounds__(kThreads, 1)
-gram_bwd_cols_kernel(const float* __restrict__ xs, const float* __restrict__ xps,
-                     const float* __restrict__ sig, const float* __restrict__ g,
-                     float* __restrict__ d_xps, float* __restrict__ scratch,
+gram_bwd_cols_kernel(const T* __restrict__ xs, const T* __restrict__ xps,
+                     const T* __restrict__ sig, const T* __restrict__ g,
+                     T* __restrict__ d_xps, T* __restrict__ scratch,
                      int* __restrict__ ticket, int n, int m, int d, int chunk_rows, Batch bs) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
   __shared__ int is_last;
   if constexpr (kBatched) {
     const long long b = blockIdx.z;
@@ -714,10 +838,10 @@ gram_bwd_cols_kernel(const float* __restrict__ xs, const float* __restrict__ xps
   const int row_end = min(n, row0 + chunk_rows);
   const int stages = (max(row_end - row0, 0) + kColsStageRows - 1) / kColsStageRows;
 
-  float* xps_s = smem;                                  // [w][d]
-  float* g_s = smem + kColsTile * d;                    // 2 x [kColsStageRows][kColsTile]
-  float* xs_s = g_s + 2 * kColsStageRows * kColsTile;   // 2 x [kColsStageRows][d]
-  float* part_s = g_s;                                  // [8][kColsTile][d | 1], after the loop
+  T* xps_s = smem;                                  // [w][d]
+  T* g_s = smem + kColsTile * d;                    // 2 x [kColsStageRows][kColsTile]
+  T* xs_s = g_s + 2 * kColsStageRows * kColsTile;   // 2 x [kColsStageRows][d]
+  T* part_s = g_s;                                  // [8][kColsTile][d | 1], after the loop
 
   const auto load_stage = [&](int st) {
     const int i0 = row0 + st * kColsStageRows;
@@ -731,11 +855,11 @@ gram_bwd_cols_kernel(const float* __restrict__ xs, const float* __restrict__ xps
   cp_async_commit();
 
   const bool has_col = lane < w;
-  const float s = *sig;
-  float xj[DMAX];
-  float acc[DMAX];
+  const T s = *sig;
+  T xj[DMAX];
+  T acc[DMAX];
 #pragma unroll
-  for (int k = 0; k < DMAX; ++k) acc[k] = 0.f;
+  for (int k = 0; k < DMAX; ++k) acc[k] = T(0);
   for (int st = 0; st < stages; ++st) {
     if (st + 1 < stages) {
       load_stage(st + 1);
@@ -747,26 +871,26 @@ gram_bwd_cols_kernel(const float* __restrict__ xs, const float* __restrict__ xps
     __syncthreads();
     if (st == 0) {
 #pragma unroll
-      for (int k = 0; k < DMAX; ++k) xj[k] = (has_col && k < d) ? xps_s[lane * d + k] : 0.f;
+      for (int k = 0; k < DMAX; ++k) xj[k] = (has_col && k < d) ? xps_s[lane * d + k] : T(0);
     }
-    const float* gb = g_s + (st & 1) * kColsStageRows * kColsTile;
-    const float* xb = xs_s + (st & 1) * kColsStageRows * d;
+    const T* gb = g_s + (st & 1) * kColsStageRows * kColsTile;
+    const T* xb = xs_s + (st & 1) * kColsStageRows * d;
     const int rows = min(kColsStageRows, row_end - (row0 + st * kColsStageRows));
     if (has_col) {
       for (int r = warp; r < rows; r += kWarpsPerBlock) {
-        const float* xi = xb + r * d;  // one address for the whole warp: a broadcast
-        float d2 = 0.f;
+        const T* xi = xb + r * d;  // one address for the whole warp: a broadcast
+        T d2 = T(0);
 #pragma unroll
         for (int k = 0; k < DMAX; ++k) {
           if (k < d) {
-            const float t = xi[k] - xj[k];  // same operand order as the forward
-            d2 = fmaf(t, t, d2);
+            const T t = xi[k] - xj[k];  // same operand order as the forward
+            d2 = fma_t(t, t, d2);
           }
         }
-        const float wv = gb[r * kColsTile + lane] * (s * expf(-0.5f * d2));
+        const T wv = gb[r * kColsTile + lane] * (s * exp_t(T(-0.5) * d2));
 #pragma unroll
         for (int k = 0; k < DMAX; ++k) {
-          if (k < d) acc[k] = fmaf(wv, xi[k] - xj[k], acc[k]);
+          if (k < d) acc[k] = fma_t(wv, xi[k] - xj[k], acc[k]);
         }
       }
     }
@@ -785,11 +909,11 @@ gram_bwd_cols_kernel(const float* __restrict__ xs, const float* __restrict__ xps
   }
   __syncthreads();
   const bool one_chunk = gridDim.y == 1;
-  float* out = one_chunk ? d_xps + (size_t)j0 * d : scratch + ((size_t)chunk * m + j0) * d;
+  T* out = one_chunk ? d_xps + (size_t)j0 * d : scratch + ((size_t)chunk * m + j0) * d;
   for (int e = threadIdx.x; e < w * d; e += kThreads) {
     const int j = e / d;
     const int k = e - j * d;
-    float p = part_s[j * pitch + k];
+    T p = part_s[j * pitch + k];
 #pragma unroll
     for (int q = 1; q < kWarpsPerBlock; ++q) p += part_s[(q * kColsTile + j) * pitch + k];
     out[e] = p;
@@ -806,19 +930,19 @@ gram_bwd_cols_kernel(const float* __restrict__ xs, const float* __restrict__ xps
   __syncthreads();
   if (!is_last) return;
   __threadfence();
-  const float* parts = scratch + (size_t)j0 * d;
+  const T* parts = scratch + (size_t)j0 * d;
   const size_t chunk_stride = (size_t)m * d;
   const int n_chunks = gridDim.y;
   for (int e = threadIdx.x; e < w * d; e += kThreads) {
     // Loads in batches of kSumBatch, all in flight before the first add (an
     // add per load would wait out one L2 latency per chunk); the adds stay in
     // chunk order. __ldcg reads L2, not a possibly stale L1 line.
-    float v = 0.f;
+    T v = T(0);
     for (int q0 = 0; q0 < n_chunks; q0 += kSumBatch) {
-      float batch[kSumBatch];
+      T batch[kSumBatch];
 #pragma unroll
       for (int u = 0; u < kSumBatch; ++u) {
-        batch[u] = q0 + u < n_chunks ? __ldcg(parts + (q0 + u) * chunk_stride + e) : 0.f;
+        batch[u] = q0 + u < n_chunks ? __ldcg(parts + (q0 + u) * chunk_stride + e) : T(0);
       }
 #pragma unroll
       for (int u = 0; u < kSumBatch; ++u) {
@@ -829,6 +953,152 @@ gram_bwd_cols_kernel(const float* __restrict__ xs, const float* __restrict__ xps
   }
 }
 
+// ---- the d-chunked backward --------------------------------------------------
+//
+// gram_bwd_rows and gram_bwd_cols past the unchunked kernels' widest d
+// (Elem<T>::kMaxDT: 64 floats, 32 doubles), in fp32 and fp64: the same sums,
+// d_xs_i = sum_j W_ij (xps_j - xs_i) with rowsum_i = sum_j W_ij, and d_xps_j =
+// sum_i W_ij (xs_i - xps_j), W = g * K recomputed.
+//
+// A simple kernel, right first: a group of `group` threads (a power of two,
+// 32 to 256: the walked side's length rounded up, at most the block) owns one
+// row (kCols false) or one column (kCols true) and walks the other side with
+// a stride of the group. For each chunk of Elem<T>::kDChunk features it
+// forms every W_ij from the whole distance (summed over all d in ascending k,
+// xs - xps, as the forward does, read through L1 from device memory) and
+// adds W_ij times the chunk's differences to kDChunk sums in registers; the
+// group then reduces them in a fixed order (a butterfly in each warp, the
+// warps in order through shared memory) and writes the chunk of d_xs or
+// d_xps, and with the first chunk the rowsum. So the distance is recomputed
+// once a chunk, no float is added atomically, a call is one launch and
+// bitwise the same from run to run. Nothing is staged: what bounds it is the
+// d loads of every (i, j) pair from L1 and, at tall-skinny column calls, a
+// grid of one block a few columns (ROADMAP: a staged, chunked design).
+template <typename T, bool kCols, bool kBatched>
+__device__ __forceinline__ void bwd_dchunk_body(const T* __restrict__ xs,
+                                                const T* __restrict__ xps,
+                                                const T* __restrict__ sig,
+                                                const T* __restrict__ g, T* __restrict__ out,
+                                                T* __restrict__ rowsum, int n, int m, int d,
+                                                int group, const Batch& bs) {
+  constexpr int DC = Elem<T>::kDChunk;
+  __shared__ T part_s[kWarpsPerBlock][DC + 1];
+  if constexpr (kBatched) {
+    const long long b = blockIdx.z;
+    xs += b * bs.xs;
+    xps += b * bs.xps;
+    sig += b * bs.sig;
+    g += b * bs.g;
+    out += b * bs.out0;
+    if constexpr (!kCols) rowsum += b * bs.out1;
+  }
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int own = blockIdx.x * (kThreads / group) + threadIdx.x / group;
+  const int t = threadIdx.x & (group - 1);
+  const int n_own = kCols ? m : n;
+  const int n_walk = kCols ? n : m;
+  const bool ok = own < n_own;
+  const T* xo = (kCols ? xps : xs) + (size_t)(ok ? own : 0) * d;  // the owned input row
+  const T* xw = kCols ? xs : xps;                                  // the walked rows
+  const T s = *sig;
+  const int warp0 = (threadIdx.x / group) * (group >> 5);  // the group's first warp
+  for (int k0 = 0; k0 < d; k0 += DC) {
+    const int kw = min(DC, d - k0);
+    T acc[DC];
+    T rs = T(0);
+#pragma unroll
+    for (int k = 0; k < DC; ++k) acc[k] = T(0);
+    if (ok) {
+      for (int j = t; j < n_walk; j += group) {
+        const T* xj = xw + (size_t)j * d;
+        T d2 = T(0);
+        for (int k = 0; k < d; ++k) {
+          const T u = kCols ? xj[k] - xo[k] : xo[k] - xj[k];  // xs - xps, as the forward
+          d2 = fma_t(u, u, d2);
+        }
+        const T gv = kCols ? g[(size_t)j * m + own] : g[(size_t)own * m + j];
+        const T wv = gv * (s * exp_t(T(-0.5) * d2));
+        rs += wv;
+#pragma unroll
+        for (int k = 0; k < DC; ++k) {
+          if (k < kw) acc[k] = fma_t(wv, xj[k0 + k] - xo[k0 + k], acc[k]);
+        }
+      }
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      rs += __shfl_xor_sync(kFullMask, rs, off);
+#pragma unroll
+      for (int k = 0; k < DC; ++k) {
+        if (k < kw) acc[k] += __shfl_xor_sync(kFullMask, acc[k], off);
+      }
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int k = 0; k < DC; ++k) {
+        if (k < kw) part_s[warp][k] = acc[k];
+      }
+      part_s[warp][DC] = rs;
+    }
+    __syncthreads();
+    if (ok) {
+      for (int e = t; e <= kw; e += group) {
+        const int slot = e < kw ? e : DC;
+        T v = part_s[warp0][slot];
+        for (int q = 1; q < (group >> 5); ++q) v += part_s[warp0 + q][slot];
+        if (e < kw) out[(size_t)own * d + k0 + e] = v;
+        else if (!kCols && k0 == 0) rowsum[own] = v;
+      }
+    }
+    __syncthreads();  // the next chunk rewrites part_s
+  }
+}
+
+template <typename T, bool kBatched>
+__global__ void __launch_bounds__(kThreads)
+gram_bwd_rows_kernel_dchunk(const T* __restrict__ xs, const T* __restrict__ xps,
+                            const T* __restrict__ sig, const T* __restrict__ g,
+                            T* __restrict__ d_xs, T* __restrict__ rowsum, int n, int m, int d,
+                            int group, Batch bs) {
+  bwd_dchunk_body<T, false, kBatched>(xs, xps, sig, g, d_xs, rowsum, n, m, d, group, bs);
+}
+
+template <typename T, bool kBatched>
+__global__ void __launch_bounds__(kThreads)
+gram_bwd_cols_kernel_dchunk(const T* __restrict__ xs, const T* __restrict__ xps,
+                            const T* __restrict__ sig, const T* __restrict__ g,
+                            T* __restrict__ d_xps, int n, int m, int d, int group, Batch bs) {
+  bwd_dchunk_body<T, true, kBatched>(xs, xps, sig, g, d_xps, nullptr, n, m, d, group, bs);
+}
+
+// The chunked kernels' group: the walked side's length rounded up to a power
+// of two, from 32 to kThreads.
+int dchunk_group(int walked) {
+  int gsize = 32;
+  while (gsize < kThreads && gsize < walked) gsize *= 2;
+  return gsize;
+}
+
+template <typename T>
+cudaError_t launch_bwd_dchunk(bool cols, const T* xs, const T* xps, const T* sig, const T* g,
+                              T* out, T* rowsum, int n, int m, int d, int batch,
+                              const Batch& bs, cudaStream_t stream) {
+  const int group = dchunk_group(cols ? n : m);
+  const int owned = cols ? m : n;
+  const int per_block = kThreads / group;
+  const dim3 grid((owned + per_block - 1) / per_block, 1, batch);
+  if (cols) {
+    const auto kernel = batch > 1 ? gram_bwd_cols_kernel_dchunk<T, true>
+                                  : gram_bwd_cols_kernel_dchunk<T, false>;
+    kernel<<<grid, kThreads, 0, stream>>>(xs, xps, sig, g, out, n, m, d, group, bs);
+  } else {
+    const auto kernel = batch > 1 ? gram_bwd_rows_kernel_dchunk<T, true>
+                                  : gram_bwd_rows_kernel_dchunk<T, false>;
+    kernel<<<grid, kThreads, 0, stream>>>(xs, xps, sig, g, out, rowsum, n, m, d, group, bs);
+  }
+  return cudaGetLastError();
+}
+
 // Dynamic shared memory above 48 KB is only granted when asked for.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
@@ -837,15 +1107,21 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <int RT, typename OutT>
-cudaError_t launch_fwd(const float* xs, const float* xps, const float* sig, const float* diag,
+// gram_fwd with its element type T deduced from the pointers; d past
+// Elem<T>::kDChunk takes the chunked instantiation, whose stages hold one chunk.
+template <int RT, typename OutT, typename T>
+cudaError_t launch_fwd(const T* xs, const T* xps, const T* sig, const T* diag,
                        void* out, int n, int m, int d, int col_threads, int batch,
                        const Batch& bs, cudaStream_t stream) {
   const int rows_tile = kThreads / col_threads * RT;
   const int col_tile = kFwdColsPerThread * col_threads;
-  const size_t smem = fwd_smem_floats(rows_tile, col_tile, d) * sizeof(float);
-  const auto kernel = batch > 1 ? gram_fwd_kernel<RT, OutT, true>
-                                : gram_fwd_kernel<RT, OutT, false>;
+  const bool chunk = d > Elem<T>::kDChunk;
+  const size_t smem =
+      fwd_smem_floats(rows_tile, col_tile, chunk ? Elem<T>::kDChunk : d) * sizeof(T);
+  const auto kernel = chunk ? (batch > 1 ? gram_fwd_kernel<T, RT, OutT, true, true>
+                                         : gram_fwd_kernel<T, RT, OutT, false, true>)
+                            : (batch > 1 ? gram_fwd_kernel<T, RT, OutT, true, false>
+                                         : gram_fwd_kernel<T, RT, OutT, false, false>);
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((m + col_tile - 1) / col_tile, (n + rows_tile - 1) / rows_tile, batch);
@@ -854,9 +1130,9 @@ cudaError_t launch_fwd(const float* xs, const float* xps, const float* sig, cons
   return cudaGetLastError();
 }
 
-template <typename OutT>
-cudaError_t launch_fwd_rt(int rows_per_thread, const float* xs, const float* xps,
-                          const float* sig, const float* diag, void* out, int n, int m, int d,
+template <typename OutT, typename T>
+cudaError_t launch_fwd_rt(int rows_per_thread, const T* xs, const T* xps,
+                          const T* sig, const T* diag, void* out, int n, int m, int d,
                           int col_threads, int batch, const Batch& bs, cudaStream_t stream) {
   switch (rows_per_thread) {
     case 1: return launch_fwd<1, OutT>(xs, xps, sig, diag, out, n, m, d, col_threads, batch, bs,
@@ -871,18 +1147,19 @@ cudaError_t launch_fwd_rt(int rows_per_thread, const float* xs, const float* xps
   }
 }
 
-template <int DMAX>
-cudaError_t launch_bwd_rows(const float* xs, const float* xps, const float* sig, const float* g,
-                            float* d_xs, float* rowsum, float* scratch, int* ticket, int n, int m,
+template <typename T, int DMAX>
+cudaError_t launch_bwd_rows(const T* xs, const T* xps, const T* sig, const T* g,
+                            T* d_xs, T* rowsum, T* scratch, int* ticket, int n, int m,
                             int d, int lanes_per_row, int slices, int stage_cols, int chunk_cols,
                             int n_chunks, int batch, const Batch& bs, cudaStream_t stream) {
+  constexpr int V = Elem<T>::kVec;
   const int rows_tile = kThreads / (lanes_per_row * slices);
   // As the kernel decides it.
-  const bool vec = (d & 3) == 0 && aligned16(xps) && (batch == 1 || (bs.xps & 3) == 0);
-  const size_t smem = rows_smem(d, rows_tile, lanes_per_row, slices, stage_cols,
-                                chunk_cols > stage_cols ? 2 : 1, vec).total * sizeof(float);
-  const auto kernel = batch > 1 ? gram_bwd_rows_kernel<DMAX, true>
-                                : gram_bwd_rows_kernel<DMAX, false>;
+  const bool vec = (d & (V - 1)) == 0 && aligned16(xps) && (batch == 1 || (bs.xps & (V - 1)) == 0);
+  const size_t smem = rows_smem<T>(d, rows_tile, lanes_per_row, slices, stage_cols,
+                                   chunk_cols > stage_cols ? 2 : 1, vec).total * sizeof(T);
+  const auto kernel = batch > 1 ? gram_bwd_rows_kernel<T, DMAX, true>
+                                : gram_bwd_rows_kernel<T, DMAX, false>;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((n + rows_tile - 1) / rows_tile, n_chunks, batch);
@@ -891,27 +1168,87 @@ cudaError_t launch_bwd_rows(const float* xs, const float* xps, const float* sig,
   return cudaGetLastError();
 }
 
-template <int DMAX>
-cudaError_t launch_bwd_cols(const float* xs, const float* xps, const float* sig, const float* g,
-                            float* d_xps, float* scratch, int* ticket, int n, int m, int d,
+template <typename T, int DMAX>
+cudaError_t launch_bwd_cols(const T* xs, const T* xps, const T* sig, const T* g,
+                            T* d_xps, T* scratch, int* ticket, int n, int m, int d,
                             int chunk_rows, int n_chunks, int batch, const Batch& bs,
                             cudaStream_t stream) {
-  const auto kernel = batch > 1 ? gram_bwd_cols_kernel<DMAX, true>
-                                : gram_bwd_cols_kernel<DMAX, false>;
-  const cudaError_t err = allow_smem(kernel, bwd_cols_smem_floats(DMAX) * sizeof(float));
+  const auto kernel = batch > 1 ? gram_bwd_cols_kernel<T, DMAX, true>
+                                : gram_bwd_cols_kernel<T, DMAX, false>;
+  const cudaError_t err = allow_smem(kernel, bwd_cols_smem_floats(DMAX) * sizeof(T));
   if (err != cudaSuccess) return err;
   const dim3 grid((m + kColsTile - 1) / kColsTile, n_chunks, batch);
-  const size_t smem = bwd_cols_smem_floats(d) * sizeof(float);
+  const size_t smem = bwd_cols_smem_floats(d) * sizeof(T);
   kernel<<<grid, kThreads, smem, stream>>>(xs, xps, sig, g, d_xps, scratch, ticket, n, m, d,
                                            chunk_rows, bs);
   return cudaGetLastError();
 }
 
-bool bad_shape(int n, int m, int d) { return n < 0 || m < 0 || d < 1 || d > kMaxD; }
+bool bad_shape(int n, int m, int d) { return n < 0 || m < 0 || d < 1; }
 
 bool bad_batch(int batch, const Batch& bs) {
   return batch < 0 || batch > 65535 || bs.xs < 0 || bs.xps < 0 || bs.sig < 0 || bs.g < 0 ||
          bs.out0 < 0 || bs.out1 < 0;
+}
+
+bool bad_col_threads(int col_threads) {
+  return col_threads != 8 && col_threads != 16 && col_threads != 32 && col_threads != 64;
+}
+
+template <typename T>
+int bwd_rows_entry(const T* xs, const T* xps, const T* sig, const T* g, T* d_xs, T* rowsum,
+                   T* scratch, int* ticket, int n, int m, int d, int lanes_per_row, int slices,
+                   int stage_cols, int chunk_cols, int batch, const Batch& bs, void* stream) {
+  const bool pow2 = lanes_per_row > 0 && (lanes_per_row & (lanes_per_row - 1)) == 0 &&
+                    slices > 0 && (slices & (slices - 1)) == 0;
+  if (bad_shape(n, m, d) || bad_batch(batch, bs) || !pow2 ||
+      lanes_per_row > 32 || slices > kWarpsPerBlock || stage_cols < 1 ||
+      chunk_cols < stage_cols || chunk_cols % stage_cols != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0 || batch == 0) return static_cast<int>(cudaSuccess);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d > Elem<T>::kMaxDT)
+    return static_cast<int>(launch_bwd_dchunk<T>(false, xs, xps, sig, g, d_xs, rowsum, n, m, d,
+                                                 batch, bs, st));
+  const int n_chunks = m > 0 ? (m - 1) / chunk_cols + 1 : 1;
+  if (n_chunks > 65535 || (n_chunks > 1 && (scratch == nullptr || ticket == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // The DMAX buckets: 8, 16, 32 and (fp32) kMaxD; fp64 has no kMaxD build.
+  auto launch = launch_bwd_rows<T, 8>;
+  if (d > 8) launch = launch_bwd_rows<T, 16>;
+  if (d > 16) launch = launch_bwd_rows<T, 32>;
+  if constexpr (Elem<T>::kMaxDT == kMaxD) {
+    if (d > 32) launch = launch_bwd_rows<T, kMaxD>;
+  }
+  return static_cast<int>(launch(xs, xps, sig, g, d_xs, rowsum, scratch, ticket, n, m, d,
+                                 lanes_per_row, slices, stage_cols, chunk_cols, n_chunks, batch,
+                                 bs, st));
+}
+
+template <typename T>
+int bwd_cols_entry(const T* xs, const T* xps, const T* sig, const T* g, T* d_xps, T* scratch,
+                   int* ticket, int n, int m, int d, int chunk_rows, int batch, const Batch& bs,
+                   void* stream) {
+  if (bad_shape(n, m, d) || bad_batch(batch, bs) || chunk_rows < 1 ||
+      chunk_rows % kColsStageRows != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (m == 0 || batch == 0) return static_cast<int>(cudaSuccess);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d > Elem<T>::kMaxDT)
+    return static_cast<int>(launch_bwd_dchunk<T>(true, xs, xps, sig, g, d_xps, nullptr, n, m, d,
+                                                 batch, bs, st));
+  const int n_chunks = n > 0 ? (n - 1) / chunk_rows + 1 : 1;
+  if (n_chunks > 65535 || (n_chunks > 1 && (scratch == nullptr || ticket == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // The DMAX buckets: 8, 16, 32 and (fp32) kMaxD; fp64 has no kMaxD build.
+  auto launch = launch_bwd_cols<T, 8>;
+  if (d > 8) launch = launch_bwd_cols<T, 16>;
+  if (d > 16) launch = launch_bwd_cols<T, 32>;
+  if constexpr (Elem<T>::kMaxDT == kMaxD) {
+    if (d > 32) launch = launch_bwd_cols<T, kMaxD>;
+  }
+  return static_cast<int>(launch(xs, xps, sig, g, d_xps, scratch, ticket, n, m, d, chunk_rows,
+                                 n_chunks, batch, bs, st));
 }
 
 }  // namespace
@@ -926,14 +1263,13 @@ extern "C" {
 // a 2-byte output (the float instantiation carries no diagonal code, so an
 // fp32 K adds its diagonal after the launch). col_threads (8, 16, 32 or 64)
 // and rows_per_thread (1, 2, 4 or 8) are the plan's
-// (ops/gram_cuda.py::fwd_plan).
+// (ops/gram_cuda.py::fwd_plan). Any d >= 1: past 64 the chunked build.
 int gram_fwd(const float* xs, const float* xps, const float* sig, const float* diag, void* out,
              int n, int m, int d, int col_threads, int rows_per_thread, int out_type, int batch,
              long long xs_bs, long long xps_bs, long long sig_bs, long long out_bs,
              void* stream) {
   const Batch bs{xs_bs, xps_bs, sig_bs, 0, out_bs, 0};
-  if (bad_shape(n, m, d) || bad_batch(batch, bs) ||
-      (col_threads != 8 && col_threads != 16 && col_threads != 32 && col_threads != 64))
+  if (bad_shape(n, m, d) || bad_batch(batch, bs) || bad_col_threads(col_threads))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0 || m == 0 || batch == 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -954,6 +1290,22 @@ int gram_fwd(const float* xs, const float* xps, const float* sig, const float* d
   }
 }
 
+// gram_fwd on fp64 inputs: K in fp64 (out_type 0, the only one; no diag).
+// Past 32 features the chunked build.
+int gram_fwd_f64(const double* xs, const double* xps, const double* sig, const double* diag,
+                 void* out, int n, int m, int d, int col_threads, int rows_per_thread,
+                 int out_type, int batch, long long xs_bs, long long xps_bs, long long sig_bs,
+                 long long out_bs, void* stream) {
+  const Batch bs{xs_bs, xps_bs, sig_bs, 0, out_bs, 0};
+  if (bad_shape(n, m, d) || bad_batch(batch, bs) || bad_col_threads(col_threads) ||
+      out_type != 0 || diag != nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0 || m == 0 || batch == 0) return static_cast<int>(cudaSuccess);
+  return static_cast<int>(launch_fwd_rt<double>(rows_per_thread, xs, xps, sig, diag, out, n, m,
+                                                d, col_threads, batch, bs,
+                                                static_cast<cudaStream_t>(stream)));
+}
+
 // d_xs[n, d] = sum_j W_ij (xps_j - xs_i), rowsum[n] = sum_j W_ij, W = g * K,
 // g [n, m] the cotangent of K, in one launch. lanes_per_row (1, 2, ..., 32),
 // slices (1, 2, 4, 8), stage_cols (the columns a shared-memory stage holds)
@@ -962,30 +1314,27 @@ int gram_fwd(const float* xs, const float* xps, const float* sig, const float* d
 // chunk, scratch holds [batch, ceil(m / chunk_cols), n, d + 1] floats and
 // ticket one int per (batch, row tile), 0 at the launch and 0 again after it;
 // calls that share a ticket array must be ordered (one stream). The batch
-// strides of xs, xps, sig, g, d_xs and rowsum as in gram_fwd.
+// strides of xs, xps, sig, g, d_xs and rowsum as in gram_fwd. Past d = 64
+// the chunked kernel, which takes no plan, scratch or ticket.
 int gram_bwd_rows(const float* xs, const float* xps, const float* sig, const float* g,
                   float* d_xs, float* rowsum, float* scratch, int* ticket, int n, int m, int d,
                   int lanes_per_row, int slices, int stage_cols, int chunk_cols, int batch,
                   long long xs_bs, long long xps_bs, long long sig_bs, long long g_bs,
                   long long d_xs_bs, long long rowsum_bs, void* stream) {
   const Batch bs{xs_bs, xps_bs, sig_bs, g_bs, d_xs_bs, rowsum_bs};
-  const bool pow2 = lanes_per_row > 0 && (lanes_per_row & (lanes_per_row - 1)) == 0 &&
-                    slices > 0 && (slices & (slices - 1)) == 0;
-  if (bad_shape(n, m, d) || bad_batch(batch, bs) || !pow2 ||
-      lanes_per_row > 32 || slices > kWarpsPerBlock || stage_cols < 1 ||
-      chunk_cols < stage_cols || chunk_cols % stage_cols != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0 || batch == 0) return static_cast<int>(cudaSuccess);
-  const int n_chunks = m > 0 ? (m - 1) / chunk_cols + 1 : 1;
-  if (n_chunks > 65535 || (n_chunks > 1 && (scratch == nullptr || ticket == nullptr)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const auto launch = d <= 8 ? launch_bwd_rows<8>
-                      : d <= 16 ? launch_bwd_rows<16>
-                      : d <= 32 ? launch_bwd_rows<32>
-                      : launch_bwd_rows<64>;
-  return static_cast<int>(launch(xs, xps, sig, g, d_xs, rowsum, scratch, ticket, n, m, d,
-                                 lanes_per_row, slices, stage_cols, chunk_cols, n_chunks, batch,
-                                 bs, static_cast<cudaStream_t>(stream)));
+  return bwd_rows_entry<float>(xs, xps, sig, g, d_xs, rowsum, scratch, ticket, n, m, d,
+                               lanes_per_row, slices, stage_cols, chunk_cols, batch, bs, stream);
+}
+
+// gram_bwd_rows on fp64 arrays (scratch fp64 too); past d = 32 the chunked kernel.
+int gram_bwd_rows_f64(const double* xs, const double* xps, const double* sig, const double* g,
+                      double* d_xs, double* rowsum, double* scratch, int* ticket, int n, int m,
+                      int d, int lanes_per_row, int slices, int stage_cols, int chunk_cols,
+                      int batch, long long xs_bs, long long xps_bs, long long sig_bs,
+                      long long g_bs, long long d_xs_bs, long long rowsum_bs, void* stream) {
+  const Batch bs{xs_bs, xps_bs, sig_bs, g_bs, d_xs_bs, rowsum_bs};
+  return bwd_rows_entry<double>(xs, xps, sig, g, d_xs, rowsum, scratch, ticket, n, m, d,
+                                lanes_per_row, slices, stage_cols, chunk_cols, batch, bs, stream);
 }
 
 // d_xps[m, d] = sum_i W_ij (xs_i - xps_j), W = g * K, in one launch.
@@ -993,25 +1342,25 @@ int gram_bwd_rows(const float* xs, const float* xps, const float* sig, const flo
 // than one chunk, scratch holds [batch, ceil(n / chunk_rows), m, d] floats and
 // ticket batch * ceil(m / 32) ints that are 0 at the launch and are 0 again
 // after it; calls that share a ticket array must be ordered (one stream). The
-// batch strides of xs, xps, sig, g and d_xps as in gram_fwd.
+// batch strides of xs, xps, sig, g and d_xps as in gram_fwd. Past d = 64 the
+// chunked kernel, which takes no plan, scratch or ticket.
 int gram_bwd_cols(const float* xs, const float* xps, const float* sig, const float* g,
                   float* d_xps, float* scratch, int* ticket, int n, int m, int d,
                   int chunk_rows, int batch, long long xs_bs, long long xps_bs,
                   long long sig_bs, long long g_bs, long long d_xps_bs, void* stream) {
   const Batch bs{xs_bs, xps_bs, sig_bs, g_bs, d_xps_bs, 0};
-  if (bad_shape(n, m, d) || bad_batch(batch, bs) || chunk_rows < 1 ||
-      chunk_rows % kColsStageRows != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (m == 0 || batch == 0) return static_cast<int>(cudaSuccess);
-  const int n_chunks = n > 0 ? (n - 1) / chunk_rows + 1 : 1;
-  if (n_chunks > 65535 || (n_chunks > 1 && (scratch == nullptr || ticket == nullptr)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const auto launch = d <= 8 ? launch_bwd_cols<8>
-                      : d <= 16 ? launch_bwd_cols<16>
-                      : d <= 32 ? launch_bwd_cols<32>
-                      : launch_bwd_cols<64>;
-  return static_cast<int>(launch(xs, xps, sig, g, d_xps, scratch, ticket, n, m, d, chunk_rows,
-                                 n_chunks, batch, bs, static_cast<cudaStream_t>(stream)));
+  return bwd_cols_entry<float>(xs, xps, sig, g, d_xps, scratch, ticket, n, m, d, chunk_rows,
+                               batch, bs, stream);
+}
+
+// gram_bwd_cols on fp64 arrays (scratch fp64 too); past d = 32 the chunked kernel.
+int gram_bwd_cols_f64(const double* xs, const double* xps, const double* sig, const double* g,
+                      double* d_xps, double* scratch, int* ticket, int n, int m, int d,
+                      int chunk_rows, int batch, long long xs_bs, long long xps_bs,
+                      long long sig_bs, long long g_bs, long long d_xps_bs, void* stream) {
+  const Batch bs{xs_bs, xps_bs, sig_bs, g_bs, d_xps_bs, 0};
+  return bwd_cols_entry<double>(xs, xps, sig, g, d_xps, scratch, ticket, n, m, d, chunk_rows,
+                                batch, bs, stream);
 }
 
 }  // extern "C"

@@ -23,6 +23,13 @@ generator on the device. Prints one JSON line on a CUDA card:
 - the card's ``nvidia-smi`` name and power limit.
 
 The step runs under ``--matmul`` (:mod:`gpscore_torch.utils.precision`).
+``--ref-grad`` re-runs the warm-up step (its parameters, its es normals)
+under "highest" and adds its accuracy against that run
+(`experiments/bench_ceiling.py:153-165`): ``value_rel_err``, the relative
+error of the value; ``grad_max_rel``, the largest gradient error relative to
+the largest reference gradient entry, over all leaves flattened together;
+``grad_cos``, the cosine of the two flattened gradients. Under "highest"
+itself they read 0, 0 and 1.
 
 With ``--device cpu`` the device fields are null.
 
@@ -156,6 +163,17 @@ def measure_step(loss, params, x, y, **kw):
             "idle_share": 1.0 - busy / wall}
 
 
+def ref_accuracy(value, grads, ref_value, ref_grads) -> dict:
+    """``value_rel_err``, ``grad_max_rel`` and ``grad_cos`` of (value,
+    grads) against the reference step's, the gradients' leaves flattened
+    and concatenated in one order."""
+    ga = torch.cat([grads[f].double().reshape(-1) for f in ref_grads])
+    gb = torch.cat([ref_grads[f].double().reshape(-1) for f in ref_grads])
+    return {"value_rel_err": abs(float(value) - float(ref_value)) / abs(float(ref_value)),
+            "grad_max_rel": float((ga - gb).abs().max() / gb.abs().max()),
+            "grad_cos": float(ga @ gb / (ga.norm() * gb.norm()))}
+
+
 def _params(i: int, d: int, device) -> GPParams:
     """The i-th parameter point of a timed run: a new one each step."""
     return GPParams(torch.tensor(0.001 * i, device=device),
@@ -245,6 +263,8 @@ def main(argv=None):
     ap.add_argument("--ceiling", type=int, nargs=2, default=None, metavar=("FROM", "STEP"),
                     help="one step at n = FROM, FROM + STEP, ... until the card runs out of "
                          "memory instead")
+    ap.add_argument("--ref-grad", action="store_true",
+                    help="hold the step's value and gradient to the same step under 'highest'")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -273,14 +293,22 @@ def _run(args, device):
     x, y = (t.to(device) for t in make_data(args.n, args.d))
     block = args.block or auto_block(args.n, device=device)
     loss = make_objective(args.rule, model="exact", block=block)
-    kw = {"generator": torch.Generator(device=device).manual_seed(0)} if args.rule == "es" else {}
 
+    def es_kw():
+        return ({"generator": torch.Generator(device=device).manual_seed(0)}
+                if args.rule == "es" else {})
+
+    kw = es_kw()
     rec = {"rule": args.rule, "n": args.n, "d": args.d, "block": block, "matmul": args.matmul}
     t0 = time.perf_counter()
-    value, _ = value_and_grad(loss, _params(0, args.d, device), x, y, **kw)
+    value, grads = value_and_grad(loss, _params(0, args.d, device), x, y, **kw)
     synchronize(device)
     rec["warmup_s"] = time.perf_counter() - t0
     rec["loss"] = float(value)
+    if args.ref_grad:
+        with matmul_mode("highest"):
+            v0, g0 = value_and_grad(loss, _params(0, args.d, device), x, y, **es_kw())
+        rec.update(ref_accuracy(value, grads, v0, g0))
     times = []
     for i in range(1, args.repeats + 1):
         t0 = time.perf_counter()

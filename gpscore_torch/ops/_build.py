@@ -45,6 +45,8 @@ SIGNATURES = {
                       _L, _L, _L, _L, _L, _L, _P],
     "gram_bwd_cols": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _P],
 }
+# The fp64 entry points take the same arguments as their fp32 namesakes.
+SIGNATURES.update({f"{name}_f64": args for name, args in list(SIGNATURES.items())})
 
 _loaded = {}  # "lib" -> ctypes.CDLL, "path" -> Path
 

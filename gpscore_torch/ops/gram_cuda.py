@@ -20,6 +20,13 @@ inside the kernels and returns, with W = g * K,
 chained through 1/l into d_x, d_xp and d_log_len by O(nd) tensor code here,
 as `gram_pallas.py:127-132` does.
 
+Element types: float32, or float64 throughout (inputs, K, the cotangent and
+every output; the kernels' fp64 instantiations, through the ``*_f64`` entry
+points). Any d >= 1: past MAX_D features (fp64: MAX_D / 2) a call takes the
+kernels' d-chunked instantiations (csrc/gram.cu), which sum the squared
+distance over every chunk of d before the exp. Nothing casts and nothing
+falls back: a CUDA tensor of another dtype raises.
+
 Dispatch is by device alone: a CPU tensor takes the plain version (the
 cross-term form of `gpscore/ops/kernels.py:28-40,54-64`, so CPU results track
 the JAX package), a CUDA tensor launches the kernel or raises. ``LAUNCHES``
@@ -54,13 +61,17 @@ from gpscore_torch.ops import _build
 # Kernel launches by kernel: a wrapper adds one where it launches, and
 # add_launches adds the replays of a graph that captured such launches.
 LAUNCHES = {"fwd": 0, "bwd_rows": 0, "bwd_cols": 0}
-MAX_D = 64  # the kernels' limit on the input dimension (csrc/gram.cu kMaxD)
+# The widest d of the unchunked fp32 backward (csrc/gram.cu kMaxD), and the
+# d-chunk of the chunked builds: 256 bytes, 64 floats or 32 doubles.
+MAX_D = 64
+DTYPES = (torch.float32, torch.float64)
 THREADS = 256  # threads per block of every kernel (kThreads)
 COLS_TILE = 32  # gram_bwd_cols: columns per block (csrc/gram.cu kColsTile)
 COLS_STAGE_ROWS = 64  # gram_bwd_cols: rows per shared-memory stage (kColsStageRows)
 ROWS_MAX_STEP = 256  # gram_bwd_rows: most columns a block takes per trip (32 lanes x 8 warps)
 ROWS_MIN_STEP = 4  # gram_bwd_rows: fewest columns a block takes per trip, where m allows
 ROWS_STAGE_FLOATS = 8192  # gram_bwd_rows: a shared-memory stage of xps rows and g tile, 32 KB
+# (4096 elements in fp64: the stage's bytes, not its elements, are fixed)
 ROWS_CHUNK_MIN_COLS = 1024  # gram_bwd_rows: fewest columns of a chunk, when there are several
 FWD_COLS_PER_THREAD = 4  # gram_fwd: one float4 of a row per thread (kFwdColsPerThread)
 FWD_COL_THREADS = (8, 16, 32, 64)  # gram_fwd: the column-thread counts it takes
@@ -72,6 +83,15 @@ MAX_BATCH = 65535  # Grams a launch: the grid's z extent (csrc/gram.cu bad_batch
 # cores (the kernels use no tensor cores).
 H100_BYTES_PER_S = 3.35e12
 H100_FP32_FLOP_PER_S = 67e12
+H100_FP64_FLOP_PER_S = 34e12  # fp64 outside the tensor cores (the fp64 builds)
+
+
+def max_unchunked_d(elem: int = 4) -> int:
+    """The widest d of the unchunked backward for ``elem``-byte elements
+    (64 floats, 32 doubles: its registers hold 2 * DMAX elements a thread)
+    and the d-chunk of the chunked builds; gram_fwd's unchunked build takes
+    the same d."""
+    return MAX_D * 4 // elem
 
 
 def reset_launches() -> None:
@@ -96,8 +116,9 @@ class Roofline(NamedTuple):
     bound_by: str  # "bytes" or "operations"
 
 
-def roofline(kernel: str, n: int, m: int, d: int, out_bytes: int = 4,
-             diag: bool = False, batch: int = 1, shared_x: bool = False) -> Roofline:
+def roofline(kernel: str, n: int, m: int, d: int, out_bytes: Optional[int] = None,
+             diag: bool = False, batch: int = 1, shared_x: bool = False,
+             elem: int = 4) -> Roofline:
     """Roofline bound of one call of ``kernel`` ("gram_fwd", "gram_bwd_rows"
     or "gram_bwd_cols") at K of n x m on d inputs, ``batch`` such Grams in
     the call (bytes and FLOPs times ``batch``: every batch reads its own
@@ -111,7 +132,9 @@ def roofline(kernel: str, n: int, m: int, d: int, out_bytes: int = 4,
     (columns). FLOPs per element of K: 3d + 3 for the forward (d differences
     and d FMAs, the scale, the exp and sig), 6d + 6 for either backward half
     (the forward's, W = g * K, the sum of W, d more differences and d more
-    FMAs)."""
+    FMAs). ``elem``: the inputs' element size, 8 for a float64 call, whose
+    FLOPs go at the card's fp64 rate (``out_bytes`` defaults to ``elem``)."""
+    out_bytes = elem if out_bytes is None else out_bytes
     if shared_x and n != m:
         raise ValueError(f"shared_x needs a square K, not {n} x {m}")
     inputs = n * d + (0 if shared_x else m * d) + 1
@@ -125,8 +148,9 @@ def roofline(kernel: str, n: int, m: int, d: int, out_bytes: int = 4,
         floats, flops = inputs + n * m + m * d, (6 * d + 6) * n * m
     else:
         raise ValueError(f"no roofline for kernel {kernel!r}")
-    nbytes, flops = batch * (4 * floats + out), batch * flops
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_FP32_FLOP_PER_S
+    nbytes, flops = batch * (elem * floats + out), batch * flops
+    peak = H100_FP64_FLOP_PER_S if elem == 8 else H100_FP32_FLOP_PER_S
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / peak
     return Roofline(nbytes, flops, max(t_bytes, t_ops) * 1e6,
                     "bytes" if t_bytes >= t_ops else "operations")
 
@@ -141,9 +165,13 @@ class FwdPlan(NamedTuple):
     launches: int  # kernel launches per call
 
 
-def fwd_plan(n: int, m: int, d: int, sms: int, batch: int = 1) -> FwdPlan:
+def fwd_plan(n: int, m: int, d: int, sms: int, batch: int = 1, elem: int = 4) -> FwdPlan:
     """The tiling of ``gram_fwd`` on a card with ``sms`` multiprocessors,
-    for ``batch`` Grams in one launch.
+    for ``batch`` Grams in one launch, of ``elem``-byte elements.
+
+    A block stages (rows_tile + col_tile) x min(d, the d-chunk) elements,
+    at most 288 x 256 bytes = 72 KB in either type, so two blocks fit an SM
+    at every plan and the tiling does not depend on ``elem``.
 
     The narrowest column tile that covers m (at most 256 columns), then the
     most rows per thread that still gives every SM two blocks, counting the
@@ -178,16 +206,18 @@ class BwdRowsPlan(NamedTuple):
     scratch_shape: Optional[Tuple[int, int, int]]
     launches: int  # kernel launches per call
     batch: int = 1  # Grams in the call: tickets and scratch are per batch
+    dchunk: bool = False  # d past max_unchunked_d: the chunked kernel, no plan of its own
 
 
 def _round_up(v: int, k: int) -> int:
     return -(-v // k) * k
 
 
-def bwd_rows_plan(n: int, m: int, d: int, sms: int, batch: int = 1) -> BwdRowsPlan:
+def bwd_rows_plan(n: int, m: int, d: int, sms: int, batch: int = 1,
+                  elem: int = 4) -> BwdRowsPlan:
     """The tiling of ``gram_bwd_rows`` on a card with ``sms`` multiprocessors,
-    for ``batch`` Grams in one launch, whose row tiles count together when
-    they fill the card (at B = 16 and 500 x 20: 8 columns a trip, 16 row
+    for ``batch`` Grams of ``elem``-byte elements in one launch, whose row
+    tiles count together when they fill the card (at B = 16 and 500 x 20: 8 columns a trip, 16 row
     tiles a batch, 256 blocks, one chunk; alone: 32 columns, 63 blocks).
 
     The columns a block takes per trip (lanes_per_row * slices, THREADS /
@@ -204,8 +234,19 @@ def bwd_rows_plan(n: int, m: int, d: int, sms: int, batch: int = 1) -> BwdRowsPl
     SMs idle and each chunk keeps ROWS_CHUNK_MIN_COLS columns, since the
     chunks' sum (scratch, a ticket and a last block) costs about as much as
     a small call; so every call of the main path has one chunk, and one
-    stage."""
-    resident = sms * THREADS * (2 if d <= 16 else 1)
+    stage.
+
+    In fp64 the stage holds ROWS_STAGE_FLOATS * 4 bytes too (half the
+    columns), xps rows sit at an odd number of 16-byte pairs, and every
+    build takes one block an SM. Past ``max_unchunked_d(elem)`` the chunked
+    kernel runs, which sizes its own grid (csrc/gram.cu dchunk_group): the
+    plan is one chunk of one stage, with no scratch (``dchunk``)."""
+    if d > max_unchunked_d(elem):
+        return BwdRowsPlan(lanes_per_row=1, slices=1, stage_cols=32,
+                           chunk_cols=_round_up(max(m, 1), 32), n_chunks=1, row_tiles=0,
+                           scratch_shape=None, launches=int(n > 0 and batch > 0), batch=batch,
+                           dchunk=True)
+    resident = sms * THREADS * (2 if d <= 16 and elem == 4 else 1)
     step = min(ROWS_MAX_STEP, 1 << max(m - 1, 0).bit_length())
     while step > ROWS_MIN_STEP and batch * n * step > resident:
         step //= 2
@@ -216,8 +257,10 @@ def bwd_rows_plan(n: int, m: int, d: int, sms: int, batch: int = 1) -> BwdRowsPl
     # The kernel's stage: xps rows at an odd number of float4s, g rows padded
     # by `lanes` (csrc/gram.cu rows_smem).
     g_pad = lanes if lanes < 32 else 0
-    xps_pitch = ((d + 3) // 4 | 1) * 4
-    cap = max(32, (ROWS_STAGE_FLOATS - rows_tile * g_pad) // (xps_pitch + rows_tile) // 32 * 32)
+    vec = 16 // elem
+    xps_pitch = ((d + vec - 1) // vec | 1) * vec
+    stage = ROWS_STAGE_FLOATS * 4 // elem
+    cap = max(32, (stage - rows_tile * g_pad) // (xps_pitch + rows_tile) // 32 * 32)
     n_chunks = 1
     if 0 < row_tiles * batch < sms:
         n_chunks = max(1, min(sms // (row_tiles * batch), m // ROWS_CHUNK_MIN_COLS))
@@ -242,11 +285,18 @@ class BwdColsPlan(NamedTuple):
     scratch_shape: Optional[Tuple[int, int, int]]
     launches: int  # kernel launches per call
     batch: int = 1  # Grams in the call: tickets and scratch are per batch
+    dchunk: bool = False  # d past max_unchunked_d: the chunked kernel, no plan of its own
 
 
-def bwd_cols_plan(n: int, m: int, d: int, sms: int, batch: int = 1) -> BwdColsPlan:
+def bwd_cols_plan(n: int, m: int, d: int, sms: int, batch: int = 1,
+                  elem: int = 4) -> BwdColsPlan:
     """The chunking of ``gram_bwd_cols`` on a card with ``sms`` multiprocessors,
-    for ``batch`` Grams in one launch (their stage-tiles count together).
+    for ``batch`` Grams of ``elem``-byte elements in one launch (their
+    stage-tiles count together). The kernel's shared memory depends on d
+    alone (two stages of 64 rows, at most 75 KB in fp64 at its DMAX of 32),
+    so the chunks do not depend on ``elem``; past ``max_unchunked_d(elem)``
+    the chunked kernel runs, one block a few columns (``dchunk``, csrc/gram.cu
+    dchunk_group), with no scratch.
 
     A block reduces whole stages of COLS_STAGE_ROWS rows. It takes one stage
     while the grid has fewer stage-tiles than twice ``sms`` (so a tall-skinny
@@ -255,6 +305,12 @@ def bwd_cols_plan(n: int, m: int, d: int, sms: int, batch: int = 1) -> BwdColsPl
     over. The chunks are summed inside the same launch, so a call is always
     one launch."""
     col_tiles = -(-m // COLS_TILE)
+    if d > max_unchunked_d(elem):
+        group = min(THREADS, max(32, 1 << max(n - 1, 0).bit_length()))
+        return BwdColsPlan(chunk_rows=_round_up(max(n, 1), COLS_STAGE_ROWS), n_chunks=1,
+                           col_tiles=col_tiles, blocks=-(-m // (THREADS // group)) * batch,
+                           scratch_shape=None, launches=int(m > 0 and batch > 0), batch=batch,
+                           dchunk=True)
     stages = max(1, -(-n // COLS_STAGE_ROWS))
     per_chunk = max(1, stages * col_tiles * batch // sms)
     n_chunks = -(-stages // per_chunk)
@@ -334,15 +390,18 @@ def _at(t, start: int, bstride: int) -> int:
 
 
 def _check(xs, xps, sig, g=None) -> Optional[int]:
-    """Raise on what the kernels do not take: fp32, row-major contiguous,
-    [n, d] / [m, d] with 1 <= d <= MAX_D, one sig value, g [n, m], or the
+    """Raise on what the kernels do not take: float32 or float64, every input
+    of xs's dtype, row-major contiguous, [n, d] / [m, d] with d >= 1, one sig
+    value, g [n, m], or the
     same with a leading batch axis on any of xs, xps and g ([B, n, d],
     [B, m, d], [B, n, m]; B the same on all that have it) and sig one value
     or B. Returns B, or None for an unbatched call."""
     tensors = [xs, xps, sig] + ([] if g is None else [g])
+    if xs.dtype not in DTYPES:
+        raise TypeError(f"gram kernel takes float32 or float64, got {xs.dtype}")
     for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"gram kernel takes float32, got {t.dtype}")
+        if t.dtype != xs.dtype:
+            raise TypeError(f"gram kernel inputs of {t.dtype} and {xs.dtype}")
         if not t.is_contiguous():
             raise ValueError("gram kernel takes contiguous tensors")
         if t.device != xs.device:
@@ -355,9 +414,8 @@ def _check(xs, xps, sig, g=None) -> Optional[int]:
     if len(batches) > 1:
         raise ValueError(f"gram kernel inputs of batches {sorted(batches)}")
     batch = batches.pop() if batches else None
-    d = xs.shape[-1]
-    if not 1 <= d <= MAX_D:
-        raise ValueError(f"gram kernel takes 1 <= d <= {MAX_D}, got d = {d}")
+    if xs.shape[-1] < 1:
+        raise ValueError("gram kernel takes d >= 1, got d = 0")
     if sig.numel() != 1 and (batch is None or sig.numel() != batch):
         raise ValueError(f"sig must hold one value{'' if batch is None else ' or ' + str(batch)}"
                          f", got shape {tuple(sig.shape)}")
@@ -385,13 +443,19 @@ def _raise_if_failed(name, rc):
 
 
 @functools.lru_cache(maxsize=1024)
-def _device_plan(plan, device, n, m, d, batch=1):
+def _device_plan(plan, device, n, m, d, batch=1, elem=4):
     """``plan`` (:func:`fwd_plan`, :func:`bwd_rows_plan`, :func:`bwd_cols_plan`)
-    for the card ``device``, looked up once per shape and batch."""
-    return plan(n, m, d, torch.cuda.get_device_properties(device).multi_processor_count, batch)
+    for the card ``device``, looked up once per shape, batch and element size."""
+    return plan(n, m, d, torch.cuda.get_device_properties(device).multi_processor_count, batch,
+                elem=elem)
 
 
-# The backward kernels' workspace by (device, stream), shared by both: the
+def _entry(lib, name, dtype):
+    """The C entry point ``name`` for ``dtype``: the fp64 builds are ``<name>_f64``."""
+    return getattr(lib, name if dtype == torch.float32 else f"{name}_f64")
+
+
+# The backward kernels' workspace by (device, stream, dtype), shared by both: the
 # tickets (one int per (batch, tile), 0 between launches, since a kernel's
 # last block of a tile sets its ticket back) and the scratch of per-chunk
 # partials of every batch.
@@ -404,10 +468,10 @@ def _device_plan(plan, device, n, m, d, batch=1):
 _WORKSPACES = {}
 
 
-def _workspace(device, stream, tiles, scratch_shape, batch=1):
+def _workspace(device, stream, tiles, scratch_shape, batch=1, dtype=torch.float32):
     tiles *= batch
     floats = 0 if scratch_shape is None else batch * math.prod(scratch_shape)
-    ws = _WORKSPACES.get((device, stream))
+    ws = _WORKSPACES.get((device, stream, dtype))
     if ws is None or ws[0].numel() < tiles or ws[1].numel() < floats:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError(
@@ -417,8 +481,8 @@ def _workspace(device, stream, tiles, scratch_shape, batch=1):
         tiles = max(tiles, 1 if ws is None else ws[0].numel())
         floats = max(floats, 1 if ws is None else ws[1].numel())
         ws = (torch.zeros(tiles, dtype=torch.int32, device=device),
-              torch.empty(floats, dtype=torch.float32, device=device))
-        _WORKSPACES[(device, stream)] = ws
+              torch.empty(floats, dtype=dtype, device=device))
+        _WORKSPACES[(device, stream, dtype)] = ws
     return ws
 
 
@@ -429,15 +493,18 @@ OUT_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 def gram_fwd_cuda(xs, xps, sig, out_dtype=None, diag_add=None):
     """K [n, m] (or [B, n, m]) from the forward kernel, one launch a chunk
     of :func:`batch_chunks`, tiled by :func:`fwd_plan`, in ``out_dtype``
-    (float32, None, bfloat16 or float16), with the scalar tensor
-    ``diag_add`` added where i == j before the one rounding: inside the
-    kernel for a 2-byte K, by one fp32 add after it for an fp32 K (the fp32
-    kernel carries no diagonal code)."""
+    (None: the inputs' dtype; from float32 inputs also bfloat16 or float16,
+    from float64 ones float64 only), with the scalar tensor ``diag_add``
+    added where i == j before the one rounding: inside the kernel for a
+    2-byte K, by one add after it for an fp32 or fp64 K (those kernels carry
+    no diagonal code)."""
     _require_cuda(xs)
     batch = _check(xs, xps, sig)
-    out_dtype = torch.float32 if out_dtype is None else out_dtype
-    if out_dtype not in OUT_TYPES:
-        raise TypeError(f"gram_fwd writes {sorted(map(str, OUT_TYPES))}, not {out_dtype}")
+    out_dtype = xs.dtype if out_dtype is None else out_dtype
+    allowed = OUT_TYPES if xs.dtype == torch.float32 else {torch.float64: 0}
+    if out_dtype not in allowed:
+        raise TypeError(f"gram_fwd writes {sorted(map(str, allowed))} from {xs.dtype}, "
+                        f"not {out_dtype}")
     if diag_add is not None and diag_add.numel() != 1:
         raise ValueError(f"diag_add must hold one value, got shape {tuple(diag_add.shape)}")
     if diag_add is not None:
@@ -447,19 +514,21 @@ def gram_fwd_cuda(xs, xps, sig, out_dtype=None, diag_add=None):
     m = xps.shape[-2]
     shape = (n, m) if batch is None else (batch, n, m)
     out = torch.empty(shape, dtype=out_dtype, device=xs.device)
-    chunks = [(start, size, _device_plan(fwd_plan, xs.device, n, m, d, size))
+    elem = xs.element_size()
+    chunks = [(start, size, _device_plan(fwd_plan, xs.device, n, m, d, size, elem))
               for start, size in batch_chunks(batch or 1)]
     if not chunks[0][2].launches:  # an empty K
         return out
-    in_kernel = diag_add is not None and out_dtype != torch.float32
+    in_kernel = diag_add is not None and out_dtype not in DTYPES
+    launch = _entry(lib, "gram_fwd", xs.dtype)
     bs = [_bstride(t, batch) for t in (xs, xps, sig, out)]
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream().cuda_stream
         for start, size, plan in chunks:
             ptrs = [_at(t, start, b) for t, b in zip((xs, xps, sig, out), bs)]
-            rc = lib.gram_fwd(*ptrs[:3], diag_add.data_ptr() if in_kernel else None, ptrs[3],
-                              n, m, d, plan.col_threads, plan.rows_per_thread,
-                              OUT_TYPES[out_dtype], size, *bs, stream)
+            rc = launch(*ptrs[:3], diag_add.data_ptr() if in_kernel else None, ptrs[3],
+                        n, m, d, plan.col_threads, plan.rows_per_thread,
+                        allowed[out_dtype], size, *bs, stream)
             _raise_if_failed("gram_fwd", rc)
             LAUNCHES["fwd"] += 1
     if diag_add is not None and not in_kernel:
@@ -477,23 +546,24 @@ def gram_bwd_rows_cuda(xs, xps, sig, g):
     n, d = xs.shape[-2:]
     m = xps.shape[-2]
     lead = () if batch is None else (batch,)
-    d_xs = torch.empty((*lead, n, d), dtype=torch.float32, device=xs.device)
-    row = torch.empty((*lead, n), dtype=torch.float32, device=xs.device)
-    chunks = [(start, _device_plan(bwd_rows_plan, xs.device, n, m, d, size))
+    d_xs = torch.empty((*lead, n, d), dtype=xs.dtype, device=xs.device)
+    row = torch.empty((*lead, n), dtype=xs.dtype, device=xs.device)
+    chunks = [(start, _device_plan(bwd_rows_plan, xs.device, n, m, d, size, xs.element_size()))
               for start, size in batch_chunks(batch or 1)]
     if not chunks[0][1].launches:  # no rows
         return d_xs, row
+    launch = _entry(lib, "gram_bwd_rows", xs.dtype)
     bs = [_bstride(t, batch) for t in (xs, xps, sig, g, d_xs)] + [0 if batch is None else n]
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream().cuda_stream
         for _, plan in chunks:  # one workspace, sized for the largest chunk
             ticket, scratch = _workspace(xs.device, stream, plan.row_tiles, plan.scratch_shape,
-                                         plan.batch)
+                                         plan.batch, xs.dtype)
         for start, plan in chunks:
             ptrs = [_at(t, start, b) for t, b in zip((xs, xps, sig, g, d_xs, row), bs)]
-            rc = lib.gram_bwd_rows(*ptrs, scratch.data_ptr(), ticket.data_ptr(), n, m, d,
-                                   plan.lanes_per_row, plan.slices, plan.stage_cols,
-                                   plan.chunk_cols, plan.batch, *bs, stream)
+            rc = launch(*ptrs, scratch.data_ptr(), ticket.data_ptr(), n, m, d,
+                        plan.lanes_per_row, plan.slices, plan.stage_cols,
+                        plan.chunk_cols, plan.batch, *bs, stream)
             _raise_if_failed("gram_bwd_rows", rc)
             LAUNCHES["bwd_rows"] += 1
     return d_xs, row
@@ -509,21 +579,22 @@ def gram_bwd_cols_cuda(xs, xps, sig, g):
     n, d = xs.shape[-2:]
     m = xps.shape[-2]
     lead = () if batch is None else (batch,)
-    d_xps = torch.empty((*lead, m, d), dtype=torch.float32, device=xs.device)
-    chunks = [(start, _device_plan(bwd_cols_plan, xs.device, n, m, d, size))
+    d_xps = torch.empty((*lead, m, d), dtype=xs.dtype, device=xs.device)
+    chunks = [(start, _device_plan(bwd_cols_plan, xs.device, n, m, d, size, xs.element_size()))
               for start, size in batch_chunks(batch or 1)]
     if not chunks[0][1].launches:  # no columns
         return d_xps
+    launch = _entry(lib, "gram_bwd_cols", xs.dtype)
     bs = [_bstride(t, batch) for t in (xs, xps, sig, g, d_xps)]
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream().cuda_stream
         for _, plan in chunks:  # one workspace, sized for the largest chunk
             ticket, scratch = _workspace(xs.device, stream, plan.col_tiles, plan.scratch_shape,
-                                         plan.batch)
+                                         plan.batch, xs.dtype)
         for start, plan in chunks:
             ptrs = [_at(t, start, b) for t, b in zip((xs, xps, sig, g, d_xps), bs)]
-            rc = lib.gram_bwd_cols(*ptrs, scratch.data_ptr(), ticket.data_ptr(), n, m, d,
-                                   plan.chunk_rows, plan.batch, *bs, stream)
+            rc = launch(*ptrs, scratch.data_ptr(), ticket.data_ptr(), n, m, d,
+                        plan.chunk_rows, plan.batch, *bs, stream)
             _raise_if_failed("gram_bwd_cols", rc)
             LAUNCHES["bwd_cols"] += 1
     return d_xps

@@ -1,5 +1,5 @@
 """Batched multi-restart and multi-replicate sweeps (port of
-`gpscore/parallel/sweeps.py::{default_sweep_keys, restart_sweep}`).
+`gpscore/parallel/sweeps.py`).
 
 The JAX package runs a sweep as one XLA program, ``jax.vmap`` of the whole
 GD fit over a leading restart axis. Here the axis is explicit: the restarts
@@ -9,8 +9,10 @@ Gram kernels' batch grid axis, and on a card is captured once as a CUDA graph
 and replayed, R restarts in every launch. The restarts share nothing but the
 launches: each one's fit is its solo fit's.
 
-``sharded_restart_sweep`` (the restart axis over a device mesh) is not
-ported yet.
+:func:`sharded_restart_sweep` splits the restart axis over the mesh's
+'batch' axis: each rank runs the batched fit of its R/p restarts on the
+replicated data, with no collective, and the results are gathered over
+'batch' into the layout of :func:`restart_sweep`.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 
 from gpscore_torch.fit import objectives
 from gpscore_torch.fit.train import FitResult, fit_gd, fit_gd_batch
+from gpscore_torch.parallel.mesh import Mesh, batch_sharding, gather_rows, place
 from gpscore_torch.utils.params import GPParams, batch_size, select_params, stack_params
 
 
@@ -92,3 +95,51 @@ def restart_sweep(
                      torch.stack([f.loss_history for f in fits]),
                      torch.stack([f.ok for f in fits]), None,
                      torch.stack([f.stall_iters for f in fits]))
+
+
+def sharded_restart_sweep(
+    loss_fn,
+    params_batch: GPParams,
+    x,
+    y,
+    iters: int,
+    lr: float,
+    mesh: Mesh,
+    lr_inducing: Optional[float] = None,
+    generator: Optional[torch.Generator] = None,
+    graph: Optional[bool] = None,
+) -> FitResult:
+    """:func:`restart_sweep` with the restart axis split over the mesh's
+    'batch' axis (`sweeps.py:57-83`): every rank passes the whole
+    ``params_batch`` ([R, ...], R divisible by the axis size) and the data
+    (x, y, replicated, as JAX places them), fits its own R/p restarts as one
+    batched fit (on a card a captured, replayed step, as in
+    :func:`restart_sweep`), and returns the whole FitResult, every leaf
+    gathered over 'batch' into ``jax.vmap``'s layout. The step issues no
+    collective; the ranks of one 'batch' coordinate (a 'data' axis beside
+    it) fit the same restarts. ``generator`` draws this rank's restarts' es
+    normals (default: :func:`default_sweep_generator`, seeded 0 on every
+    rank, so es draws differ from the unsharded sweep's)."""
+    R = batch_size(params_batch)
+    if R is None:
+        raise ValueError("sharded_restart_sweep takes parameters whose leaves carry a leading [R]")
+    p = mesh.size("batch")
+    if R % p != 0:
+        raise ValueError(f"{R} restarts do not split over the {p} ranks of 'batch'")
+    shard = batch_sharding(mesh)
+    local = params_batch.replace(**{f: place(t, shard).contiguous()
+                                    for f, t in params_batch.leaves().items()})
+    res = restart_sweep(loss_fn, local, x, y, iters, lr, lr_inducing, generator, graph)
+
+    def gather(t):
+        if t is None:
+            return None
+        if t.dtype == torch.bool:  # gloo gathers no bool
+            return gather_rows(t.to(torch.uint8), mesh, "batch").bool()
+        return gather_rows(t, mesh, "batch")
+
+    return FitResult(res.params.replace(**{f: gather(t) for f, t in res.params.leaves().items()}),
+                     gather(res.loss_history), gather(res.ok),
+                     None if res.param_history is None else res.param_history.replace(
+                         **{f: gather(t) for f, t in res.param_history.leaves().items()}),
+                     gather(res.stall_iters))

@@ -421,6 +421,9 @@ def test_drivers_default_to_cuda_and_refuse_float64_there(monkeypatch):
         parity_report.main([])
     with pytest.raises(RuntimeError, match="--device cpu"):
         analysis_figures.main(["--no-png"])
+    # The name is historical: the Gram kernels now have float64 builds, so
+    # --dtype float64 on the default cuda device passes the script's own
+    # argument checks and stops only where this CPU-only torch makes its first CUDA tensor.
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(ValueError, match="float32 only"):
+    with pytest.raises(AssertionError, match="not compiled with CUDA"):
         parity_report.main(["--dtype", "float64"])

@@ -150,17 +150,15 @@ def test_cpu_path_launches_no_kernel():
 
 @pytest.mark.parametrize(
     "bad",
-    ["dtype", "contiguity", "wide_d", "d_mismatch", "sig_shape", "cotangent_shape"],
+    ["dtype", "contiguity", "d_mismatch", "sig_shape", "cotangent_shape"],
 )
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad):
     xs, xps, sig = torch.zeros(5, 3), torch.zeros(4, 3), torch.tensor(1.0)
     g = torch.zeros(5, 4)
-    if bad == "dtype":
-        xs = xs.double()
+    if bad == "dtype":  # float16 inputs: the kernels take float32 or float64
+        xs, xps, sig, g = xs.half(), xps.half(), sig.half(), g.half()
     elif bad == "contiguity":
         xs = torch.zeros(3, 5).T
-    elif bad == "wide_d":
-        xs, xps = torch.zeros(5, gram_cuda.MAX_D + 1), torch.zeros(4, gram_cuda.MAX_D + 1)
     elif bad == "d_mismatch":
         xps = torch.zeros(4, 2)
     elif bad == "sig_shape":
@@ -169,6 +167,69 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad):
         g = torch.zeros(4, 5)
     with pytest.raises((TypeError, ValueError)):
         gram_cuda._check(xs, xps, sig, g)
+
+
+@pytest.mark.parametrize("case", ["d65", "float64", "float64_d130", "mixed_dtypes"])
+def test_kernel_wrapper_accepts_any_d_and_float64(case):
+    """Past 64 features the kernels walk d in chunks, and they have float64
+    builds: _check passes both (a call mixing the two dtypes still raises)."""
+    d = {"d65": 65, "float64_d130": 130}.get(case, 3)
+    dt = torch.float32 if case == "d65" else torch.float64
+    xs, xps, g = (torch.zeros(shape, dtype=dt) for shape in ((5, d), (4, d), (5, 4)))
+    sig = torch.tensor(1.0, dtype=dt)
+    if case == "mixed_dtypes":
+        with pytest.raises(TypeError):
+            gram_cuda._check(xs, xps.float(), sig, g)
+        return
+    assert gram_cuda._check(xs, xps, sig, g) is None
+    assert gram_cuda._check(xs[None].contiguous(), xps, sig, g[None].contiguous()) == 1
+
+
+def _wide(seed, n, m, d, dtype):
+    """Inputs at d features, squared lengths ~ d / 10, so that the exponent
+    is ~10 and K spans a range, not all ~0 or ~sig."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, d)).astype(dtype)
+    xp = rng.standard_normal((m, d)).astype(dtype)
+    ll = (0.5 * np.log(d / 10) + 0.2 * rng.standard_normal(d)).astype(dtype)
+    g = rng.standard_normal((n, m)).astype(dtype)
+    return x, xp, ll, g
+
+
+@pytest.mark.parametrize("d", [65, 130])
+def test_wide_d_gram_and_grads_match_jax(d):
+    """At d past the kernels' 64-feature chunk: gram() (ArdGram, plain on the
+    CPU) and its four gradients against jnp ard_gram and jax.grad, fp32,
+    1e-5 relative (the gradients relative to each one's largest entry: the
+    two sides sum W x over the columns in other orders)."""
+    x, xp, ll, g = _wide(d, 24, 17, d, np.float32)
+
+    def loss_jax(x, xp, sig, ll):
+        return jnp.sum(jax_ard_gram(x, xp, sig, ll) * g)
+
+    jargs = (jnp.asarray(x), jnp.asarray(xp), jnp.float32(0.3), jnp.asarray(ll))
+    args = [t(a).clone().requires_grad_() for a in (x, xp, np.float32(0.3), ll)]
+    K = ArdGram.apply(*args)
+    want_K = np.asarray(jax_ard_gram(*jargs))
+    assert want_K.min() < 0.1 * want_K.max()
+    close(K, want_K, 1e-5, 1e-7)
+    got = torch.autograd.grad(torch.sum(K * t(g)), args)
+    for a, b in zip(got, jax.grad(loss_jax, argnums=(0, 1, 2, 3))(*jargs)):
+        close(a, b, 1e-5, 1e-5 * float(np.abs(np.asarray(b)).max()))
+
+
+@pytest.mark.parametrize("d", [3, 65, 130])
+def test_float64_gram_matches_the_fp64_oracle_and_gradcheck(d):
+    """float64 through gram() against tests/oracle.py's fp64 NumPy Gram at
+    1e-12 relative, and ArdGram's float64 gradient by gradcheck."""
+    x, xp, ll, _ = _wide(d + 1, 20, 13, d, np.float64)
+    got = gram(t(x), t(xp), 0.3, t(ll))
+    assert got.dtype == torch.float64
+    close(got, oracle.ard_gram(x, xp, 0.3, ll), 1e-12, 1e-300)
+    args = [t(a[:5]).clone().requires_grad_() for a in (x, xp)] + [
+        torch.tensor(0.3, dtype=torch.float64, requires_grad=True),
+        t(ll).clone().requires_grad_()]
+    assert torch.autograd.gradcheck(ArdGram.apply, args)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

@@ -67,7 +67,7 @@ def test_bwd_cols_plan_constants_match_the_kernel_source():
     assert 32 * const("kWarpsPerBlock") == THREADS
     # The column-thread counts and rows per thread the C entry point takes.
     entry = src[src.index("int gram_fwd("):]
-    assert all(f"col_threads != {c}" in entry for c in FWD_COL_THREADS)
+    assert all(f"col_threads != {c}" in src for c in FWD_COL_THREADS)
     assert all(f"case {r}: return launch_fwd<{r}, OutT>(" in src
                for r in gram_cuda.FWD_ROWS_PER_THREAD)
     # The output types it takes, numbered as the wrapper numbers them.
@@ -77,7 +77,7 @@ def test_bwd_cols_plan_constants_match_the_kernel_source():
     assert gram_cuda.OUT_TYPES == {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
     # The row kernel's widest step is a warp's lanes times the block's warps.
     assert ROWS_MAX_STEP == 32 * const("kWarpsPerBlock")
-    rows_entry = src[src.index("int gram_bwd_rows("):]
+    rows_entry = src[src.index("int bwd_rows_entry("):]
     assert "lanes_per_row > 32 || slices > kWarpsPerBlock" in rows_entry
     # The stage layout bwd_rows_plan sizes: xps rows at an odd number of
     # float4s, g rows padded by the lanes of a row.
