@@ -18,7 +18,12 @@ Phases, none of whose failures is caught:
    300x120x1, 300x300x1; 120x5x1, 5x5x1, 300x5x1); a row block of the
    large-n backward (2048x30720x8), and gram_fwd alone at the whole large-n
    K(x, x) (30720x30720x8) and the large-n evaluation's K(x, x*)
-   (30720x2048x8). Then, at 500x20x8, 20x20x8, 500x500x8, 9700x20x8,
+   (30720x2048x8); the sharded steps' backward shapes: 30720x30720x8 (the
+   out-of-place stack at p = 1), 256x30720x8 and 256x7680x8 (a fused sharded
+   step's streamed row block at p = 1 and 4), checked and timed (CUDA events)
+   beside their bounds, and the fused sharded forward's f16 Gram panel
+   256x30720x8 with its noise diagonal, bitwise the fp32 kernel's output
+   rounded and within 1 ulp of plain. Then, at 500x20x8, 20x20x8, 500x500x8, 9700x20x8,
    120x120x1, 8192x8192x8 and 2048x30720x8, and for gram_fwd at
    30720x2048x8, kernel and plain times per call (CUDA events, back to back)
    and device time per call (torch.profiler's CUDA events, summed), and
@@ -180,14 +185,31 @@ Phases, none of whose failures is caught:
    gradient against phase 8's and phase 9's float64 witnesses within their
    limits; ``sharded_cholesky``, ``sharded_tri_solve_lower`` and
    ``sharded_nlml`` at n = 8192 against float64; ``dryrun_multichip`` legs
-   (1)-(6) on the one rank.
+   (1)-(12) on the one rank.
+15. The fused sharded steps (``gpscore_torch.parallel``: the in-place
+   sharded K_hat^-1, sharded_potri, and the streamed backward; the fold rules
+   fold-streamed) on one NCCL rank at n = 30,720, d = 8 (phase 8's data and
+   unit parameters), block 256: crps, logs, nlml, dss, kc and es (phase 9's
+   fixed normals, 300 draws), the f16 crps and dss steps, and crps at block
+   2048, each step built once and run twice through its entry point. Per
+   step: the step-0 loss and gradient (1 - the lr-1 update) against the
+   single-device fused or fold-streamed step and against phases 8 and 9's
+   float64 witnesses (logs: its own) within those phases' limits (f16:
+   finite, its peak 0.45 n^2 * 4 B under the fp32 step's, phase 11's 2-byte
+   limit); the wall time of the second call; the peak of the first (at most
+   1.5 n^2 * 4 B in fp32); for fp32 crps and dss the device time by kind and
+   the idle share of a third, profiled call; the collectives the first issued
+   (``parallel.mesh.COLLECTIVES``), whose bytes must equal
+   ``bench_sharded.analytic_collective_bytes``. The launch counters are
+   zeroed just before the steps and read just after (the "sharded_fused"
+   path).
 
 The line before the last is the card's ``nvidia-smi`` name and power limit;
 before it, one JSON line describes every kernel: ``ms``, ``plain_ms``,
 ``bound_ms`` and ``bound_by`` at the FITC path's 500x20x8 (``library_ms`` is
 null: no single PyTorch call computes the ARD Gram or either half of its
 VJP), ``launches`` summed over the FITC, exact, large-n, large-n fold, graph,
-precision, two sweep, analysis and sharded paths (each path's count under
+precision, two sweep, analysis, sharded and fused sharded paths (each path's count under
 ``launches_by_path``; a graph's replays are counted, gram_fwd's 2-byte
 launches under gram_fwd), and
 under ``shapes`` the per-call and device
@@ -222,11 +244,11 @@ import torch.distributed as dist
 
 import gpscore_torch
 from gpscore_torch import analysis, bench
-from gpscore_torch.bench_gram import (cuda_ms, device_ms, kernel_inputs, kernel_pairs,
+from gpscore_torch.bench_gram import (cuda_ms, device_ms, kernel_inputs, kernel_pairs, ms_text,
                                      nvidia_smi_line, time_shapes)
 from gpscore_torch.data import kin40k_fitc20_init, kin40k_replicate_split, load_kin40k
-from gpscore_torch.experiments import (analysis_figures, bench_ceiling, common, kin40k_full,
-                                       large_n, multi_restart, parity_report)
+from gpscore_torch.experiments import (analysis_figures, bench_ceiling, bench_sharded, common,
+                                       kin40k_full, large_n, multi_restart, parity_report)
 from gpscore_torch.fit import (SCHEDULES, eval_predictive_metrics, fit_and_eval, fit_gd,
                                fit_gd_batch, fit_optim, make_objective, train)
 from gpscore_torch.metrics import evaluate_predictive
@@ -234,10 +256,10 @@ from gpscore_torch.models import exact as exact_mod
 from gpscore_torch.ops import _build, gram_cuda, linalg, loo_fused, potri_inplace
 from gpscore_torch.ops.kernels import gram
 from gpscore_torch.ops.loo_fused import auto_block
-from gpscore_torch.parallel import (add_noise_sharded, init_distributed, make_mesh, restart_sweep,
-                                    shard_rows, sharded_cholesky, sharded_gram,
-                                    sharded_loo_value_and_grad, sharded_nlml,
-                                    sharded_restart_sweep, sharded_tri_solve_lower)
+from gpscore_torch.parallel import (COLLECTIVES, add_noise_sharded, init_distributed, make_mesh,
+                                    reset_collectives, restart_sweep, shard_rows,
+                                    sharded_cholesky, sharded_gram, sharded_loo_value_and_grad,
+                                    sharded_nlml, sharded_restart_sweep, sharded_tri_solve_lower)
 from gpscore_torch.parallel.dryrun import dryrun_multichip
 from gpscore_torch.scoring import rules
 from gpscore_torch.utils import (batch_size, checkpoint, init_rand_params, init_unit_params,
@@ -271,10 +293,16 @@ TIMED_SHAPES = [(500, 20, 8), (20, 20, 8), (500, 500, 8), (9700, 20, 8), (120, 1
 # alone: all of K at n = 30,720 (one launch a step and one an evaluation),
 # and the evaluation's K(x, x*) for a chunk of 2048 test points.
 FWD_SHAPES = [(30720, 30720, 8), (30720, 2048, 8)]
-# The sharded steps' backward on one rank (phase 14): the cotangent of
-# K(x_local, x) is [n/p, n], all of K at p = 1 and n = 30,720, a shape whose
-# plans and chunks no other path gives the two backward kernels.
-MESH_BWD_SHAPES = [(30720, 30720, 8)]
+# The sharded steps' backward: the out-of-place stack's (phase 14) cotangent
+# of K(x_local, x) is [n/p, n], all of K at p = 1 and n = 30,720, a shape whose
+# plans and chunks no other path gives the two backward kernels; the fused
+# sharded steps' streamed backward (phase 15) gives them [b, n/p] blocks of
+# a global row block against a rank's rows, b = 256: 256x30720x8 at p = 1,
+# 256x7680x8 at p = 4 (n/b = 120 launches of each half a pass).
+MESH_BWD_SHAPES = [(30720, 30720, 8), (256, 30720, 8), (256, 7680, 8)]
+# The fused sharded forward's 2-byte Gram panel at p = 1: [b, n] rows of
+# K_hat rounded once to f16, the noise on the panel's own diagonal.
+MESH_FWD2_SHAPES = [(256, 30720, 8, True)]
 # The repair: the d-chunked fp32 builds (d past 64) and the float64 builds.
 CHUNK_SHAPES = [(500, 500, 65), (9700, 20, 130)]
 F64_SHAPES = [(500, 20, 8), (500, 500, 8), (8192, 8192, 8)]
@@ -442,9 +470,14 @@ MESH_PEAK_LIMIT_N2 = 6.0  # a sharded step's peak on one rank, in n^2 * 4 B
 # the largest entry (the in-place factor reads 4.9e-6, phase 8), and the
 # NLML (JAX's own tolerance for the sharded NLML, tests/test_parallel.py).
 MESH_FACTOR_RTOL, MESH_SOLVE_RTOL, MESH_NLML_RTOL = 1e-5, 1e-4, 2e-5
-# Phase 8's crps and phase 9's dss float64 step-0 witnesses at n = 30,720,
-# kept for phase 14's sharded steps on the same data and parameters.
+# Phase 8's crps and nlml and phase 9's dss, kc and es float64 step-0
+# witnesses at n = 30,720, kept for phases 14 and 15's sharded steps on the
+# same data and parameters.
 F64_WITNESS = {}
+# Phase 15.
+FUSED_RULES = ["crps", "logs", "nlml", "dss", "kc", "es"]
+FUSED_F16_RULES = ["crps", "dss"]
+FUSED_WIDE_BLOCK = 2048  # the crps step timed once more at JAX's widest panel
 
 
 def log(*a):
@@ -583,6 +616,9 @@ def phase_kernels(dev):
                              names=("gram_fwd",), log=log))
     for t in times.values():
         t["timed_by"] = "torch.profiler"
+        if t["device_ms"] is None:  # the profiler lost the events: CUDA events alone
+            del t["device_ms"], t["plain_device_ms"]
+            t["timed_by"] = "cuda_events"
     for n, m, d in FWD_SHAPES:
         if n != m:
             continue
@@ -618,14 +654,19 @@ def phase_kernels(dev):
                                       "timed_by": "cuda_events"}
         del xs, xps, g, pairs
         torch.cuda.empty_cache()
-        log(f"[kernels] {n}x{m}x{d} (the sharded steps' backward at p = 1): bwd err "
+        role = ("the out-of-place sharded steps' backward at p = 1" if n == m else
+                f"a fused sharded step's backward block at p = {30720 // m}")
+        log(f"[kernels] {n}x{m}x{d} ({role}): bwd err "
             + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
             + f" (tol {BWD_ATOL} + {BWD_RTOL} * max|ref|); second call bitwise equal; per call "
             + ", ".join(f"{k} {times[(k, n, m, d)]['ms']:.4f} ms (plain "
                         f"{times[(k, n, m, d)]['plain_ms']:.4f})"
                         for k in ("gram_bwd_rows", "gram_bwd_cols"))
             + " (CUDA events, back to back)")
+    phase_gram2(dev, times, MESH_FWD2_SHAPES, {"f16": torch.float16}, tag="kernels")
     for (name, n, m, d, *kind), t in times.items():
+        if kind and kind[0] != "f64":  # a 2-byte gram_fwd: its bound is phase_gram2's
+            continue
         bound = gram_cuda.roofline(name, n, m, d, elem=8 if kind else 4)
         t.update(bound_ms=bound.bound_us / 1e3, bound_by=bound.bound_by,
                  roofline_share=bound.bound_us / 1e3 / t.get("device_ms", t["ms"]))
@@ -880,9 +921,10 @@ def phase_exact(dev):
             walls.append((time.perf_counter() - t) / SMOKE_STEPS * 1e3)
         busy, n_ops = device_ms(lambda: fit(5), reps=1, warmup=1)
         syncs = [host_syncs(lambda: fit(1)) for _ in range(2)]
+        dev_text = ("device busy not measured" if busy is None else
+                    f"device busy {busy / 5:.4f} ms and {n_ops / 5:.0f} device ops per step")
         log(f"[exact-time] {rule}, eager: wall per step " + ", ".join(f"{w:.3f}" for w in walls)
-            + f" ms (three {SMOKE_STEPS}-step fits); device busy {busy / 5:.4f} ms and "
-            f"{n_ops / 5:.0f} device ops per step; host syncs in one GD step, twice: "
+            + f" ms (three {SMOKE_STEPS}-step fits); {dev_text}; host syncs in one GD step, twice: "
             f"{len(syncs[0])}, {len(syncs[1])} {sorted(set(syncs[0] + syncs[1]))}")
     return launches
 
@@ -999,8 +1041,8 @@ def f64_step0(rule, x, y, p, eps=None, inverse=None):
     the three log-parameters. K_hat^-1 comes from the float64 factor
     (``inverse``: an :func:`f64_inverse` to reuse); G = dloss/dK_hat is then
     contracted with dK/dtheta in row blocks. nlml: G = (K^-1 - a a^T) / 2.
-    crps, through a = K^-1 y and diag(K^-1): G = -(K^-1 a_bar) a^T - K^-1
-    diag(d_bar) K^-1. A fold rule (dss, kc, es at the normals ``eps`` =
+    crps and logs, through a = K^-1 y and diag(K^-1): G = -(K^-1 a_bar) a^T -
+    K^-1 diag(d_bar) K^-1. A fold rule (dss, kc, es at the normals ``eps`` =
     (e, e')), through a and the fold blocks A_f = [K^-1]_ff: a_bar and A_bar_f
     by float64 autograd of each fold's score (:func:`f64_fold_loss`), G =
     -(K^-1 a_bar) a^T - sum_f K^-1[:, f] A_bar_f K^-1[f, :]. Peak ~3 n^2 * 8
@@ -1012,9 +1054,10 @@ def f64_step0(rule, x, y, p, eps=None, inverse=None):
 
         def g_rows(r0, r1):
             return 0.5 * (Kinv[r0:r1] - a[r0:r1, None] * a[None, :])
-    elif rule == "crps":  # on the LOO predictive
+    elif rule in ("crps", "logs"):  # on the LOO predictive
+        score = rules.crps_gaussian if rule == "crps" else rules.logs_gaussian
         a_, d_ = a.clone().requires_grad_(), Kinv.diagonal().clone().requires_grad_()
-        loss = rules.crps_gaussian(y64 - a_ / d_, 1.0 / d_, y64)
+        loss = score(y64 - a_ / d_, 1.0 / d_, y64)
         a_bar, d_bar = torch.autograd.grad(loss, (a_, d_))
         b = Kinv @ a_bar
 
@@ -1626,16 +1669,17 @@ def cosines(got, want):
     return out
 
 
-def phase_gram2(dev, times):
-    """Phase 11.1: the 2-byte gram_fwd against the fp32 kernel rounded, its
-    plain version, and its bound; the times land in ``times``."""
-    for n, m, d, diag in GRAM2_SHAPES:
+def phase_gram2(dev, times, shapes=GRAM2_SHAPES, storage=STORAGE, tag="precision"):
+    """Phase 11.1 (and phase 3's sharded panel): the 2-byte gram_fwd against
+    the fp32 kernel rounded, its plain version, and its bound; the times
+    land in ``times``."""
+    for n, m, d, diag in shapes:
         xs, xps, sig = fwd_inputs(n, m, d, dev, seed=7)
         noise = torch.tensor(0.37, device=dev) if diag else None
         K = gram_cuda.gram_fwd_cuda(xs, xps, sig)
         if diag:
             K.diagonal().add_(noise)
-        for name, st in STORAGE.items():
+        for name, st in storage.items():
             K2 = gram_cuda.gram_fwd_cuda(xs, xps, sig, out_dtype=st, diag_add=noise)
             again = gram_cuda.gram_fwd_cuda(xs, xps, sig, out_dtype=st, diag_add=noise)
             assert K2.dtype == st and torch.equal(K2, K.to(st)), (n, m, d, name, "not bitwise")
@@ -1659,7 +1703,7 @@ def phase_gram2(dev, times):
                  "dtype": name, "bound_ms": bound.bound_us / 1e3, "bound_by": bound.bound_by}
             t["roofline_share"] = t["bound_ms"] / t["ms"]
             times[("gram_fwd", n, m, d, name)] = t
-            log(f"[precision] gram_fwd {n}x{m}x{d} -> {name}{' + noise diagonal' if diag else ''}"
+            log(f"[{tag}] gram_fwd {n}x{m}x{d} -> {name}{' + noise diagonal' if diag else ''}"
                 f": bitwise the fp32 kernel's output rounded, {ulps:.3g} ulp of the plain version "
                 f"(limit 1); per call kernel {t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms "
                 f"(CUDA events); bound {bound.bytes} bytes, {t['bound_ms']:.5f} ms by "
@@ -1991,9 +2035,12 @@ def time_kernel(name, kern, plain, shape, reps, warmup, loop=None, shared_x=Fals
     bound = gram_cuda.roofline(name, n, m, d, batch=B, shared_x=shared_x)
     dev_ms, ops = device_ms(kern, reps=reps, floor_ms=bound.bound_us / 1e3)
     t = {"ms": (ms[1] + ms[-2]) / 2, "plain_ms": (ms[0] + ms[-1]) / 2, "device_ms": dev_ms,
-         "bound_ms": bound.bound_us / 1e3, "bound_by": bound.bound_by,
-         "roofline_share": bound.bound_us / 1e3 / dev_ms, "library_ms": None,
+         "bound_ms": bound.bound_us / 1e3, "bound_by": bound.bound_by, "library_ms": None,
          "launches_per_call": ops, "timed_by": "torch.profiler"}
+    if dev_ms is None:  # the profiler lost the events: the share of the CUDA-event time
+        del t["device_ms"]
+        t["timed_by"] = "cuda_events"
+    t["roofline_share"] = bound.bound_us / 1e3 / t.get("device_ms", t["ms"])
     if loop:
         t["loop_ms"] = (ms[2] + ms[3]) / 2
     return t, bound
@@ -2065,7 +2112,7 @@ def sweep_kernels(dev, err):
             out[key][name] = t
             log(f"[sweeps-time] {name} {key}: per call batched {t['ms']:.5f} ms, a loop of {B} "
                 f"unbatched launches {t['loop_ms']:.5f} ms ({t['loop_ms'] / t['ms']:.2f}x), plain "
-                f"{t['plain_ms']:.5f} ms; device {t['device_ms']:.5f} ms; bound "
+                f"{t['plain_ms']:.5f} ms; device {ms_text(t.get('device_ms'))}; bound "
                 f"{bound.bound_us:.4f} us "
                 f"by {bound.bound_by} ({bound.bytes} bytes, {bound.flops} FLOP), share "
                 f"{t['roofline_share']:.3f}")
@@ -2347,7 +2394,7 @@ def check_and_time(key, names, args, shape, err, reps):
         log(f"[analysis-kernels] {name} {key}: max abs err {worst:.3g} against the plain "
             f"version in float64; per call kernel {t['ms']:.5f} ms "
             f"({t['launches_per_call']} launch(es)), plain {t['plain_ms']:.5f} ms; device "
-            f"{t['device_ms']:.5f} ms; bound {bound.bound_us:.4f} us by "
+            f"{ms_text(t.get('device_ms'))}; bound {bound.bound_us:.4f} us by "
             f"{bound.bound_by} ({bound.bytes} bytes, {bound.flops} FLOP), share "
             f"{t['roofline_share']:.3f}")
     return out
@@ -2401,7 +2448,7 @@ def analysis_surfaces(dev, err):
             f"{SURFACE_RTOL}), CUDA against float64 {float(rel['f64'].max()):.3g} "
             f"({float(rel['f64'].median()):.2g}; tol {SURFACE_F64_SMALL_RTOL}), the CPU against "
             f"float64 {float(rel['cpu_f64'].max()):.3g} ({float(rel['cpu_f64'].median()):.2g}); "
-            f"kernel launches {launched}; {ms:.3f} ms a surface, device busy {busy:.3f} ms in "
+            f"kernel launches {launched}; {ms:.3f} ms a surface, device busy {ms_text(busy)} in "
             f"{ops} device ops")
     B = GRID * GRID
     times[f"{B}x{N_CONTOUR}x{N_CONTOUR}x1"] = check_and_time(
@@ -2688,9 +2735,10 @@ def mesh_cholesky(dev, mesh):
     return {"cholesky_s": wall, "factor_rel_f64": e_l, "solve_rel_f64": e_w, "nlml_rel_f64": e_n}
 
 
-def phase_mesh(dev):
-    """Phase 14: the mesh and the distributed dense stack on one rank under
-    NCCL. Returns the sharded path's Gram launches and its records."""
+@contextlib.contextmanager
+def one_nccl_rank(dev):
+    """A process group of one NCCL rank on ``dev`` (a ``file://`` store
+    under build/), destroyed on the way out; yields the rank's device."""
     os.makedirs("build", exist_ok=True)
     store = os.path.abspath(os.path.join("build", f"smoke_store_{os.getpid()}"))
     if os.path.exists(store):
@@ -2698,6 +2746,17 @@ def phase_mesh(dev):
     mdev = init_distributed(dev, init_method=f"file://{store}", world_size=1, rank=0)
     try:
         assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        yield mdev
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.unlink(store)
+
+
+def phase_mesh(dev):
+    """Phase 14: the mesh and the distributed dense stack on one rank under
+    NCCL. Returns the sharded path's Gram launches and its records."""
+    with one_nccl_rank(dev) as mdev:
         mesh = make_mesh(devices=mdev)
         log(f"[mesh] one NCCL rank on {mdev}: mesh {mesh.shape}")
         x, _, _, _ = (t.to(dev) for t in large_n.make_data(LARGE_N, LARGE_D, LARGE_TEST))
@@ -2737,7 +2796,7 @@ def phase_mesh(dev):
             f"run): kernel launches {launches}")
         for k, v in launches.items():
             assert v > 0, f"kernel {k} was not launched on the sharded path"
-        log(f"[mesh] dryrun_multichip legs (1)-(6) on one rank in {dry_s:.2f} s: {dry}")
+        log(f"[mesh] dryrun_multichip legs (1)-(12) on one rank in {dry_s:.2f} s: {dry}")
         # Against the unsharded sweep (not counted).
         ref = restart_sweep(floss, pb, s.train_x, s.train_y, sched.iters, sched.lr,
                             lr_inducing=sched.lr_inducing)
@@ -2749,10 +2808,118 @@ def phase_mesh(dev):
             f"iterations in {sweep_s:.3f} s: bitwise restart_sweep (loss history, ok, "
             f"stall_iters, every parameter): {not differ}")
         assert not differ, differ
-    finally:
-        dist.destroy_process_group()
-        if os.path.exists(store):
-            os.unlink(store)
+    return launches, records
+
+
+def f64_gaps(v, g, witness):
+    """(loss rel, {leaf: grad rel}) of (v, g) against a float64 witness."""
+    v64, g64 = witness
+    return abs(float(v) - v64) / abs(v64), {f: grad_rel({f: g[f]}, {f: g64[f]}) for f in g64}
+
+
+def phase_sharded_fused(dev):
+    """Phase 15: the fused sharded steps (the in-place sharded K_hat^-1 and
+    the streamed backward, gpscore_torch.parallel) on one NCCL rank at
+    n = 30,720, block 256: per rule the step-0 loss and gradient against
+    the single-device fused or fold-streamed step and phases 8 and 9's
+    float64 witnesses, the wall time, the peak, the collectives issued
+    against bench_sharded's analytic bytes; the f16 crps and dss steps; crps
+    at block 2048. Returns the path's Gram launches and its records."""
+    n, n2 = LARGE_N, 4.0 * LARGE_N * LARGE_N
+    x, y, _, _ = (t.to(dev) for t in large_n.make_data(n, LARGE_D, LARGE_TEST))
+    p0 = init_unit_params(LARGE_D, isotropic=False, device=dev)
+    eps = torch.cat(fold_eps(n, dev), dim=-1)  # phase 9's normals, [k, nb, 2 NUM_SIM]
+    # The single-device steps and the float64 logs witness, not counted.
+    single = {}
+    for rule in FUSED_RULES:
+        loss = make_objective(rule, model="exact", fold_k=FOLD_K, num_sim=NUM_SIM)
+        kw = {"eps": tuple(eps.split(NUM_SIM, dim=-1))} if rule == "es" else {}
+        v, g = bench_ceiling.value_and_grad(loss, p0, x, y, **kw)
+        single[rule] = (float(v), {f: t.cpu() for f, t in g.items()})
+        torch.cuda.empty_cache()
+    if "logs" not in F64_WITNESS:
+        F64_WITNESS["logs"] = f64_step0("logs", x, y, p0)
+        torch.cuda.empty_cache()
+    for rule in FUSED_RULES:
+        if rule not in F64_WITNESS:  # phase 15 alone: its own witnesses
+            F64_WITNESS[rule] = f64_step0(rule, x, y, p0, eps=tuple(eps.split(NUM_SIM, dim=-1)))
+            torch.cuda.empty_cache()
+
+    records, failed = {}, []
+    with one_nccl_rank(dev) as mdev:
+        mesh = make_mesh(devices=mdev, batch=1, data=1)
+        x_loc = shard_rows(x, mesh)
+        torch.cuda.synchronize()
+        gram_cuda.reset_launches()
+        runs = [(r, "highest", MESH_BLOCK) for r in FUSED_RULES]
+        runs += [(r, "f16", MESH_BLOCK) for r in FUSED_F16_RULES]
+        runs += [("crps", "highest", FUSED_WIDE_BLOCK)]
+        for rule, mode, block in runs:
+            # lr 1: from the unit parameters p0 = 1 the gradient is 1 - p1,
+            # exact to half an fp32 ulp of 1.
+            step = bench_sharded.make_step(mesh, rule, block, lr=1.0, fold_k=FOLD_K,
+                                           num_sim=NUM_SIM)
+            kw = {"eps": eps} if rule == "es" else {}
+            torch.cuda.empty_cache()
+            reset_collectives()
+            with precision.matmul_mode(mode):
+                (v, p1), peak = peak_of(lambda: step(p0, x_loc, y, **kw))
+                issued = {k: dict(c) for k, c in COLLECTIVES.items() if c["count"]}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(p0, x_loc, y, **kw)  # the timed call: the path's first call warms it
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            g = {f: (t.double() - getattr(p1, f).double()).cpu() for f, t in p0.leaves().items()}
+            limits = FOLD_F64_GRAD_RTOL if rule in FOLD_RULES else F64_GRAD_RTOL
+            lr64, ge64 = f64_gaps(v, g, F64_WITNESS[rule])
+            lrs, ges = f64_gaps(v, g, single[rule])
+            sent = sum(c["bytes"] for c in issued.values())
+            want = bench_sharded.analytic_collective_bytes(n, LARGE_D, block, 1, rule,
+                                                           2 if mode == "f16" else 4)
+            key = f"{rule}/{mode}/{block}"
+            records[key] = {"step_s": wall, "peak_n2": peak / n2, "loss": float(v),
+                            "loss_rel_f64": lr64, "grad_rel_f64": ge64, "loss_rel_single": lrs,
+                            "grad_rel_single": ges, "collectives": issued}
+            finite = np.isfinite(float(v)) and all(torch.isfinite(t).all() for t in g.values())
+            log(f"[fused] sharded {rule}, {mode}, block {block}, n = {n}, one rank: {wall:.3f} s, "
+                f"peak {peak / n2:.3f} n^2 * 4 B; loss {float(v):.7g}; against float64 loss rel "
+                f"{lr64:.3g}, grad rel by leaf "
+                + ", ".join(f"{f} {e:.3g}" for f, e in ge64.items())
+                + f"; against the single-device step loss rel {lrs:.3g}, grad rel by leaf "
+                + ", ".join(f"{f} {e:.3g}" for f, e in ges.items())
+                + f" (tol {LARGE_LOSS_RTOL}, {limits}{' in highest' if mode == 'f16' else ''}); "
+                f"collectives {issued}, {sent} bytes (analytic "
+                f"{want['analytic_collective_bytes']})")
+            if sent != want["analytic_collective_bytes"]:
+                failed.append((key, "collectives", sent, want))
+            if rule in ("crps", "dss") and mode == "highest" and block == MESH_BLOCK:
+                busy, kinds, _, pwall = bench_ceiling.device_profile(
+                    lambda: step(p0, x_loc, y, **kw))
+                records[key].update(busy_s=busy, busy_by_kind=kinds, idle_share=1 - busy / pwall)
+                log(f"[fused] sharded {rule}, a profiled step: device busy {busy:.4f} s of "
+                    f"{pwall:.4f} s (ms by kind: "
+                    + ", ".join(f"{k} {t * 1e3:.1f}" for k, t in kinds.items())
+                    + f"), idle share {1 - busy / pwall:.4f}")
+            if mode == "f16":  # phase 11's 2-byte limits: finite, 0.45 under highest's peak
+                top = records[f"{rule}/highest/{MESH_BLOCK}"]["peak_n2"]
+                if not finite or peak / n2 > top - PEAK_SAVE_N2:
+                    failed.append((key, "f16", float(v), peak / n2, top))
+                continue
+            if not (lr64 <= LARGE_LOSS_RTOL and lrs <= LARGE_LOSS_RTOL
+                    and all(e <= limits[f] for f, e in ge64.items())
+                    and all(e <= limits[f] for f, e in ges.items())):
+                failed.append((key, "accuracy", lr64, ge64, lrs, ges))
+            if peak > PEAK_LIMIT_N2 * n2:
+                failed.append((key, "peak", peak / n2))
+        torch.cuda.synchronize()
+        launches = dict(gram_cuda.LAUNCHES)
+    log(f"[fused] the fused sharded path ({len(runs)} steps): kernel launches {launches}")
+    for k, v in launches.items():
+        assert v > 0, f"kernel {k} was not launched on the fused sharded path"
+    assert not failed, failed
+    del x, y, eps
+    torch.cuda.empty_cache()
     return launches, records
 
 
@@ -2789,7 +2956,8 @@ def main():
                                                                              dev)
     launches["analysis"], err13, atimes = phase(13, phase_analysis, dev)
     launches["sharded"], _ = phase(14, phase_mesh, dev)
-    log(f"[phases] 1-14 in {time.perf_counter() - t0:.1f} s")
+    launches["sharded_fused"], _ = phase(15, phase_sharded_fused, dev)
+    log(f"[phases] 1-15 in {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, key in KERNELS:
         on_path = times[(name, *TIMED_SHAPES[0])]

@@ -110,14 +110,16 @@ def value_and_grad(loss, params, x, y, **kw):
 
 
 # Kinds of device kernel by a substring of the name, first match wins.
-KERNEL_KINDS = (("gram", ("gram_",)),
+KERNEL_KINDS = (("collective", ("nccl",)),
+                ("gram", ("gram_",)),
                 ("solver", ("potrf", "potf2", "getrf", "trsm", "trsv", "trtri", "syrk",
                             "chol")),
                 ("gemm", ("gemm", "gemv", "xmma", "cutlass", "nvjet")))
 
 
 def kernel_kind(name: str) -> str:
-    """"gram", "solver" (Cholesky and triangular solves), "gemm" or "other"."""
+    """"collective" (NCCL), "gram", "solver" (Cholesky and triangular
+    solves), "gemm" or "other"."""
     low = name.lower()
     return next((kind for kind, keys in KERNEL_KINDS if any(k in low for k in keys)), "other")
 

@@ -90,6 +90,72 @@ def _es_from_cols(zT, e_f, num_sim: int, beta: float):
     return energy_score_core(zT[:, :num_sim].T, zT[:, num_sim:].T, -e_f, num_sim, beta)
 
 
+def _fold_stats(A, a_f, want_inv_diag: bool):
+    """(e_f, hld_f, diag(A^-1) or None) of one fold from its fp32 block A =
+    [K^-1]_ff and a_f = [K^-1 y]_f: the factor, the fold's half log-det of
+    the precision, e_f = A^-1 a_f; the factor is the one nb^2 transient."""
+    La = linalg.chol_factor(A)
+    hld = linalg.half_logdet(La)
+    e = linalg.chol_solve_from_factor(La, a_f[:, None])[:, 0]
+    if not want_inv_diag:
+        return e, hld, None
+    X = _tri_inverse(La)
+    del La
+    return e, hld, torch.sum(X.square_(), dim=0)
+
+
+def _stats_fold_cot(A, e_f, e_bar_f, hld_bar_f, d_bar_f, block: int):
+    """(-A_bar_f, u = A^-1 e_bar_f) of one fold of the stats core (module
+    docstring), from its fp32 block A; ``d_bar_f`` None when the inverse
+    diagonal is not an output."""
+    nb = A.shape[0]
+    X = _tri_inverse(linalg.chol_factor(A))
+    Ainv = matmul(X.mT, X)
+    del X
+    u = matmul(Ainv, e_bar_f[:, None])[:, 0]
+    c_h = 0.5 * hld_bar_f
+    if d_bar_f is not None:
+        # A^-1 diag(d_bar) A^-1 in row strips: A^-1 and the block being
+        # built, and no third one.
+        S = torch.empty_like(Ainv)
+        for r0 in range(0, nb, block):
+            r1 = min(r0 + block, nb)
+            S[r0:r1] = matmul(Ainv[r0:r1] * d_bar_f[None, :], Ainv)
+        S.sub_(Ainv.mul_(c_h))
+    else:
+        S = Ainv.mul_(-c_h)
+    return S.addr_(u, e_f), u
+
+
+def _fold_es(A, a_f, eps_f, num_sim: int, beta: float):
+    """(energy score, e_f) of one fold from its fp32 block A, a_f and its
+    normals eps_f [nb, 2 num_sim]."""
+    La = linalg.chol_factor(A)
+    e = linalg.chol_solve_from_factor(La, a_f[:, None])[:, 0]
+    zT = linalg.tri_solve(La, eps_f, trans=True)
+    return _es_from_cols(zT, e, num_sim, beta), e
+
+
+def _es_fold_cot(A, e_f, eps_f, s_bar_f, num_sim: int, beta: float):
+    """(-A_bar_f, u) of one fold of the es core (module docstring) from its
+    fp32 block A and the forward's e_f and normals."""
+    La = linalg.chol_factor(A)
+    with torch.enable_grad():  # the score arithmetic alone
+        zT = linalg.tri_solve(La, eps_f, trans=True).requires_grad_()
+        e_ = e_f.detach().requires_grad_()
+        score = _es_from_cols(zT, e_, num_sim, beta)
+        zT_bar, e_bar = torch.autograd.grad(score, (zT, e_), s_bar_f)
+    u = linalg.chol_solve_from_factor(La, e_bar[:, None])[:, 0]
+    G = linalg.tri_solve(La, zT_bar)  # La^-1 Z_bar^T [nb, 2 S]
+    # H = eps G^T becomes T = La^-T Phi(H) La^-1 in place: La and H are the
+    # whole transient.
+    H = matmul(eps_f, G.T).tril_()
+    H.diagonal().mul_(0.5)
+    torch.linalg.solve_triangular(La.mT, H, upper=True, out=H)
+    torch.linalg.solve_triangular(La, H, upper=False, left=False, out=H)
+    return H.addr_(u, e_f), u
+
+
 def _stream_folds(ctx, a_bar, fold_cot):
     """The shared backward: (log_signal_bar, log_length_bar, log_noise_bar,
     y_bar). ``fold_cot(f, A_f)`` returns fold f's (-A_bar_f [nb, nb], a fresh
@@ -110,7 +176,8 @@ def _stream_folds(ctx, a_bar, fold_cot):
         def extra_rows(Kinv_b):  # rows of -K^-1[:, f] A_bar_f K^-1[f, :]
             return matmul_acc32(matmul_acc32(Kinv_b[:, s], S).to(st), Kinv[s])
 
-        part = loo_fused._stream_param_grads(Kinv, a, w, extra_rows, xs, sig, ctx.block)
+        part = loo_fused._stream_param_grads(lambda r0, r1: extra_rows(Kinv[r0:r1]), w, a, xs,
+                                             sig, ctx.block)
         sums = part if sums is None else tuple(p + q for p, q in zip(sums, part))
         del S, extra_rows  # one cotangent block live at a time
     return (*loo_fused._param_grads(sums, sig, log_length, log_noise_sq), w)
@@ -131,13 +198,9 @@ class ArdFoldStatsStream(torch.autograd.Function):
         inv_diag = a.new_zeros((fold_k, nb))
         for f in range(fold_k):
             s = slice(f * nb, (f + 1) * nb)
-            La = linalg.chol_factor(upcast(Kinv[s, s]))
-            hld[f] = linalg.half_logdet(La)
-            e[f] = linalg.chol_solve_from_factor(La, a[s, None])[:, 0]
+            e[f], hld[f], d = _fold_stats(upcast(Kinv[s, s]), a[s], want_inv_diag)
             if want_inv_diag:
-                X = _tri_inverse(La)
-                del La
-                inv_diag[f] = torch.sum(X.square_(), dim=0)
+                inv_diag[f] = d
         ctx.fold_k, ctx.want_inv_diag = fold_k, want_inv_diag
         ctx.save_for_backward(*saved, e)
         return e, hld, inv_diag, a
@@ -145,26 +208,10 @@ class ArdFoldStatsStream(torch.autograd.Function):
     @staticmethod
     def backward(ctx, e_bar, hld_bar, d_bar, a_bar):
         e = ctx.saved_tensors[6]
-        nb = e.shape[1]
 
         def fold_cot(f, A):
-            X = _tri_inverse(linalg.chol_factor(A))
-            Ainv = matmul(X.mT, X)
-            del X
-            u = matmul(Ainv, e_bar[f][:, None])[:, 0]
-            c_h = 0.5 * hld_bar[f]
-            if ctx.want_inv_diag:
-                d = d_bar[f]
-                # A^-1 diag(d_bar) A^-1 in row strips: A^-1 and the block
-                # being built, and no third one.
-                S = torch.empty_like(Ainv)
-                for r0 in range(0, nb, ctx.block):
-                    r1 = min(r0 + ctx.block, nb)
-                    S[r0:r1] = matmul(Ainv[r0:r1] * d[None, :], Ainv)
-                S.sub_(Ainv.mul_(c_h))
-            else:
-                S = Ainv.mul_(-c_h)
-            return S.addr_(u, e[f]), u
+            return _stats_fold_cot(A, e[f], e_bar[f], hld_bar[f],
+                                   d_bar[f] if ctx.want_inv_diag else None, ctx.block)
 
         s_bar, l_bar, n_bar, w = _stream_folds(ctx, a_bar.clone(), fold_cot)
         return s_bar, l_bar, n_bar, None, w, None, None, None
@@ -185,10 +232,7 @@ class ArdFoldEsStream(torch.autograd.Function):
         scores = a.new_empty((fold_k,))
         for f in range(fold_k):
             s = slice(f * nb, (f + 1) * nb)
-            La = linalg.chol_factor(upcast(Kinv[s, s]))
-            e[f] = linalg.chol_solve_from_factor(La, a[s, None])[:, 0]
-            zT = linalg.tri_solve(La, eps[f], trans=True)
-            scores[f] = _es_from_cols(zT, e[f], num_sim, beta)
+            scores[f], e[f] = _fold_es(upcast(Kinv[s, s]), a[s], eps[f], num_sim, beta)
         ctx.fold_k, ctx.num_sim, ctx.beta = fold_k, num_sim, beta
         ctx.save_for_backward(*saved, e, eps)
         return scores
@@ -198,21 +242,7 @@ class ArdFoldEsStream(torch.autograd.Function):
         a, e, eps = ctx.saved_tensors[1], ctx.saved_tensors[6], ctx.saved_tensors[7]
 
         def fold_cot(f, A):
-            La = linalg.chol_factor(A)
-            with torch.enable_grad():  # the score arithmetic alone
-                zT = linalg.tri_solve(La, eps[f], trans=True).requires_grad_()
-                e_f = e[f].detach().requires_grad_()
-                score = _es_from_cols(zT, e_f, ctx.num_sim, ctx.beta)
-                zT_bar, e_bar = torch.autograd.grad(score, (zT, e_f), s_bar[f])
-            u = linalg.chol_solve_from_factor(La, e_bar[:, None])[:, 0]
-            G = linalg.tri_solve(La, zT_bar)  # La^-1 Z_bar^T [nb, 2 S]
-            # H = eps G^T becomes T = La^-T Phi(H) La^-1 in place: La and H
-            # are the whole transient.
-            H = matmul(eps[f], G.T).tril_()
-            H.diagonal().mul_(0.5)
-            torch.linalg.solve_triangular(La.mT, H, upper=True, out=H)
-            torch.linalg.solve_triangular(La, H, upper=False, left=False, out=H)
-            return H.addr_(u, e[f]), u
+            return _es_fold_cot(A, e[f], eps[f], s_bar[f], ctx.num_sim, ctx.beta)
 
         s_bar_, l_bar, n_bar, w = _stream_folds(ctx, torch.zeros_like(a), fold_cot)
         return s_bar_, l_bar, n_bar, None, w, None, None, None, None, None

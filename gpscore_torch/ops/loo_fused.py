@@ -95,28 +95,33 @@ def _resolve_block(x, block) -> int:
     return auto_block(x.shape[0], device=x.device) if block is None else int(block)
 
 
-def _stream_param_grads(Kinv, a, w, extra_rows, xs, sig, block: int):
+def _stream_param_grads(rows_of, w, a, xs, sig, block: int, xs_cols=None, col0: int = 0):
     """(log_signal_bar, log_length_bar [d], trace(K_hat_bar)) of one streamed
-    pass: the rows of K_hat_bar for a row block are ``extra_rows(Kinv_b)``,
-    minus ``w_b a^T`` unless ``w`` is None, and go through the Gram backward
-    kernels with the block's scaled inputs. ``extra_rows`` returns a fresh
-    [b, n] tensor, which is updated in place. A backward of several passes
-    (one per fold) adds their sums."""
-    n = a.shape[0]
+    pass: the rows of K_hat_bar for a row block [r0, r1) are
+    ``rows_of(r0, r1)`` (a fresh tensor, updated in place), minus
+    ``w[r0:r1] a^T`` unless ``w`` is None, and go through the Gram backward
+    kernels with the block's scaled inputs. The columns are all of them
+    (``xs_cols`` None), or those of the scaled inputs ``xs_cols`` from column
+    ``col0`` on, ``a`` then being a's entries there: a rank's columns in the
+    sharded backward, whose partial sums the caller all-reduces. A backward
+    of several passes (one per fold) adds their sums."""
+    n = xs.shape[0]
+    xs_cols = xs if xs_cols is None else xs_cols
     sig_bar = a.new_zeros(())
     len_bar = xs.new_zeros((xs.shape[1],))
     trace = a.new_zeros(())
     for r0 in range(0, n, block):
         r1 = min(r0 + block, n)
-        g = extra_rows(Kinv[r0:r1])
+        g = rows_of(r0, r1)
         if w is not None:
             g.addr_(w[r0:r1], a, alpha=-1.0)
-        trace = trace + torch.sum(torch.diagonal(g[:, r0:r1]))
+        if col0 <= r0 < col0 + xs_cols.shape[0]:  # the diagonal block is among the columns
+            trace = trace + torch.sum(torch.diagonal(g[:, r0 - col0:r1 - col0]))
         xs_b = xs[r0:r1]
-        d_xs, d_xps, row = gram_cuda.gram_bwd(xs_b, xs, sig, g)
+        d_xs, d_xps, row = gram_cuda.gram_bwd(xs_b, xs_cols, sig, g.contiguous())
         del g  # before the next block's rows exist
         sig_bar = sig_bar + torch.sum(row)
-        len_bar = len_bar - torch.sum(d_xs * xs_b, dim=0) - torch.sum(d_xps * xs, dim=0)
+        len_bar = len_bar - torch.sum(d_xs * xs_b, dim=0) - torch.sum(d_xps * xs_cols, dim=0)
     return sig_bar, len_bar, trace
 
 
@@ -160,7 +165,8 @@ def _param_grads(sums, sig, log_length, log_noise_sq):
 def _backward(ctx, w, extra_rows):
     """One streamed pass and the parameter gradients of it."""
     Kinv, a, xs, sig, log_noise_sq, log_length = ctx.saved_tensors[:6]
-    sums = _stream_param_grads(Kinv, a, w, extra_rows, xs, sig, ctx.block)
+    sums = _stream_param_grads(lambda r0, r1: extra_rows(Kinv[r0:r1]), w, a, xs, sig,
+                               ctx.block)
     return _param_grads(sums, sig, log_length, log_noise_sq)
 
 

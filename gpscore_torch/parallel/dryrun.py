@@ -1,13 +1,16 @@
 """One run of each leg of the multi-device dry run (port of
-`__graft_entry__.py:103-186`, legs (1) to (6) of ``dryrun_multichip``).
+`__graft_entry__.py:103-252`, legs (1) to (12) of ``dryrun_multichip``).
 
 Under ``torchrun`` every rank runs every leg; alone, the legs run on a mesh
 of one rank. The mesh takes 'data' = 2 when the world size is even, the
-rest on 'batch', as JAX's does; the Cholesky and the two sharded steps take
-every rank on 'data'. The problems are the JAX legs' sizes (x [32, 2], four
-inducing points, an 8 p x 8 p SPD matrix, block 8), drawn from seeded CPU
-generators (not JAX's threefry numbers) and moved to the mesh's device, the
-same on every rank.
+rest on 'batch', as JAX's does; the Cholesky and the sharded steps take
+every rank on 'data'. Legs (7)-(12) are the fused sharded steps, each built
+once, run twice and held to descend, as in JAX: LOO crps, fold-streamed
+k-fold dss, NLML, es at the normals of one fixed generator seed in both
+steps, and the crps and dss steps under "f16" storage. The problems are
+the JAX legs' sizes (x [32, 2], four inducing points, an 8 p x 8 p SPD
+matrix, block 8), drawn from seeded CPU generators (not JAX's threefry
+numbers) and moved to the mesh's device, the same on every rank.
 
     torchrun --nproc_per_node=2 -m gpscore_torch.parallel.dryrun --device cpu
     python -m gpscore_torch.parallel.dryrun            # one rank, on the card
@@ -24,11 +27,15 @@ from gpscore_torch.fit import make_objective
 from gpscore_torch.parallel.mesh import init_distributed, make_mesh, shard_rows
 from gpscore_torch.parallel.sharded_cholesky import sharded_cholesky
 from gpscore_torch.parallel.sharded_gram import sharded_gram
-from gpscore_torch.parallel.sharded_kfold import make_sharded_kfold_fit_step
-from gpscore_torch.parallel.sharded_loo import (make_sharded_loo_fit_step,
+from gpscore_torch.parallel.sharded_kfold import (make_sharded_fused_kfold_fit_step,
+                                                  make_sharded_kfold_fit_step)
+from gpscore_torch.parallel.sharded_loo import (make_sharded_fused_loo_fit_step,
+                                                make_sharded_fused_nlml_fit_step,
+                                                make_sharded_loo_fit_step,
                                                 sharded_loo_value_and_grad)
 from gpscore_torch.parallel.sweeps import sharded_restart_sweep
 from gpscore_torch.utils.params import GPParams, init_unit_params
+from gpscore_torch.utils.precision import matmul_mode
 
 
 def _tiny_problem(n=32, d=2, m=4, seed=0):
@@ -43,8 +50,17 @@ def _to(p: GPParams, device) -> GPParams:
     return p.replace(**{f: t.to(device) for f, t in p.leaves().items()})
 
 
+def _twice(step, p, x, y, **kw):
+    """Two losses of ``step`` built once: from ``p``, then from its update;
+    the second must be the lower."""
+    loss, p1 = step(p, x, y, **kw)
+    loss2, _ = step(p1, x, y, **kw)
+    assert float(loss2) < float(loss), (float(loss), float(loss2))
+    return float(loss), float(loss2)
+
+
 def dryrun_multichip(device=None) -> dict:
-    """Run legs (1)-(6) once on the mesh of every rank of the default group
+    """Run legs (1)-(12) once on the mesh of every rank of the default group
     (joined if needed, :func:`init_distributed` on ``device``); returns each
     leg's result, the same on every rank."""
     device = init_distributed(device)
@@ -101,6 +117,28 @@ def dryrun_multichip(device=None) -> dict:
     kloss2, _ = kstep(p4, shard_rows(xb, mesh_d), yb)
     out["kfold_step"] = (float(kloss), float(kloss2))
     assert all(map(torch.isfinite, (loss, loss2, kloss, kloss2)))
+
+    # (7)-(9) the fused sharded LOO, fold-streamed k-fold dss and NLML steps.
+    xd = shard_rows(xb, mesh_d)
+    out["fused_loo_step"] = _twice(make_sharded_fused_loo_fit_step(mesh_d, lr=0.1, block=8), p2,
+                                   xd, yb)
+    out["fused_kfold_step"] = _twice(make_sharded_fused_kfold_fit_step(
+        mesh_d, rule="dss", fold_k=4, lr=0.001, block=8), p2, xd, yb)
+    out["fused_nlml_step"] = _twice(make_sharded_fused_nlml_fit_step(mesh_d, lr=0.001, block=8),
+                                    p2, xd, yb)
+    # (10) es: a generator of one seed in both steps, the same normals twice.
+    estep = make_sharded_fused_kfold_fit_step(mesh_d, rule="es", fold_k=4, lr=0.01, block=8,
+                                              num_sim=16)
+    loss, p8 = estep(p2, xd, yb, generator=torch.Generator(device=device).manual_seed(5))
+    loss2, _ = estep(p8, xd, yb, generator=torch.Generator(device=device).manual_seed(5))
+    assert float(loss2) < float(loss), (float(loss), float(loss2))
+    out["fused_es_step"] = (float(loss), float(loss2))
+    # (11), (12) the LOO and the fold-streamed dss step under 2-byte storage.
+    with matmul_mode("f16"):
+        out["f16_loo_step"] = _twice(make_sharded_fused_loo_fit_step(mesh_d, lr=0.1, block=8),
+                                     p2, xd, yb)
+        out["f16_kfold_step"] = _twice(make_sharded_fused_kfold_fit_step(
+            mesh_d, rule="dss", fold_k=4, lr=0.001, block=8), p2, xd, yb)
     return out
 
 

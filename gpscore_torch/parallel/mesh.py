@@ -34,9 +34,28 @@ from torch.distributed.device_mesh import init_device_mesh
 
 # The build directory at the repository root, beside the kernels' build.
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-# torch 2.13 deprecates all_gather_into_tensor for all_gather_single (the
-# same arguments), which older releases lack.
+# torch 2.13 deprecates all_gather_into_tensor and reduce_scatter_tensor for
+# all_gather_single and reduce_scatter_single (the same arguments), which
+# older releases lack.
 _all_gather = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
+_reduce_scatter = getattr(dist, "reduce_scatter_single", dist.reduce_scatter_tensor)
+
+# The collectives this process issued through the helpers below, by kind:
+# how many, and the bytes of their output on this rank (what a rank receives
+# or holds after the call: the gathered array, the scattered block, the
+# broadcast or reduced tensor). reset_collectives() sets them to 0.
+COLLECTIVES = {kind: {"count": 0, "bytes": 0}
+               for kind in ("broadcast", "all_gather", "all_reduce", "reduce_scatter", "reduce")}
+
+
+def reset_collectives() -> None:
+    for c in COLLECTIVES.values():
+        c.update(count=0, bytes=0)
+
+
+def _issued(kind: str, out) -> None:
+    COLLECTIVES[kind]["count"] += 1
+    COLLECTIVES[kind]["bytes"] += out.numel() * out.element_size()
 
 
 def init_distributed(device=None, init_method: Optional[str] = None,
@@ -160,12 +179,43 @@ def gather_rows(t, mesh: Mesh, axis: str = "data"):
     p = mesh.size(axis)
     out = t.new_empty((p * t.shape[0], *t.shape[1:]))
     _all_gather(out, t, group=mesh.group(axis))
+    _issued("all_gather", out)
     return out
 
 
 def all_reduce_sum(t, mesh: Mesh, axis: str = "data"):
     """``t`` summed over the ranks of ``axis``, in place; every rank gets the sum."""
     dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.group(axis))
+    _issued("all_reduce", t)
+    return t
+
+
+def reduce_scatter_sum(t, mesh: Mesh, axis: str = "data"):
+    """This rank's block of the leading axis of ``t`` [p r, ...] summed over
+    the ranks of ``axis``: block i (rows [i r, (i + 1) r)) lands on
+    coordinate i. One reduce-scatter; ``t`` must be contiguous."""
+    assert t.is_contiguous()
+    p = mesh.size(axis)
+    out = t.new_empty((t.shape[0] // p, *t.shape[1:]))
+    _reduce_scatter(out, t, group=mesh.group(axis))
+    _issued("reduce_scatter", out)
+    return out
+
+
+def broadcast(t, owner: int, mesh: Mesh, axis: str = "data"):
+    """``t`` (contiguous: a strided block was sent garbled at p > 1) from
+    coordinate ``owner`` of ``axis`` to every rank of it, in place."""
+    assert t.is_contiguous()
+    dist.broadcast(t, src=mesh.global_rank(axis, owner), group=mesh.group(axis))
+    _issued("broadcast", t)
+    return t
+
+
+def reduce_sum(t, owner: int, mesh: Mesh, axis: str = "data"):
+    """``t`` summed over the ranks of ``axis`` onto coordinate ``owner``, in
+    place there (the other ranks' ``t`` is left undefined)."""
+    dist.reduce(t, dst=mesh.global_rank(axis, owner), group=mesh.group(axis))
+    _issued("reduce", t)
     return t
 
 

@@ -26,10 +26,9 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.distributed as dist
 
 from gpscore_torch.ops.linalg import chol_factor
-from gpscore_torch.parallel.mesh import Mesh, gather_rows
+from gpscore_torch.parallel.mesh import Mesh, all_reduce_sum, broadcast, gather_rows, reduce_sum
 from gpscore_torch.utils.precision import addmm_, matmul
 
 
@@ -40,13 +39,6 @@ def _layout(A_local, mesh: Mesh, axis: str, block: int):
     if n % p != 0 or rows_per * p != n or rows_per % block != 0:
         raise ValueError(f"n={n} must be divisible by devices*block={p}*{block}")
     return n, p, rows_per, mesh.index(axis) * rows_per
-
-
-def _bcast(t, owner: int, mesh: Mesh, axis: str):
-    """``t`` (contiguous) from coordinate ``owner`` of ``axis`` to every rank of it."""
-    assert t.is_contiguous()
-    dist.broadcast(t, src=mesh.global_rank(axis, owner), group=mesh.group(axis))
-    return t
 
 
 def sharded_cholesky_(A_local, mesh: Mesh, axis: str = "data", block: int = 256):
@@ -61,7 +53,7 @@ def sharded_cholesky_(A_local, mesh: Mesh, axis: str = "data", block: int = 256)
         # (1) the owner's updated diagonal block, (2) factored on every rank.
         D = (L[off:off + block, kb:kb + block].contiguous() if me == owner
              else L.new_empty((block, block)))
-        L_kk = chol_factor(_bcast(D, owner, mesh, axis))
+        L_kk = chol_factor(broadcast(D, owner, mesh, axis))
         # (3) this rank's rows of the strip, C L_kk^-T; rows above the panel
         # are final L (their strip entries are upper-triangle zeros).
         lo = min(max(kb - row0, 0), rows_per)
@@ -122,8 +114,7 @@ def sharded_half_logdet(L_sharded, mesh: Mesh, axis: str = "data"):
     own diagonal entries; one scalar all-reduce. Replicated."""
     row0 = mesh.index(axis) * L_sharded.shape[0]
     out = torch.sum(torch.log(L_sharded.diagonal(offset=row0))).reshape(1)
-    dist.all_reduce(out, group=mesh.group(axis))
-    return out[0]
+    return all_reduce_sum(out, mesh, axis)[0]
 
 
 def sharded_tri_solve_lower(L_sharded, b, mesh: Mesh, axis: str = "data", block: int = 256):
@@ -146,7 +137,7 @@ def sharded_tri_solve_lower(L_sharded, b, mesh: Mesh, axis: str = "data", block:
                                                 upper=False)[:, 0].contiguous()
         else:
             x_k = b.new_empty(block)
-        x[kb:kb + block] = _bcast(x_k, owner, mesh, axis)
+        x[kb:kb + block] = broadcast(x_k, owner, mesh, axis)
     return x
 
 
@@ -190,7 +181,7 @@ def sharded_tri_inverse_lower(L_sharded, mesh: Mesh, axis: str = "data", block: 
             X[off:off + block, :w] = X_k
         else:
             X_k = X.new_empty((block, w))
-        _bcast(X_k, owner, mesh, axis)
+        broadcast(X_k, owner, mesh, axis)
         lo = min(max(w - row0, 0), rows_per)
         if lo < rows_per:
             addmm_(X[lo:, :w], L_sharded[lo:, kb:w], X_k, alpha=-1.0)
@@ -215,7 +206,7 @@ def sharded_inverse_from_linv(Linv_sharded, mesh: Mesh, axis: str = "data"):
             term = Linv_sharded.new_zeros((rows_per, n))
             if t <= me:
                 term[:, :hi] = matmul(Linv_sharded[:, cols].mT, Linv_sharded[:, :hi])
-            dist.reduce(term, dst=mesh.global_rank(axis, t), group=mesh.group(axis))
+            reduce_sum(term, t, mesh, axis)
         if t == me:
             mine = term
         del term

@@ -1,6 +1,8 @@
 """Mesh-sharded k-fold objectives, dss / es / kc (port of
-`gpscore/parallel/sharded_kfold.py:34-212`: the out-of-place distributed
-stack; the fused sharded step is not ported yet).
+`gpscore/parallel/sharded_kfold.py`): the out-of-place distributed stack,
+and the fused sharded step (:func:`make_sharded_fused_kfold_fit_step`), which
+dispatches to the fold-streamed one of
+:mod:`~gpscore_torch.parallel.sharded_fold_stream`.
 
 The distributed dense stack of :mod:`~gpscore_torch.parallel.sharded_loo`
 (sharded Gram, panel Cholesky, L^-1 by distributed substitution, K_hat^-1's
@@ -145,3 +147,32 @@ def make_sharded_kfold_fit_step(
         return loss, _sgd(params, grads, lr)
 
     return step
+
+
+def make_sharded_fused_kfold_fit_step(
+    mesh: Mesh,
+    rule: str = "dss",
+    fold_k: int = 4,
+    lr: float = 0.001,
+    axis: str = "data",
+    block: int = 256,
+    num_sim: int = 300,
+    es_beta: float = 1.0,
+    streamed: bool = True,
+):
+    """The fused sharded k-fold gradient step: with ``streamed`` (JAX's
+    default) the fold-streamed step,
+    :func:`~gpscore_torch.parallel.sharded_fold_stream.make_sharded_streamed_kfold_fit_step`,
+    with its contract (``step(params, x, y, generator=None, eps=None)``).
+    ``streamed=False``, JAX's stacked form, is a parity oracle that the port
+    does not carry (ROADMAP.md, "Not to port"): ``NotImplementedError``."""
+    if rule not in KFOLD_RULES:
+        raise ValueError(f"rule must be one of {KFOLD_RULES}, got {rule!r}")
+    if not streamed:
+        raise NotImplementedError(
+            "streamed=False, the stacked fused k-fold step, is not ported (ROADMAP.md, 'Not to "
+            "port'): it is JAX's parity form, superseded by the fold-streamed step")
+    from gpscore_torch.parallel.sharded_fold_stream import make_sharded_streamed_kfold_fit_step
+
+    return make_sharded_streamed_kfold_fit_step(mesh, rule=rule, fold_k=fold_k, lr=lr, axis=axis,
+                                                block=block, num_sim=num_sim, es_beta=es_beta)

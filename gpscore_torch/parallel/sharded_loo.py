@@ -1,5 +1,6 @@
-"""Mesh-sharded dense LOO objectives (port of `gpscore/parallel/sharded_loo.py`:
-the out-of-place distributed stack; the fused sharded steps are not ported yet).
+"""Mesh-sharded dense LOO objectives (port of `gpscore/parallel/sharded_loo.py`):
+the out-of-place distributed stack, and the fused sharded LOO and NLML steps
+(:func:`make_sharded_fused_loo_fit_step`, :func:`make_sharded_fused_nlml_fit_step`).
 
 Every n x n operand stays row-sharded over the mesh's 'data' axis, each rank
 holding [n/p, n], and every collective is written out:
@@ -18,6 +19,14 @@ holding [n/p, n], and every collective is written out:
 
 JAX jits these steps once; here a ``make_*`` factory builds the step once
 and runs it eagerly (no CUDA graph holds collectives in this port yet).
+
+The fused steps keep only this rank's rows of K_hat^-1 across the step:
+their forward is the in-place sharded pipeline
+(:func:`~gpscore_torch.parallel.sharded_potri.ard_gram_inverse_inplace_sharded`),
+their backward the streamed contraction
+(:func:`~gpscore_torch.parallel.sharded_potri.make_streamed_ard_bwd`), one
+``torch.autograd.Function`` spanning both; ~n^2/p + O(n b) a rank, at the
+precision mode's ``storage_dtype()``.
 """
 
 from __future__ import annotations
@@ -28,16 +37,18 @@ from typing import Optional
 import torch
 
 from gpscore_torch.fit.objectives import make_objective
-from gpscore_torch.parallel.mesh import Mesh, all_reduce_sum, gather_rows
-from gpscore_torch.parallel.sharded_cholesky import (_bcast, add_noise_sharded,
+from gpscore_torch.parallel.mesh import Mesh, all_reduce_sum, broadcast, gather_rows
+from gpscore_torch.parallel.sharded_cholesky import (add_noise_sharded,
                                                      sharded_cholesky, sharded_half_logdet,
                                                      sharded_inverse_from_linv,
                                                      sharded_tri_inverse_lower,
                                                      sharded_tri_solve_lower)
 from gpscore_torch.parallel.sharded_gram import sharded_gram
+from gpscore_torch.parallel.sharded_potri import (ard_gram_inverse_inplace_sharded,
+                                                  make_streamed_ard_bwd, sharded_diag)
 from gpscore_torch.scoring import rules
 from gpscore_torch.utils.params import GPParams
-from gpscore_torch.utils.precision import addmm_, matmul
+from gpscore_torch.utils.precision import addmm_, matmul, matmul_acc32, storage_dtype, upcast
 
 LOO_RULES = ("crps", "logs", "interval")
 
@@ -71,7 +82,7 @@ def sub_times_S(out, M_local, S_local, mesh: Mesh, axis: str = "data"):
     for t in range(mesh.size(axis)):
         S_t = S_local if t == me else S_local.new_empty(S_local.shape)
         if mesh.size(axis) > 1:
-            _bcast(S_t, t, mesh, axis)
+            broadcast(S_t, t, mesh, axis)
         addmm_(out, M_local[:, t * rows_per:(t + 1) * rows_per], S_t, alpha=-1.0)
         del S_t
     return out
@@ -276,3 +287,101 @@ def sharded_loo_fit_step(params, x, y, mesh, lr: float = 1.0, axis: str = "data"
     builds once)."""
     return make_sharded_loo_fit_step(mesh, lr=lr, axis=axis, block=block, kernel=kernel)(
         params, x, y)
+
+
+def _fused_forward(ctx, log_signal_sq, log_length, log_noise_sq, x, y, mesh, axis, block):
+    """K_hat^-1's rows at the mode's storage and the half log-det; a = K^-1 y
+    gathered. Saves what the streamed backward reads: the rows, a, x and the
+    three log-parameters."""
+    Kinv, hld = ard_gram_inverse_inplace_sharded(log_signal_sq, log_length, log_noise_sq, x, mesh,
+                                                 axis, block, storage=storage_dtype())
+    a = gather_rows(matmul_acc32(Kinv, y.reshape(-1, 1).to(Kinv.dtype))[:, 0], mesh, axis)
+    ctx.save_for_backward(Kinv, a, x, log_signal_sq, log_length, log_noise_sq)
+    return Kinv, a, hld
+
+
+class _ShardedFusedLoo(torch.autograd.Function):
+    """(a, d) = (K_hat^-1 y, diag K_hat^-1), replicated, for K_hat =
+    K_ard(x) + noise I, x [n, d] replicated; differentiable in the three
+    log-parameters and y."""
+
+    @staticmethod
+    def forward(ctx, log_signal_sq, log_length, log_noise_sq, x, y, mesh, axis, block, bwd):
+        Kinv, a, _ = _fused_forward(ctx, log_signal_sq, log_length, log_noise_sq, x, y, mesh,
+                                    axis, block)
+        ctx.bwd = bwd
+        return a, gather_rows(upcast(sharded_diag(Kinv, mesh, axis)), mesh, axis)
+
+    @staticmethod
+    def backward(ctx, a_bar, d_bar):
+        s_bar, l_bar, n_bar, w = ctx.bwd(*ctx.saved_tensors, (a_bar, d_bar))
+        return s_bar, l_bar, n_bar, None, w, None, None, None, None
+
+
+class _ShardedFusedNlml(torch.autograd.Function):
+    """0.5 n log 2pi + 0.5 log det K_hat + 0.5 y^T K_hat^-1 y, replicated,
+    the half log-det from the sharded factorization."""
+
+    @staticmethod
+    def forward(ctx, log_signal_sq, log_length, log_noise_sq, x, y, mesh, axis, block, bwd):
+        _, a, hld = _fused_forward(ctx, log_signal_sq, log_length, log_noise_sq, x, y, mesh,
+                                   axis, block)
+        ctx.bwd = bwd
+        return 0.5 * x.shape[0] * math.log(2.0 * math.pi) + hld + 0.5 * torch.dot(y, a)
+
+    @staticmethod
+    def backward(ctx, v_bar):
+        s_bar, l_bar, n_bar, _ = ctx.bwd(*ctx.saved_tensors, v_bar)
+        return s_bar, l_bar, n_bar, None, v_bar * ctx.saved_tensors[1], None, None, None, None
+
+
+def _fused_step(loss_of, mesh: Mesh, axis: str, lr: float):
+    """``step(params, x, y) -> (loss, params - lr grad)`` of ``loss_of(p,
+    x_full, y)``, x this rank's rows (gathered once a step); the gradients
+    come replicated out of the streamed backward, so nothing is reduced."""
+
+    def step(params, x, y):
+        y = y.reshape(-1)
+        x_full = gather_rows(x, mesh, axis)
+        loss, grads = _value_and_grad(lambda p: loss_of(p, x_full, y), params, mesh, axis,
+                                      reduce=False)
+        return loss, _sgd(params, grads, lr)
+
+    return step
+
+
+def make_sharded_fused_loo_fit_step(mesh: Mesh, lr: float = 1.0, axis: str = "data",
+                                    block: int = 256, rule: str = "crps"):
+    """The fused sharded LOO gradient step of ``rule`` (crps, logs or
+    interval): the in-place sharded K_hat^-1, the LOO moments, the rule, the
+    streamed backward, an SGD update. Returns ``step(params, x, y) -> (loss,
+    updated params)``, x this rank's rows, y [n] and params replicated; n must
+    divide by p * block. Built once, run eagerly each call; per rank ~n^2/p +
+    O(n block) across the step."""
+    score = {"crps": rules.crps_gaussian, "logs": rules.logs_gaussian,
+             "interval": rules.interval_score}[rule]
+    bwd = make_streamed_ard_bwd(mesh, "loo", axis=axis, block=block)
+
+    def loss_of(p, x, y):
+        a, d = _ShardedFusedLoo.apply(p.log_signal_sq, p.log_length, p.log_noise_sq, x, y, mesh,
+                                      axis, block, bwd)
+        return score(y - a / d, 1.0 / d, y)
+
+    return _fused_step(loss_of, mesh, axis, lr)
+
+
+def make_sharded_fused_nlml_fit_step(mesh: Mesh, lr: float = 0.0005, axis: str = "data",
+                                     block: int = 256):
+    """The fused sharded NLML gradient step (reference inline NLML at
+    `SIMPLE-DATA FULL-comapre.py:292-296`): the forward of
+    :func:`make_sharded_fused_loo_fit_step` with the half log-det free from
+    the factorization, and a backward that reads K_hat_bar = v_bar (K^-1 -
+    a a^T) / 2 off the local rows: no sandwich product, no collective but
+    the final all-reduce. Same contract as the LOO step."""
+    bwd = make_streamed_ard_bwd(mesh, "nlml", axis=axis, block=block)
+
+    def loss_of(p, x, y):
+        return _ShardedFusedNlml.apply(p.log_signal_sq, p.log_length, p.log_noise_sq, x, y, mesh,
+                                       axis, block, bwd)
+
+    return _fused_step(loss_of, mesh, axis, lr)

@@ -325,9 +325,13 @@ def addmm_(C, A, B, alpha=1.0, beta=1.0, crit: bool = False):
             C.zero_()
         elif beta != 1.0:
             C.mul_(beta)
-        # Row panels of A: the fp32 product's temporary stays [_SPLIT_ROWS, B's columns].
-        for i0 in range(0, A.shape[0], _SPLIT_ROWS):
-            C[i0:i0 + _SPLIT_ROWS].add_(_stored_mm(A[i0:i0 + _SPLIT_ROWS], B), alpha=alpha)
+        # Row panels of A: the fp32 product's temporary stays within _SPLIT_ROWS x
+        # _SPLIT_K entries, [_SPLIT_ROWS, B's columns] for a B of _SPLIT_K columns
+        # or more, taller panels of a narrower B (a panel of 256 columns: one
+        # launch for 16,384 rows, not eight).
+        rows = max(_SPLIT_ROWS, _SPLIT_ROWS * _SPLIT_K // max(B.shape[-1], 1))
+        for i0 in range(0, A.shape[0], rows):
+            C[i0:i0 + rows].add_(_stored_mm(A[i0:i0 + rows], B), alpha=alpha)
         return C
     passes = _passes(crit, A.shape[-1])
     if passes is None or _is_matvec(A, B):

@@ -101,7 +101,8 @@ def case_dryrun(world):
 
     dry = dryrun_multichip("cpu")
     return {"cholesky_rows": np.asarray(dry["cholesky_rows"]),
-            "steps": np.asarray(dry["loo_step"] + dry["kfold_step"])}
+            "steps": np.asarray(dry["loo_step"] + dry["kfold_step"]),
+            **{k: np.asarray(v) for k, v in dry.items() if k.startswith(("fused_", "f16_"))}}
 
 
 def case_multi_restart(world, out_path, iters, restarts):
@@ -203,8 +204,128 @@ def case_dense(world, A, b, x, y, K, p, lr, block, fold_k):
     return out
 
 
+def case_fused(world, x, y, p, cot, lr, block, num_sim, eps4, eps2):
+    """The in-place sharded K_hat^-1 (fp32, bf16, f16), sharded_diag, the
+    streamed backward in its three modes, the fused LOO, NLML and
+    fold-streamed k-fold steps (both contraction orders; es at the given
+    normals; f16 crps and dss), the collectives a step issued and the shape
+    checks, at 1, 2 and 4 ranks on 'data'. ``cot``: the cotangents of the
+    backward's modes; ``eps4``/``eps2``: the es normals at fold_k = 4 and 2."""
+    from gpscore_torch.experiments.bench_sharded import analytic_collective_bytes
+    from gpscore_torch.ops.potri_inplace import ard_gram_inverse_inplace
+    from gpscore_torch.parallel import (COLLECTIVES, ard_gram_inverse_inplace_sharded,
+                                        gather_rows, make_mesh, make_sharded_fused_kfold_fit_step,
+                                        make_sharded_fused_loo_fit_step,
+                                        make_sharded_fused_nlml_fit_step,
+                                        make_sharded_streamed_kfold_fit_step,
+                                        make_streamed_ard_bwd, reset_collectives, shard_rows,
+                                        sharded_diag)
+    from gpscore_torch.utils.precision import matmul_mode
+
+    out = {}
+    xt, yt = torch.as_tensor(x), torch.as_tensor(y)
+    params = _params(p)
+    s, ell, nu = params.log_signal_sq, params.log_length, params.log_noise_sq
+    n = x.shape[0]
+    # The unsharded pipeline in this process (its thread settings), for the
+    # bitwise checks at one rank on 'data'.
+    for name, st in (("fp32", None), ("bf16", torch.bfloat16), ("f16", torch.float16)):
+        out[f"potri_unsharded_{name}"] = _np(ard_gram_inverse_inplace(
+            s, ell, nu, xt, block=block, storage=st).float())
+    for _, d in meshes(world):
+        mesh = make_mesh(batch=world // d, data=d)
+        x_loc = shard_rows(xt, mesh)
+        for name, st in (("fp32", None), ("bf16", torch.bfloat16), ("f16", torch.float16)):
+            Kinv, hld = ard_gram_inverse_inplace_sharded(s, ell, nu, xt, mesh, block=block,
+                                                         storage=st)
+            out[f"potri_{name}_{d}"] = _np(gather_rows(Kinv.float(), mesh))
+            out[f"potri_hld_{name}_{d}"] = _np(hld)
+        Kinv, _ = ard_gram_inverse_inplace_sharded(s, ell, nu, xt, mesh, block=block)
+        out[f"diag_{d}"] = _np(gather_rows(sharded_diag(Kinv, mesh), mesh))
+        a = gather_rows(Kinv @ yt, mesh)
+        cases = [("loo", None, (torch.as_tensor(cot["a_bar"]), torch.as_tensor(cot["d_bar"]))),
+                 ("nlml", None, torch.tensor(float(cot["v_bar"]))),
+                 ("kfold", 4, (torch.as_tensor(cot["a_bar"]), torch.as_tensor(cot["A_bar4"])))]
+        if d == 4:
+            cases.append(("kfold", 2, (torch.as_tensor(cot["a_bar"]),
+                                       torch.as_tensor(cot["A_bar2"]))))
+        for mode, fk, c in cases:
+            bwd = make_streamed_ard_bwd(mesh, mode, fold_k=fk, block=block)
+            got = bwd(Kinv, a, xt, s, ell, nu, c)
+            for i, t in enumerate(got):
+                out[f"bwd_{mode}{fk or ''}_{i}_{d}"] = _np(t)
+
+        def record(key, step, **kw):  # the loss and the updated parameters of one step
+            loss, p1 = step(params, x_loc, yt, **kw)
+            out[f"{key}_{d}"] = _np(loss)
+            for f, t in p1.leaves().items():
+                out[f"{key}_{f}_{d}"] = _np(t)
+
+        for rule in ("crps", "logs", "interval"):
+            record(f"loo_{rule}", make_sharded_fused_loo_fit_step(mesh, lr=lr, block=block,
+                                                                  rule=rule))
+        record("nlml", make_sharded_fused_nlml_fit_step(mesh, lr=lr, block=block))
+        for fk in (4, 2) if d == 4 else (4,):
+            for rule in ("dss", "kc"):
+                record(f"kfold_{rule}{fk}", make_sharded_fused_kfold_fit_step(
+                    mesh, rule=rule, fold_k=fk, lr=lr, block=block))
+            record(f"kfold_es{fk}", make_sharded_streamed_kfold_fit_step(
+                mesh, rule="es", fold_k=fk, lr=lr, block=block, num_sim=num_sim),
+                eps=torch.as_tensor(eps4 if fk == 4 else eps2))
+        with matmul_mode("f16"):
+            record("f16_crps", make_sharded_fused_loo_fit_step(mesh, lr=lr, block=block))
+            record("f16_dss", make_sharded_fused_kfold_fit_step(mesh, rule="dss", lr=lr,
+                                                                block=block))
+
+        # The collectives of one step against the analytic count, per rule.
+        counted = {}
+        for rule, step in (("crps", make_sharded_fused_loo_fit_step(mesh, lr=lr, block=block)),
+                           ("nlml", make_sharded_fused_nlml_fit_step(mesh, lr=lr, block=block)),
+                           ("dss", make_sharded_fused_kfold_fit_step(mesh, lr=lr,
+                                                                     block=block))):
+            reset_collectives()
+            step(params, x_loc, yt)
+            got = sum(c["bytes"] for c in COLLECTIVES.values())
+            want = analytic_collective_bytes(n, x.shape[1], block, d, rule, 4)
+            counted[rule] = got == want["analytic_collective_bytes"]
+        out[f"collectives_{d}"] = np.asarray([counted[r] for r in ("crps", "nlml", "dss")])
+
+        # n = 128 not divisible by p * 24; fold_k = 3 not dividing n; folds of
+        # 42 rows, which do not tile a rank's rows.
+        bad = []
+        for fn in (lambda: make_sharded_fused_loo_fit_step(mesh, block=3 * block)(
+                       params, x_loc, yt),
+                   lambda: ard_gram_inverse_inplace_sharded(s, ell, nu, xt, mesh,
+                                                            block=3 * block),
+                   lambda: make_sharded_fused_kfold_fit_step(mesh, fold_k=3, block=block)(
+                       params, x_loc, yt),
+                   lambda: make_streamed_ard_bwd(mesh, "kfold", fold_k=3, block=block)(
+                       Kinv, a, xt, s, ell, nu, (a, torch.zeros(3, 42, 42)))):
+            try:
+                fn()
+                bad.append(False)
+            except ValueError:
+                bad.append(True)
+        try:
+            make_sharded_fused_kfold_fit_step(mesh, streamed=False)
+            bad.append(False)
+        except NotImplementedError as e:
+            bad.append("Not to port" in str(e))
+        out[f"bad_shapes_{d}"] = np.asarray(bad)
+    return out
+
+
+def case_bench_sharded(world, argv):
+    """bench_sharded.main on the ranks: its record as JSON."""
+    import json
+
+    from gpscore_torch.experiments import bench_sharded
+
+    return {"record": np.asarray(json.dumps(bench_sharded.main(argv)))}
+
+
 CASES = {"mesh": case_mesh, "multi_restart": case_multi_restart, "dense": case_dense,
-         "dryrun": case_dryrun}
+         "dryrun": case_dryrun, "fused": case_fused, "bench_sharded": case_bench_sharded}
 
 
 def _child(rank, world, store, out_dir, case, kwargs):
