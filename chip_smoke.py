@@ -203,13 +203,24 @@ Phases, none of whose failures is caught:
    ``bench_sharded.analytic_collective_bytes``. The launch counters are
    zeroed just before the steps and read just after (the "sharded_fused"
    path).
+16. The RESULTS.md sweep tables (``gpscore_torch.experiments.results_parity``).
+   (1) Phase 12 (1) at the tables' batched shapes (100x120x120x1,
+   10x500x20x8, 10x20x20x8, 5x9700x256x8, 5x256x256x8), timed there. (2) ``results_parity.main(
+   ["--quick", ...])``: simple_full's 100 replicates of crps, nlml and logs
+   and kin40k_fitc's 10 of crps and nlml, each replicate from the JAX
+   package's initial draw (and, for simple_full, its data), fitted on the
+   card; every paired line against the committed JAX CPU fits and every
+   ``[jax-eval]`` line must pass; the launch counters zeroed just before and
+   read just after (the "results_parity" path); the paired deltas and the
+   wall time logged.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit;
 before it, one JSON line describes every kernel: ``ms``, ``plain_ms``,
 ``bound_ms`` and ``bound_by`` at the FITC path's 500x20x8 (``library_ms`` is
 null: no single PyTorch call computes the ARD Gram or either half of its
 VJP), ``launches`` summed over the FITC, exact, large-n, large-n fold, graph,
-precision, two sweep, analysis, sharded and fused sharded paths (each path's count under
+precision, two sweep, analysis, sharded, fused sharded and results_parity paths (each
+path's count under
 ``launches_by_path``; a graph's replays are counted, gram_fwd's 2-byte
 launches under gram_fwd), and
 under ``shapes`` the per-call and device
@@ -218,7 +229,7 @@ times, the bound and the roofline share at every timed shape, with
 ``device_ms``; ``cuda_events``: ``ms``, and no ``device_ms``); gram_fwd's
 2-byte shapes end in ``/bf16`` or ``/f16``, the float64 ones in ``/f64``
 (``500x500x8/f64``; their bound at the fp64 rate), the d-chunked ones are
-keyed as the others (``500x500x65``), the batched ones are keyed
+keyed as the others (``500x500x65``), the batched ones (phases 12 and 16) are keyed
 ``BxNxMxD`` (``16x500x20x8``) and add ``loop_ms``, a loop of B unbatched
 launches; phase 13's shapes (``2500x20x20x1``, ``90000x20x20x1``,
 ``70000x20x5x1``, ``2500x500x500x1``) have no loop, and their surface
@@ -248,7 +259,8 @@ from gpscore_torch.bench_gram import (cuda_ms, device_ms, kernel_inputs, kernel_
                                      nvidia_smi_line, time_shapes)
 from gpscore_torch.data import kin40k_fitc20_init, kin40k_replicate_split, load_kin40k
 from gpscore_torch.experiments import (analysis_figures, bench_ceiling, bench_sharded, common,
-                                       kin40k_full, large_n, multi_restart, parity_report)
+                                       kin40k_full, large_n, multi_restart, parity_report,
+                                       results_parity)
 from gpscore_torch.fit import (SCHEDULES, eval_predictive_metrics, fit_and_eval, fit_gd,
                                fit_gd_batch, fit_optim, make_objective, train)
 from gpscore_torch.metrics import evaluate_predictive
@@ -462,6 +474,14 @@ BIG_BWD = (70000, 20, 5, 1)  # a batched backward past the limit: B, n, m, d
 # curve's largest magnitude (a relative change is ~0 at the truth).
 CURVE_RTOL = 1e-5
 ANALYSIS_OUT = "build/analysis_figures"  # gitignored, beside the kernel build
+# Phase 16: the batched Grams of the sweep tables, (B, n, m, d): simple_full's
+# 100 replicates' K_ff (n = 120, d = 1), kin40k_fitc's ten K_fu and K_uu, and
+# the m = 256 full pool's five K_fu and K_uu (the largest FITC batch of the
+# full run, which the quick run does not reach).
+PARITY_SHAPES = [(100, 120, 120, 1), (10, 500, 20, 8), (10, 20, 20, 8), (5, 9700, 256, 8),
+                 (5, 256, 256, 8)]
+PARITY_SQUARE = [(120, 120), (20, 20), (256, 256)]
+PARITY_OUT = "build/results_parity"
 # Phase 14.
 MESH_BLOCK = 256  # the sharded steps' panel width at n = 30,720
 MESH_SMALL_N = 8192  # the Cholesky family against float64
@@ -2046,15 +2066,16 @@ def time_kernel(name, kern, plain, shape, reps, warmup, loop=None, shared_x=Fals
     return t, bound
 
 
-def sweep_kernels(dev, err):
-    """Phase 12 (1): the batched kernels against their batched plain
-    versions, bitwise the unbatched launch at B = 1, a second call bitwise
-    equal; timed beside a loop of B unbatched launches and the batched
-    roofline bound. Returns {shape key: {kernel: times}}."""
+def sweep_kernels(dev, err, shapes=SWEEP_SHAPES, squares=SWEEP_SQUARE, tag="sweeps"):
+    """Phase 12 (1), and phase 16 (1) at its ``shapes``: the batched kernels
+    against their batched plain versions, bitwise the unbatched launch at B =
+    1, a second call bitwise equal; timed beside a loop of B unbatched
+    launches and the batched roofline bound. Returns {shape key: {kernel:
+    times}}."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = {}
-    for s, (B, n, m, d) in enumerate(SWEEP_SHAPES):
-        square = (n, m) in SWEEP_SQUARE
+    for s, (B, n, m, d) in enumerate(shapes):
+        square = (n, m) in squares
         xs, xps, sig, g = batched_kernel_inputs(B, n, m, d, dev, seed=s, square=square)
         calls = {k: kp[0] for k, kp in kernel_calls().items()}
         plains = {k: kp[1] for k, kp in kernel_calls().items()}
@@ -2090,7 +2111,7 @@ def sweep_kernels(dev, err):
                     gap = max(gap, float((a[b] - v).abs().max()))
             per_batch[name] = "bitwise" if alike[name] else f"tiled otherwise, max abs {gap:.3g}"
         torch.cuda.synchronize()
-        log(f"[sweeps] {key}: errors against the batched plain versions "
+        log(f"[{tag}] {key}: errors against the batched plain versions "
             + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
             + f" (tol fwd {FWD_ATOL}, bwd {BWD_ATOL} + {BWD_RTOL} * max|ref|); B = 1 bitwise "
             f"the unbatched launch; second call bitwise equal; each batch against its unbatched "
@@ -2110,7 +2131,7 @@ def sweep_kernels(dev, err):
 
             t, bound = time_kernel(name, kern, plain, (B, n, m, d), reps=50, warmup=5, loop=loop)
             out[key][name] = t
-            log(f"[sweeps-time] {name} {key}: per call batched {t['ms']:.5f} ms, a loop of {B} "
+            log(f"[{tag}-time] {name} {key}: per call batched {t['ms']:.5f} ms, a loop of {B} "
                 f"unbatched launches {t['loop_ms']:.5f} ms ({t['loop_ms'] / t['ms']:.2f}x), plain "
                 f"{t['plain_ms']:.5f} ms; device {ms_text(t.get('device_ms'))}; bound "
                 f"{bound.bound_us:.4f} us "
@@ -2923,6 +2944,41 @@ def phase_sharded_fused(dev):
     return launches, records
 
 
+def phase_results_parity(dev):
+    """Phase 16: the RESULTS.md sweep tables' quick subset through
+    results_parity, from the JAX package's initial draws, paired per replicate
+    against its committed CPU fits. Returns the path's launches and the
+    kernels' errors and times at its batched shapes."""
+    err = {k: 0.0 for k in REPLACES}
+    times = sweep_kernels(dev, err, PARITY_SHAPES, PARITY_SQUARE, tag="parity")
+    # (2) results_parity --quick, the launch counters zeroed just before and
+    # read just after (the "results_parity" path).
+    torch.cuda.synchronize()
+    gram_cuda.reset_launches()
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = results_parity.main(["--quick", "--outdir", PARITY_OUT])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(gram_cuda.LAUNCHES)
+    lines = out.getvalue().splitlines()
+    checks = [ln for ln in lines if ln.startswith(("[verdict]", "[jax-eval]"))]
+    for ln in lines:
+        if ln.startswith(("[verdict]", "[jax-eval]", "[vs nlml]", "[table]")):
+            log("[parity] " + ln)
+    assert rc == 0 and checks and all(ln.endswith(": pass") for ln in checks), \
+        [ln for ln in checks if not ln.endswith(": pass")]
+    assert all(v > 0 for v in launches.values()), launches
+    with open(os.path.join(PARITY_OUT, "verdicts.json")) as f:
+        summary = json.load(f)
+    assert summary["num_failed"] == 0 and summary["num_checks"] == len(checks), summary
+    log(f"[parity] results_parity --quick: {wall:.2f} s ("
+        + ", ".join(f"{t} {w:.2f}" for t, w in summary["wall_s"].items())
+        + f" s), {len(checks)} checks pass; kernel launches {launches}")
+    return launches, err, times
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs a CUDA card")
@@ -2957,7 +3013,8 @@ def main():
     launches["analysis"], err13, atimes = phase(13, phase_analysis, dev)
     launches["sharded"], _ = phase(14, phase_mesh, dev)
     launches["sharded_fused"], _ = phase(15, phase_sharded_fused, dev)
-    log(f"[phases] 1-15 in {time.perf_counter() - t0:.1f} s")
+    launches["results_parity"], err16, ptimes = phase(16, phase_results_parity, dev)
+    log(f"[phases] 1-16 in {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, key in KERNELS:
         on_path = times[(name, *TIMED_SHAPES[0])]
@@ -2965,7 +3022,7 @@ def main():
                         "replaces": REPLACES[name],
                         "launches": sum(c[key] for c in launches.values()),
                         "launches_by_path": {p: c[key] for p, c in launches.items()},
-                        "max_abs_err": max(err[name], err12[name], err13[name]),
+                        "max_abs_err": max(err[name], err12[name], err13[name], err16[name]),
                         "ms": on_path["ms"],
                         "plain_ms": on_path["plain_ms"], "bound_ms": on_path["bound_ms"],
                         "bound_by": on_path["bound_by"], "library_ms": None,
@@ -2975,6 +3032,7 @@ def main():
                                    **{"x".join(map(str, k[1:4])) + "/" + k[4]: t
                                       for k, t in times.items() if k[0] == name and len(k) == 5},
                                    **{shape: t[name] for shape, t in btimes.items()},
+                                   **{shape: t[name] for shape, t in ptimes.items()},
                                    **{shape: t[name] for shape, t in atimes.items()
                                       if name in t}}})
     print(json.dumps({"kernels": kernels}))

@@ -21,10 +21,15 @@ from gpscore_torch.experiments.common import (
 from gpscore_torch.utils.params import init_rand_params
 
 
-def main(argv=None):
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     add_sweep_args(ap, "kin40k_full", ["crps", "nlml", "logs", "dss", "es"], replicates=30)
     add_kin40k_args(ap)
+    return ap
+
+
+def main(argv=None):
+    ap = parser()
     args = ap.parse_args(argv)
     make_data = kin40k_make_data(ap, args, fold_rules=("dss", "es"))
 

@@ -19,11 +19,15 @@ from gpscore_torch.experiments.simple_full import make_data
 from gpscore_torch.utils.params import init_unit_params
 
 
-def main(argv=None):
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     add_sweep_args(ap, "simple_fitc", ["crps", "nlml", "logs"], replicates=100)
     ap.add_argument("--num-inducing", type=int, default=5)
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
     m = args.num_inducing
 
     def make_params(generator, d):

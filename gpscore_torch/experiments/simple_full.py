@@ -25,10 +25,14 @@ def make_data(j):
     return s.train_x, s.train_y, s.test_x, s.test_y
 
 
-def main(argv=None):
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     add_sweep_args(ap, "simple_full", ["crps", "nlml", "logs"], replicates=100)
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
 
     def make_params(generator, d):
         return init_unit_params(d=d, isotropic=False)
