@@ -18,7 +18,8 @@ Phases, none of whose failures is caught:
    300x120x1, 300x300x1; 120x5x1, 5x5x1, 300x5x1); a row block of the
    large-n backward (2048x30720x8), and gram_fwd alone at the whole large-n
    K(x, x) (30720x30720x8) and the large-n evaluation's K(x, x*)
-   (30720x2048x8); the sharded steps' backward shapes: 30720x30720x8 (the
+   (30720x2048x8), and all of K at the song set's width (30720x30720x90,
+   phase 17's large-n step, K spanning a range); the sharded steps' backward shapes: 30720x30720x8 (the
    out-of-place stack at p = 1), 256x30720x8 and 256x7680x8 (a fused sharded
    step's streamed row block at p = 1 and 4), checked and timed (CUDA events)
    beside their bounds, and the fused sharded forward's f16 Gram panel
@@ -27,14 +28,19 @@ Phases, none of whose failures is caught:
    120x120x1, 8192x8192x8 and 2048x30720x8, and for gram_fwd at
    30720x2048x8, kernel and plain times per call (CUDA events, back to back)
    and device time per call (torch.profiler's CUDA events, summed), and
-   gram_fwd's time per call at 30720x30720x8 (CUDA events alone), beside the
+   gram_fwd's time per call at 30720x30720x8 and 30720x30720x90 (CUDA events
+   alone), beside the
    roofline bound (gram_cuda.roofline) and the share of it the kernel's time
-   reaches (gpscore_torch/bench_gram.py does the timing). The repair of the
-   Gram kernels: the d-chunked builds at 500x500x65 and 9700x20x130 and the
-   float64 builds at 500x20x8, 500x500x8 and 8192x8192x8, each kernel
-   against its plain version (values and both gradients), a second call
-   bitwise the first, timed beside its bound (fp64: the 34 TFLOP/s fp64
-   rate); then parity_report --dtype float64 on the card, every 5e-9 target.
+   reaches (gpscore_torch/bench_gram.py does the timing). The d-chunked
+   builds (past 64 floats, 32 doubles) at 500x500x65, 9700x20x130,
+   9700x20x385, 2048x4096x90, 500x20x90, 20x20x90 and 2048x30720x90, each in fp32 and
+   fp64, at 500x500x40 in fp64 and batched at 3x9700x20x130, and the float64
+   builds at 500x20x8, 500x500x8 and 8192x8192x8: each kernel against its
+   plain version (values and both gradients), a second call bitwise the
+   first, K spanning a range at the d-chunked shapes; timed beside the bound
+   (fp64: the card's 67 TFLOP/s fp64 rate, DMMA's), the batched one beside a loop of its
+   launches; then parity_report --dtype float64 on the card, every 5e-9
+   target.
 4. The FITC slice: the five-rule KIN40K FITC-20 fit (n = 500, d = 8, m = 20)
    from the committed initial parameters, 25 GD steps per rule through fit_gd
    on CUDA (its default there: three eager steps, then 22 replays of the step
@@ -213,13 +219,26 @@ Phases, none of whose failures is caught:
    ``[jax-eval]`` line must pass; the launch counters zeroed just before and
    read just after (the "results_parity" path); the paired deltas and the
    wall time logged.
+17. Wide inputs, d = 90 (the song set's width), where the Gram backward runs
+   its d-chunked kernels; the inputs' log lengths raised by log(d / 8) / 2
+   (bench_wide.wide_params), and K's off-diagonal asserted to span a range.
+   (a) The FITC-20 fit at n = 500, m = 20 (large_n's data), crps and nlml,
+   25 steps of fit_gd's replayed step, the launch counters zeroed just
+   before and read just after (the "wide" path); at every step CUDA against
+   the CPU at the same parameters (phase 4's limits); the microseconds of a
+   replayed crps step at d = 90 and d = 8 and the Gram kernels' device
+   microseconds in it. (b) The exact GP's large-n step at n = 30,720 (the
+   "wide_large_n" path): crps (fused LOO) and dss (fold-streamed), step 0
+   against a float64 witness within phases 8 and 9's limits; the step's
+   seconds, peak and device time by kind and the Gram backward's
+   milliseconds (experiments/bench_wide.py).
 
 The line before the last is the card's ``nvidia-smi`` name and power limit;
 before it, one JSON line describes every kernel: ``ms``, ``plain_ms``,
 ``bound_ms`` and ``bound_by`` at the FITC path's 500x20x8 (``library_ms`` is
 null: no single PyTorch call computes the ARD Gram or either half of its
 VJP), ``launches`` summed over the FITC, exact, large-n, large-n fold, graph,
-precision, two sweep, analysis, sharded, fused sharded and results_parity paths (each
+precision, two sweep, analysis, sharded, fused sharded, results_parity and two wide paths (each
 path's count under
 ``launches_by_path``; a graph's replays are counted, gram_fwd's 2-byte
 launches under gram_fwd), and
@@ -232,7 +251,8 @@ times, the bound and the roofline share at every timed shape, with
 keyed as the others (``500x500x65``), the batched ones (phases 12 and 16) are keyed
 ``BxNxMxD`` (``16x500x20x8``) and add ``loop_ms``, a loop of B unbatched
 launches; phase 13's shapes (``2500x20x20x1``, ``90000x20x20x1``,
-``70000x20x5x1``, ``2500x500x500x1``) have no loop, and their surface
+``70000x20x5x1``, ``2500x500x500x1``) have no loop (the batched d-chunked
+``3x9700x20x130`` has one), and their surface
 Grams, given one tensor as xs and xps, have x counted once in the bound
 (``roofline(..., shared_x=True)``). The last line is
 ``{"ok": true, "device": {...}}``.
@@ -255,12 +275,13 @@ import torch.distributed as dist
 
 import gpscore_torch
 from gpscore_torch import analysis, bench
-from gpscore_torch.bench_gram import (cuda_ms, device_ms, kernel_inputs, kernel_pairs, ms_text,
-                                     nvidia_smi_line, time_shapes)
+from gpscore_torch.bench_gram import (CHUNK_SHAPES, F64_CHUNK_SHAPES, cuda_ms, device_ms,
+                                     kernel_inputs, kernel_pairs, ms_text, nvidia_smi_line,
+                                     time_shapes)
 from gpscore_torch.data import kin40k_fitc20_init, kin40k_replicate_split, load_kin40k
-from gpscore_torch.experiments import (analysis_figures, bench_ceiling, bench_sharded, common,
-                                       kin40k_full, large_n, multi_restart, parity_report,
-                                       results_parity)
+from gpscore_torch.experiments import (analysis_figures, bench_ceiling, bench_sharded,
+                                       bench_wide, common, kin40k_full, large_n, multi_restart,
+                                       parity_report, results_parity)
 from gpscore_torch.fit import (SCHEDULES, eval_predictive_metrics, fit_and_eval, fit_gd,
                                fit_gd_batch, fit_optim, make_objective, train)
 from gpscore_torch.metrics import evaluate_predictive
@@ -303,8 +324,9 @@ TIMED_SHAPES = [(500, 20, 8), (20, 20, 8), (500, 500, 8), (9700, 20, 8), (120, 1
                 (8192, 8192, 8), (2048, 30720, 8)]
 # The large-n path's other forward shapes, checked and timed for gram_fwd
 # alone: all of K at n = 30,720 (one launch a step and one an evaluation),
-# and the evaluation's K(x, x*) for a chunk of 2048 test points.
-FWD_SHAPES = [(30720, 30720, 8), (30720, 2048, 8)]
+# and the evaluation's K(x, x*) for a chunk of 2048 test points; all of K at
+# n = 30,720 and the song set's width (phase 17's large-n step).
+FWD_SHAPES = [(30720, 30720, 8), (30720, 2048, 8), (30720, 30720, 90)]
 # The sharded steps' backward: the out-of-place stack's (phase 14) cotangent
 # of K(x_local, x) is [n/p, n], all of K at p = 1 and n = 30,720, a shape whose
 # plans and chunks no other path gives the two backward kernels; the fused
@@ -315,8 +337,15 @@ MESH_BWD_SHAPES = [(30720, 30720, 8), (256, 30720, 8), (256, 7680, 8)]
 # The fused sharded forward's 2-byte Gram panel at p = 1: [b, n] rows of
 # K_hat rounded once to f16, the noise on the panel's own diagonal.
 MESH_FWD2_SHAPES = [(256, 30720, 8, True)]
-# The repair: the d-chunked fp32 builds (d past 64) and the float64 builds.
-CHUNK_SHAPES = [(500, 500, 65), (9700, 20, 130)]
+# The d-chunked builds (d past 64 floats, 32 doubles), each checked in fp32
+# and fp64 (bench_gram.CHUNK_SHAPES): 500x500x65 and 9700x20x130 (an exact
+# K_ff and the pool's FITC K_fu just past a 64-feature chunk, and two chunks
+# past), 9700x20x385 (the slice set's width on the full pool's FITC Gram),
+# 2048x4096x90 and 2048x30720x90 (a large-n backward block at the song set's
+# width, n = 4096 and 30,720), 500x20x90 and 20x20x90 (the FITC-20 K_fu and
+# K_uu at that width); float64 also at 500x500x40 (F64_CHUNK_SHAPES); and
+# batched, 3x9700x20x130. The fp32 ones are timed beside their bounds.
+CHUNK_BATCHED = (3, 9700, 20, 130)
 F64_SHAPES = [(500, 20, 8), (500, 500, 8), (8192, 8192, 8)]
 # float64 kernel against its plain version (the cross-term form in float64,
 # whose cancellation leaves ~1e-16 * |xs|^2): K and the backward.
@@ -325,8 +354,9 @@ KERNELS = [("gram_fwd", "fwd"), ("gram_bwd_rows", "bwd_rows"), ("gram_bwd_cols",
 # Per kernel, each unbatched and batched: gram_fwd's rows per thread times its
 # three fp32 output types and its fp64 one, each unchunked and d-chunked; the
 # backward's fp32 DMAX buckets (8, 16, 32, 64), its fp64 ones (8, 16, 32) and
-# its d-chunked kernel in fp32 and fp64.
-INSTANTIATIONS = {"gram_fwd": 64, "gram_bwd_rows": 18, "gram_bwd_cols": 18}
+# its d-chunked kernel in fp32 and fp64, each with its wide and its one-pair
+# thread tile.
+INSTANTIATIONS = {"gram_fwd": 64, "gram_bwd_rows": 22, "gram_bwd_cols": 22}
 # The plain forward uses the cross-term form, whose cancellation leaves
 # ~1e-7 * |xs|^2 in the exponent; K <= sig = e here.
 FWD_ATOL = 2e-5
@@ -532,20 +562,33 @@ def check_spills(report):
 
 def fwd_inputs(n, m, d, dev, seed):
     """xs [n, d] and xps [m, d] uniform in [-1, 1] (xps = xs when n == m, a
-    K(x, x)) and sig = e, drawn on the card (a forward needs no cotangent)."""
+    K(x, x)) and sig = e, drawn on the card (a forward needs no cotangent);
+    past d = 8 scaled by sqrt(8 / d), so that K spans a range as at d = 8."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     xs = torch.rand((n, d), generator=gen, device=dev) * 2.0 - 1.0
+    if d > 8:
+        xs = xs * (8 / d) ** 0.5
     xps = xs if n == m else torch.rand((m, d), generator=gen, device=dev) * 2.0 - 1.0
     return xs, xps, torch.tensor(np.e, dtype=torch.float32, device=dev)
 
 
 def check_repair(dev, err):
-    """The d-chunked fp32 and the float64 kernels against their plain
-    versions (values and both gradients), a second call bitwise the first."""
-    cases = [(s, torch.float32) for s in CHUNK_SHAPES] + [(s, torch.float64) for s in F64_SHAPES]
-    for s, ((n, m, d), dt) in enumerate(cases):
-        xs, xps, sig, g = kernel_inputs(n, m, d, dev, seed=200 + s, dtype=dt)
+    """The d-chunked kernels (fp32 and fp64, batched and not) and the float64
+    ones against their plain versions (values and both gradients), a second
+    call bitwise the first; K's off-diagonal spans a range at every d-chunked
+    shape (the inputs' lengths are scaled with d, bench_gram.kernel_inputs)."""
+    f32, f64_ = torch.float32, torch.float64
+    cases = ([((1, *sh), dt) for sh in CHUNK_SHAPES for dt in (f32, f64_)]
+             + [((1, *sh), f64_) for sh in F64_CHUNK_SHAPES]
+             + [(CHUNK_BATCHED, dt) for dt in (f32, f64_)]
+             + [((1, *sh), f64_) for sh in F64_SHAPES])
+    for s, ((B, n, m, d), dt) in enumerate(cases):
+        if B == 1:
+            xs, xps, sig, g = kernel_inputs(n, m, d, dev, seed=200 + s, dtype=dt)
+        else:
+            xs, xps, sig, g = batched_kernel_inputs(B, n, m, d, dev, seed=200 + s, dtype=dt)
         f64 = dt == torch.float64
+        chunked = d > gram_cuda.max_unchunked_d(xs.element_size())
         f_tol, b_atol, b_rtol = ((F64_FWD_ATOL, F64_BWD_ATOL, F64_BWD_RTOL) if f64
                                  else (FWD_ATOL, BWD_ATOL, BWD_RTOL))
         calls = kernel_calls().values()
@@ -553,6 +596,11 @@ def check_repair(dev, err):
                             for i in (0, 0, 1))
         assert all(a.dtype == dt for a in got), (n, m, d, [a.dtype for a in got])
         assert all(torch.equal(a, b) for a, b in zip(got, again)), (n, m, d, dt, "second call")
+        span = ""
+        if chunked:  # W is not zero off a diagonal: the comparisons below are not vacuous
+            lo, hi = float(got[0].min()), float(got[0].max())
+            assert lo < 0.5 * hi, (n, m, d, lo, hi)
+            span = f"; K spans {lo:.3g} to {hi:.3g}"
         errs = {}
         for name, a, b in zip(("K", "d_xs", "rowsum", "d_xps"), got, want):
             e = float((a - b).abs().max())
@@ -564,10 +612,13 @@ def check_repair(dev, err):
             err["gram_fwd"] = max(err["gram_fwd"], errs["K"])
             err["gram_bwd_rows"] = max(err["gram_bwd_rows"], errs["d_xs"], errs["rowsum"])
             err["gram_bwd_cols"] = max(err["gram_bwd_cols"], errs["d_xps"])
-        log(f"[repair] {n}x{m}x{d} {str(dt)[6:]}"
-            f"{' (d-chunked)' if d > gram_cuda.max_unchunked_d(xs.element_size()) else ''}: "
+        del got, again, want, xs, xps, g
+        torch.cuda.empty_cache()
+        log(f"[repair] {'' if B == 1 else f'{B}x'}{n}x{m}x{d} {str(dt)[6:]}"
+            f"{' (d-chunked)' if chunked else ''}: "
             + ", ".join(f"{k} err {v:.3g}" for k, v in errs.items())
-            + f" (tol {f_tol}; {b_atol} + {b_rtol} * max|ref|); second call bitwise equal")
+            + f" (tol {f_tol}; {b_atol} + {b_rtol} * max|ref|); second call bitwise equal"
+            + span)
     with contextlib.redirect_stdout(io.StringIO()) as buf, \
             contextlib.redirect_stderr(io.StringIO()):
         rc = parity_report.main(["--dtype", "float64"])
@@ -621,6 +672,8 @@ def phase_kernels(dev):
         assert torch.isfinite(K).all() and e_f <= FWD_ATOL, (n, m, d, e_f)
         if n == m:
             assert torch.equal(K, K.T) and torch.equal(torch.diagonal(K), sig.expand(n))
+        if d > 8:  # not an identity: the comparison is not vacuous
+            assert float(K.min()) < 0.5 * float(K.max()), (n, m, d)
         del K
         err["gram_fwd"] = max(err["gram_fwd"], e_f)
         log(f"[kernels] {n}x{m}x{d} (gram_fwd alone{', K(x, x)' if n == m else ''}): fwd err "
@@ -631,7 +684,7 @@ def phase_kernels(dev):
     # CUDA events alone: a call is milliseconds of one kernel, under which the
     # wrapper's host time hides, and the roofline share is taken of "ms".
     times = time_shapes(TIMED_SHAPES + CHUNK_SHAPES, dev, log=log)
-    times.update(time_shapes(F64_SHAPES, dev, log=log, dtype=torch.float64))
+    times.update(time_shapes(F64_SHAPES + F64_CHUNK_SHAPES, dev, log=log, dtype=torch.float64))
     times.update(time_shapes([s for s in FWD_SHAPES if s[0] != s[1]], dev,
                              names=("gram_fwd",), log=log))
     for t in times.values():
@@ -684,7 +737,22 @@ def phase_kernels(dev):
                         for k in ("gram_bwd_rows", "gram_bwd_cols"))
             + " (CUDA events, back to back)")
     phase_gram2(dev, times, MESH_FWD2_SHAPES, {"f16": torch.float16}, tag="kernels")
+    # The batched d-chunked backward beside a loop of B unbatched launches.
+    B, n, m, d = CHUNK_BATCHED
+    xs, xps, sig, g = batched_kernel_inputs(B, n, m, d, dev, seed=400)
+    for name, (kern, plain) in list(kernel_calls().items())[1:]:
+        t, _ = time_kernel(name, lambda: kern(xs, xps, sig, g), lambda: plain(xs, xps, sig, g),
+                           CHUNK_BATCHED, reps=20, warmup=3,
+                           loop=lambda: [kern(xs[b], xps[b], sig[b], g[b]) for b in range(B)])
+        times[(name, *CHUNK_BATCHED, "batched")] = t
+        log(f"[kernels] {name} {B}x{n}x{m}x{d} (batched, d-chunked): per call "
+            f"{t['ms']:.4f} ms, a loop of {B} launches {t['loop_ms']:.4f}, plain "
+            f"{t['plain_ms']:.4f}; device {ms_text(t.get('device_ms'))}; bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}), share {t['roofline_share']:.3f}")
+    del xs, xps, g
     for (name, n, m, d, *kind), t in times.items():
+        if kind and kind[-1] == "batched":  # its bound is time_kernel's
+            continue
         if kind and kind[0] != "f64":  # a 2-byte gram_fwd: its bound is phase_gram2's
             continue
         bound = gram_cuda.roofline(name, n, m, d, elem=8 if kind else 4)
@@ -1007,8 +1075,9 @@ def peak_of(fn):
 
 
 def f64_sqdist(a, b):
-    """The d per-dimension squared differences [n, m] of rows of a and b."""
-    return [(a[:, k, None] - b[None, :, k]) ** 2 for k in range(a.shape[1])]
+    """The d per-dimension squared differences [n, m] of rows of a and b, one
+    at a time (at d = 90 all of them at once would be 45 GB a row block)."""
+    return ((a[:, k, None] - b[None, :, k]) ** 2 for k in range(a.shape[1]))
 
 
 def f64_factor(x, p):
@@ -1107,10 +1176,10 @@ def f64_step0(rule, x, y, p, eps=None, inverse=None):
     for r0 in range(0, n, F64_ROWS):
         G = g_rows(r0, min(r0 + F64_ROWS, n))
         trace += G.diagonal(offset=r0).sum()
-        diffs = f64_sqdist(xs[r0:r0 + F64_ROWS], xs)
-        C = G * (sig * torch.exp(-0.5 * sum(diffs)))
+        rows = xs[r0:r0 + F64_ROWS]
+        C = G * (sig * torch.exp(-0.5 * sum(f64_sqdist(rows, xs))))
         sig_bar += C.sum()
-        len_bar += torch.stack([(C * dk).sum() for dk in diffs])
+        len_bar += torch.stack([(C * dk).sum() for dk in f64_sqdist(rows, xs)])
     return float(loss.detach()), {"log_signal_sq": sig_bar, "log_length": len_bar,
                                   "log_noise_sq": noise * trace}
 
@@ -2015,13 +2084,14 @@ def phase_precision(dev, crps_fit, times):
     return launches, gemm
 
 
-def batched_kernel_inputs(B, n, m, d, dev, seed, square=False):
+def batched_kernel_inputs(B, n, m, d, dev, seed, square=False, dtype=torch.float32):
     """B sets of kernel_inputs stacked: xs [B, n, d], xps [B, m, d], g
     [B, n, m], and sig [B] = e (1 - 0.02 b), so the batch strides of every
     array, sig's included, are exercised."""
-    sets = [kernel_inputs(n, m, d, dev, seed=seed * 1000 + b, square=square) for b in range(B)]
+    sets = [kernel_inputs(n, m, d, dev, seed=seed * 1000 + b, square=square, dtype=dtype)
+            for b in range(B)]
     xs, xps, _, g = (torch.stack([st[i] for st in sets]) for i in (0, 1, 2, 3))
-    sig = np.e * (1.0 - 0.02 * torch.arange(B, dtype=torch.float32, device=dev))
+    sig = np.e * (1.0 - 0.02 * torch.arange(B, dtype=dtype, device=dev))
     return xs.contiguous(), xps.contiguous(), sig, g.contiguous()
 
 
@@ -2979,6 +3049,149 @@ def phase_results_parity(dev):
     return launches, err, times
 
 
+# Phase 17.
+WIDE_D = 90  # the song set's width (YearPredictionMSD, a UCI GP benchmark)
+WIDE_FITC = (500, 20)  # n, m of the FITC-20 fit at that width
+WIDE_RULES = ["crps", "nlml"]
+WIDE_LARGE_RULES = ["crps", "dss"]  # the fused LOO core and the fold-streamed one
+WIDE_TIMED = (50, 250)  # two replayed fits whose difference times a replayed step
+# The float64 limits of the large-n steps: phase 8's for crps, phase 9's for
+# the fold rule.
+WIDE_F64_GRAD_RTOL = {"crps": F64_GRAD_RTOL, "dss": FOLD_F64_GRAD_RTOL}
+
+
+def wide_fitc_problem(d):
+    """The FITC-20 problem at width d, on the CPU: large_n's data (seed 0),
+    its first m rows as inducing points, unit parameters with the log
+    lengths raised by log(d / 8) / 2 (bench_wide.wide_params)."""
+    n, m = WIDE_FITC
+    x, y, _, _ = large_n.make_data(n, d, 0)
+    return x, y, bench_wide.wide_params(d, "cpu").replace(inducing=x[:m].clone())
+
+
+def off_diagonal_span(K, sig):
+    """(smallest, largest) entry of K off its diagonal, asserted to span a
+    range (the smallest under half the largest) above 1% of sig: W is not
+    zero off the diagonal, so the comparisons that follow are not vacuous."""
+    off = K[~torch.eye(K.shape[0], dtype=torch.bool, device=K.device)]
+    lo, hi = float(off.min()), float(off.max())
+    assert lo < 0.5 * hi and hi > 0.01 * float(sig), (lo, hi, float(sig))
+    return lo, hi
+
+
+def phase_wide(dev):
+    """Phase 17: the main path at the song set's width, d = 90, where the
+    Gram backward runs its d-chunked kernels. (a) The FITC-20 fit at n =
+    500, m = 20, crps and nlml, through fit_gd's replayed step, CUDA against
+    the CPU at the same parameters (phase 4's limits); the microseconds of a
+    replayed step at d = 90 and at d = 8, and the Gram kernels' device time
+    in it. (b) The exact GP's large-n step at n = 30,720, crps (fused LOO)
+    and dss (fold-streamed), step 0 against float64 within phases 8 and 9's
+    limits; the step's seconds, peak and the Gram backward's milliseconds.
+    The lengths are scaled so that K is no identity, and that is asserted."""
+    t_phase = time.perf_counter()
+    x, y, p_cpu = wide_fitc_problem(WIDE_D)
+    lo, hi = off_diagonal_span(gram(x, x, p_cpu.log_signal_sq, p_cpu.log_length),
+                               torch.exp(p_cpu.log_signal_sq))
+    xg, yg, p_gpu = x.to(dev), y.to(dev), params_from_numpy(params_to_numpy(p_cpu), device=dev)
+    n, m = WIDE_FITC
+    log(f"[wide] FITC-20 at n = {n}, m = {m}, d = {WIDE_D}: K(x, x) off the diagonal spans "
+        f"{lo:.3g} to {hi:.3g}")
+    gram_cuda.reset_launches()
+    fits = {}
+    for rule in WIDE_RULES:
+        sched = SCHEDULES[("kin40k_fitc", rule)]
+        fits[rule] = fit_gd(make_objective(rule, model="fitc"), p_gpu, xg, yg, SMOKE_STEPS,
+                            sched.lr, sched.lr_inducing, record_params=True)
+    torch.cuda.synchronize()
+    launches = dict(gram_cuda.LAUNCHES)
+    assert all(v > 0 for v in launches.values()), launches
+    for rule in WIDE_RULES:
+        loss_fn = make_objective(rule, model="fitc")
+        res = fits[rule]
+        hist = res.loss_history.cpu()
+        assert torch.isfinite(hist).all() and int(res.stall_iters) == 0, rule
+        worst = {"loss": 0.0, "grad": 0.0}
+        for i in range(SMOKE_STEPS):
+            at = leaves_of(res.param_history, i)
+            lg, gg = loss_and_grad(loss_fn, p_gpu, at, xg, yg)
+            lc, gc = loss_and_grad(loss_fn, p_cpu, {f: v.cpu() for f, v in at.items()}, x, y)
+            worst["loss"] = max(worst["loss"], abs(float(lg) - float(lc)) / abs(float(lc)))
+            worst["grad"] = max(worst["grad"], grad_rel(gg, gc))
+        log(f"[wide] FITC-20 {rule}, {SMOKE_STEPS} steps replayed: loss {float(hist[0]):.6f} "
+            f"-> {float(hist[-1]):.6f}; at the CUDA points, CPU vs CUDA loss rel "
+            f"{worst['loss']:.3g} (tol {LOSS_RTOL}), grad rel {worst['grad']:.3g} (tol "
+            f"{GRAD_RTOL})")
+        assert worst["loss"] <= LOSS_RTOL and worst["grad"] <= GRAD_RTOL, (rule, worst)
+    log(f"[wide] FITC-20 fits: kernel launches {launches}")
+    for d in (WIDE_D, 8):
+        xd, yd, pd = wide_fitc_problem(d)
+        xd, yd = xd.to(dev), yd.to(dev)
+        pd = params_from_numpy(params_to_numpy(pd), device=dev)
+        loss_fn = make_objective("crps", model="fitc")
+        sched = SCHEDULES[("kin40k_fitc", "crps")]
+        walls = []
+        for steps in WIDE_TIMED:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fit_gd(loss_fn, pd, xd, yd, steps, sched.lr, sched.lr_inducing)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        per_step = (walls[1] - walls[0]) / (WIDE_TIMED[1] - WIDE_TIMED[0])
+        _, _, top, _ = bench_ceiling.device_profile(
+            lambda: fit_gd(loss_fn, pd, xd, yd, WIDE_TIMED[0], sched.lr, sched.lr_inducing))
+        gram_us = {k: sum(sec for name, sec in top if f"gram_{k}" in name) / WIDE_TIMED[0] * 1e6
+                   for k in ("fwd", "bwd_rows", "bwd_cols")}
+        log(f"[wide] FITC-20 crps at d = {d}: {per_step * 1e6:.1f} us a replayed step "
+            f"({WIDE_TIMED[1]} - {WIDE_TIMED[0]} steps); the Gram kernels' device us a step: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in gram_us.items()))
+
+    # (b) The large-n step.
+    x, y, _, _ = (v.to(dev) for v in large_n.make_data(LARGE_N, WIDE_D, LARGE_TEST))
+    p0 = bench_wide.wide_params(WIDE_D, dev)
+    xs = x * torch.exp(-p0.log_length)
+    sig = torch.exp(p0.log_signal_sq)
+    lo, hi = off_diagonal_span(gram_cuda.gram_fwd_cuda(xs[:F64_ROWS].contiguous(),
+                                                       xs[:F64_ROWS].contiguous(), sig), sig)
+    log(f"[wide] large n = {LARGE_N}, d = {WIDE_D}: K's first {F64_ROWS} rows off the diagonal "
+        f"span {lo:.3g} to {hi:.3g}")
+    del xs
+    vg = bench_ceiling.value_and_grad
+    gram_cuda.reset_launches()
+    steps = {}
+    for rule in WIDE_LARGE_RULES:
+        steps[rule] = vg(make_objective(rule, model="exact"), p0, x, y)
+    torch.cuda.synchronize()
+    launches_large = dict(gram_cuda.LAUNCHES)
+    assert all(v > 0 for v in launches_large.values()), launches_large
+    # Timed and profiled before the float64 witness takes its ~3 n^2 * 8 B.
+    recs = {rule: bench_wide.measure(rule, x, y, p0, repeats=1) for rule in WIDE_LARGE_RULES}
+    torch.cuda.empty_cache()
+    inverse = f64_inverse(x, y, p0)
+    for rule in WIDE_LARGE_RULES:
+        (v, g), limits, rec = steps[rule], WIDE_F64_GRAD_RTOL[rule], recs[rule]
+        v64, g64 = f64_step0(rule, x, y, p0, inverse=inverse)
+        rel = abs(float(v) - v64) / abs(v64)
+        leaves = {f: grad_rel({f: g[f]}, {f: g64[f]}) for f in g64}
+        torch.cuda.empty_cache()
+        log(f"[wide] large n {rule} step 0 against float64 (loss {v64:.10g}): loss rel {rel:.3g} "
+            f"(tol {LARGE_LOSS_RTOL}), grad rel by leaf "
+            + ", ".join(f"{f} {e:.3g}" for f, e in leaves.items()) + f" (tol {limits}); step "
+            f"{rec['step_s']:.4f} s, peak {rec['peak_n2']:.3f} n^2 * 4 B, device busy "
+            f"{rec['busy_s']:.4f} s (ms by kind: "
+            + ", ".join(f"{k} {ms:.1f}" for k, ms in rec["ms_by_kind"].items())
+            + f"), the Gram backward {rec['gram_bwd_ms']:.2f} ms a step (peak limit "
+            f"{PEAK_LIMIT_N2})")
+        assert rel <= LARGE_LOSS_RTOL and all(e <= limits[f] for f, e in leaves.items()), \
+            (rule, rel, leaves)
+        assert rec["peak_n2"] <= PEAK_LIMIT_N2, (rule, rec["peak_n2"])
+    del inverse
+    torch.cuda.empty_cache()
+    log(f"[wide] large n steps: kernel launches {launches_large}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches, launches_large
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs a CUDA card")
@@ -3014,7 +3227,8 @@ def main():
     launches["sharded"], _ = phase(14, phase_mesh, dev)
     launches["sharded_fused"], _ = phase(15, phase_sharded_fused, dev)
     launches["results_parity"], err16, ptimes = phase(16, phase_results_parity, dev)
-    log(f"[phases] 1-16 in {time.perf_counter() - t0:.1f} s")
+    launches["wide"], launches["wide_large_n"] = phase(17, phase_wide, dev)
+    log(f"[phases] 1-17 in {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, key in KERNELS:
         on_path = times[(name, *TIMED_SHAPES[0])]
@@ -3031,6 +3245,8 @@ def main():
                                       + MESH_BWD_SHAPES if (name, *s) in times},
                                    **{"x".join(map(str, k[1:4])) + "/" + k[4]: t
                                       for k, t in times.items() if k[0] == name and len(k) == 5},
+                                   **{"x".join(map(str, k[1:5])): t for k, t in times.items()
+                                      if k[0] == name and k[-1] == "batched"},
                                    **{shape: t[name] for shape, t in btimes.items()},
                                    **{shape: t[name] for shape, t in ptimes.items()},
                                    **{shape: t[name] for shape, t in atimes.items()

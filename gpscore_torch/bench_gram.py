@@ -2,6 +2,8 @@
 
     python -m gpscore_torch.bench_gram                        # the default shapes
     python -m gpscore_torch.bench_gram --shapes 8192x8192x8 500x500x8 --out t.json
+    python -m gpscore_torch.bench_gram --chunked [--dtype float64]   # the d-chunked shapes
+    python -m gpscore_torch.bench_gram --chunked --tiles   # the d-chunked plans' thread tiles
 
 For each shape n x m x d and each kernel (``gram_fwd``, ``gram_bwd_rows``,
 ``gram_bwd_cols``): the mean time per call of the kernel's wrapper and of its
@@ -9,7 +11,10 @@ plain version over 200 back-to-back calls (CUDA events, in the order plain,
 kernel, kernel, plain, so that a drift in clocks hits both alike), and the
 device time per call (torch.profiler's CUDA events over 50 calls). One
 ``[time]`` line per kernel and shape, then the card's ``nvidia-smi`` name and
-power limit, then one JSON line of all the numbers.
+power limit, then one JSON line of all the numbers. With ``--tiles``, for the
+d-chunked backward at each shape instead: the plan's tiling beside the best
+plan of the other thread tile (``gram_cuda.dchunk_plan(wide=...)``), each
+checked against the plain version and timed (device time per call).
 
 It uses only the wrappers and plain versions of ``gpscore_torch.ops.gram_cuda``,
 so the same file can time an older checkout of the package: copy it into
@@ -31,6 +36,14 @@ from gpscore_torch.ops import gram_cuda
 
 DEFAULT_SHAPES = [(500, 20, 8), (20, 20, 8), (500, 500, 8), (9700, 20, 8), (120, 120, 1),
                   (8192, 8192, 8)]
+# The d-chunked backward's shapes (past 64 floats, 32 doubles): an exact K_ff
+# just past a 64-feature chunk, the pool's FITC K_fu two chunks past, the
+# slice set's width on the full pool's FITC Gram, a large-n backward
+# block at the song set's width (n = 4096 and 30,720), the FITC-20 K_fu and
+# K_uu there; float64 also 500 x 500 x 40 (``--dtype float64``).
+CHUNK_SHAPES = [(500, 500, 65), (9700, 20, 130), (9700, 20, 385), (2048, 4096, 90),
+                (500, 20, 90), (20, 20, 90), (2048, 30720, 90)]
+F64_CHUNK_SHAPES = [(500, 500, 40)]
 
 
 def nvidia_smi_line():
@@ -156,6 +169,62 @@ def time_shapes(shapes, dev, names=None, seed=99, log=print, dtype=torch.float32
     return times
 
 
+def dchunk_call(cols, plan, xs, xps, sig, g):
+    """One launch of the d-chunked backward (the column half when ``cols``)
+    under ``plan``, unbatched: d_xps, or (d_xs, rowsum)."""
+    n, d = xs.shape
+    m = xps.shape[0]
+    out = torch.empty((m if cols else n, d), dtype=xs.dtype, device=xs.device)
+    row = None if cols else torch.empty(n, dtype=xs.dtype, device=xs.device)
+    gram_cuda._launch_dchunk(gram_cuda._build.load_library(), cols, [(0, plan)],
+                             (xs, xps, sig, g, out, row), [0] * 6, n, m, d)
+    return out if cols else (out, row)
+
+
+def time_tiles(shapes, dev, dtype=torch.float32, seed=99, log=print):
+    """{"<half> <n>x<m>x<d>": {"plan": ..., "other": ...}}: the d-chunked
+    plan's tiling and the best plan of the other thread tile (where one
+    fits), each checked against the plain version (fp32 1e-5 + 1e-4 max|ref|,
+    fp64 1e-11 + 1e-11 max|ref|) and its device time per call."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    elem = torch.tensor([], dtype=dtype).element_size()
+    atol, rtol = (1e-5, 1e-4) if elem == 4 else (1e-11, 1e-11)
+    res = {}
+    for shape in shapes:
+        xs, xps, sig, g = kernel_inputs(*shape, dev, seed, dtype=dtype)
+        for cols, name in ((False, "gram_bwd_rows"), (True, "gram_bwd_cols")):
+            want = (gram_cuda.gram_bwd_cols_plain if cols else gram_cuda.gram_bwd_rows_plain)(
+                xs, xps, sig, g)
+            want = (want,) if cols else want
+            plan = gram_cuda.dchunk_plan(cols, *shape, sms, elem=elem)
+            try:
+                other = gram_cuda.dchunk_plan(cols, *shape, sms, elem=elem, wide=not plan.wide)
+            except ValueError:  # no tiling of the other thread tile fits
+                other = None
+            row = {}
+            for key, p in (("plan", plan), ("other", other)):
+                if p is None:
+                    continue
+                fn = lambda p=p: dchunk_call(cols, p, xs, xps, sig, g)
+                got = fn()
+                got = (got,) if cols else got
+                err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+                tol = min(atol + rtol * float(b.abs().max()) for b in want)
+                assert err <= tol, (name, shape, p, err, tol)
+                row[key] = {"tile": "wide" if p.wide else "one pair",
+                            "tx": p.walk_threads, "ty": p.own_threads, "blocks": p.blocks,
+                            "chunks": p.n_chunks, "max_abs_err": err,
+                            "device_ms": device_ms(fn)[0], "ms": cuda_ms(fn)}
+            label = f"{name} {'x'.join(map(str, shape))}{'/f64' if elem == 8 else ''}"
+            res[label] = row
+            log(f"[tiles] {label}: " + "; ".join(
+                f"{k} {r['tile']} {r['tx']}x{r['ty']} ({r['blocks']} blocks, {r['chunks']} "
+                f"chunks) device {ms_text(r['device_ms'])}, per call {r['ms']:.5f} ms, err "
+                f"{r['max_abs_err']:.3g}" for k, r in row.items()))
+        del xs, xps, g
+    return res
+
+
 def _shape(text):
     n, m, d = (int(v) for v in text.split("x"))
     return n, m, d
@@ -167,15 +236,30 @@ def main(argv=None):
                     help="n x m x d of K, e.g. 8192x8192x8")
     ap.add_argument("--kernels", nargs="+", default=None,
                     help="only these of gram_fwd, gram_bwd_rows, gram_bwd_cols")
+    ap.add_argument("--chunked", action="store_true",
+                    help="the d-chunked backward's shapes (CHUNK_SHAPES) instead of --shapes")
+    ap.add_argument("--tiles", action="store_true",
+                    help="the d-chunked backward's plan beside the other thread tile's best")
+    ap.add_argument("--dtype", choices=("float32", "float64"), default="float32")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench_gram: torch.cuda.is_available() is false; needs a CUDA card")
     dev = torch.device("cuda", 0)
     smi = nvidia_smi_line()
-    times = time_shapes(args.shapes, dev, args.kernels)
-    result = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-              "times": {f"{k[0]} {k[1]}x{k[2]}x{k[3]}": v for k, v in times.items()}}
+    dtype = getattr(torch, args.dtype)
+    shapes = args.shapes
+    if args.chunked:
+        shapes = CHUNK_SHAPES + (F64_CHUNK_SHAPES if dtype == torch.float64 else [])
+    result = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+    if args.tiles:
+        result["tiles"] = time_tiles([s for s in shapes
+                                      if s[2] > gram_cuda.max_unchunked_d(8 if dtype == torch.float64
+                                                                          else 4)], dev, dtype)
+    else:
+        times = time_shapes(shapes, dev, args.kernels, dtype=dtype)
+        result["times"] = {f"{k[0]} {'x'.join(map(str, k[1:4]))}"
+                           f"{'/' + k[4] if len(k) > 4 else ''}": v for k, v in times.items()}
     print(smi)
     print(json.dumps(result))
     if args.out:

@@ -37,10 +37,12 @@
 // in their own bodies: gram_fwd stages one chunk of xs and xps at a time and
 // sums the squared distance over every chunk before the exp, in ascending k
 // as the unchunked one does, so K is bitwise what a wide unchunked build
-// would give; the backward's chunked kernels (gram_bwd_rows_kernel_dchunk,
-// gram_bwd_cols_kernel_dchunk) form W = g * K from the whole distance and
-// write d_xs / d_xps one chunk of d at a time, recomputing the distance per
-// chunk.
+// would give; the backward's d-chunked kernels (gram_bwd_rows_kernel_dchunk,
+// gram_bwd_cols_kernel_dchunk, one body, entry point gram_bwd_dchunk) stage
+// each chunk of a tile of pairs in shared memory, sum the same distance over
+// every chunk into registers, form W = g * K once per pair into a shared
+// tile, and walk the chunks again to add W times the differences into the
+// owned rows' sums (their own note below).
 //
 // The batch axis (a sweep's restarts or replicates; gpscore_torch/parallel/
 // sweeps.py): every kernel takes B independent Grams in one launch, the batch
@@ -956,33 +958,195 @@ gram_bwd_cols_kernel(const T* __restrict__ xs, const T* __restrict__ xps,
 // ---- the d-chunked backward --------------------------------------------------
 //
 // gram_bwd_rows and gram_bwd_cols past the unchunked kernels' widest d
-// (Elem<T>::kMaxDT: 64 floats, 32 doubles), in fp32 and fp64: the same sums,
-// d_xs_i = sum_j W_ij (xps_j - xs_i) with rowsum_i = sum_j W_ij, and d_xps_j =
-// sum_i W_ij (xs_i - xps_j), W = g * K recomputed.
+// (Elem<T>::kMaxDT: 64 floats, 32 doubles), in fp32 and fp64: the row and
+// column halves of gram_pallas.py:_bwd (:116-133), d_xs_i = sum_j W_ij (xps_j
+// - xs_i) with rowsum_i = sum_j W_ij, and d_xps_j = sum_i W_ij (xs_i - xps_j),
+// W = g * K recomputed, never stored. One body serves both: a block owns a
+// tile of rows of xs (kCols false; the walked side is xps) or of xps (kCols
+// true; it walks xs), and both sums read sum_a W_oa (x_walked_a - x_owned_o).
 //
-// A simple kernel, right first: a group of `group` threads (a power of two,
-// 32 to 256: the walked side's length rounded up, at most the block) owns one
-// row (kCols false) or one column (kCols true) and walks the other side with
-// a stride of the group. For each chunk of Elem<T>::kDChunk features it
-// forms every W_ij from the whole distance (summed over all d in ascending k,
-// xs - xps, as the forward does, read through L1 from device memory) and
-// adds W_ij times the chunk's differences to kDChunk sums in registers; the
-// group then reduces them in a fixed order (a butterfly in each warp, the
-// warps in order through shared memory) and writes the chunk of d_xs or
-// d_xps, and with the first chunk the rowsum. So the distance is recomputed
-// once a chunk, no float is added atomically, a call is one launch and
-// bitwise the same from run to run. Nothing is staged: what bounds it is the
-// d loads of every (i, j) pair from L1 and, at tall-skinny column calls, a
-// grid of one block a few columns (ROADMAP: a staged, chunked design).
-template <typename T, bool kCols, bool kBatched>
+// What bounds them: the operations, past a few hundred pairs. A pair costs
+// 6d + 6 FLOP (d differences and d FMAs for the distance, d more of each for
+// the output), against the 4d + 1 bytes of its g and its share of the rows:
+// at 2048 x 30720 x 90 (a large-n backward block) 34 GFLOP, 513 us at the
+// fp32 rate, 0.47 ms of it the FP32 pipe's issue of the 4d instructions. At
+// the FITC path's small Grams (500 x 20 x 90, 20 x 20 x 90) the launch and a
+// few staged round trips. The first d-chunked kernels recomputed the
+// distance once per 64-feature chunk of the output, staged nothing (every
+// pair read its d features through L1) and gave a tall-skinny column call
+// one block per few columns: 91-941 us at 500 x 500 x 65 and 9700 x 20 x 130.
+//
+// What this design does about it:
+// - Tiles. A block owns RO * TY rows (the owned tile) and walks a chunk of
+//   the other side in stages of RA * TX rows. The thread tile RO x RA is
+//   kDcRO x kVec ("wide": large Grams, where every staged element serves
+//   several pairs from a register) or 1 x 1 (one pair a thread: small Grams,
+//   whose time is a thread's chain of instructions, 16 times shorter so).
+//   The tile, TX and TY are the plan's (ops/gram_cuda.py::dchunk_plan).
+// - Staging. Each 256-byte d-chunk of the owned tile and of the stage's
+//   walked rows is copied with cp.async as the 16-byte blocks that hold it,
+//   whatever d (a copy of 4 bytes an element, which rows of d = 65, 90, 130
+//   or 385 floats would need, ran at a few cycles an element and took most
+//   of the first version of this design's time), into a raw stage that keeps
+//   each row's alignment; the block then repacks it into the stage the
+//   passes read, at a row pitch of 17 16-byte units (odd: the 16-byte reads
+//   of neighbouring rows hit different banks). The next step's copies run
+//   under this step's arithmetic. The stage's g tile comes as g lays it out.
+// - W formed once per pair. Pass A: TX x TY threads each hold the distance
+//   of their RO x RA pairs in registers and add every chunk of d to it, in
+//   ascending k, with fma of (x_walked - x_owned)^2: the forward's squares,
+//   so W is bitwise g times gram_fwd's K. After the last chunk a thread
+//   forms its W = g * (sig * exp(-d2 / 2)) into a shared W tile (in the g
+//   tile's place), 0 outside the Gram. Pass B walks the group's chunks
+//   again: an item of RO owned rows x one 16-byte vector of features adds
+//   W_oa (x_walked_a - x_owned_o) over the stage's walked rows, in ascending
+//   a, into the owned tile's accumulators in shared memory (and, for the row
+//   kernel, the row sums with the first chunk). Where a chunk has fewer
+//   items than the block has threads (its last chunk of features, a
+//   tall-skinny call's small owned tile), S neighbouring lanes split an
+//   item's walked rows and a butterfly of shuffles adds their sums. W is formed once
+//   per pair up to kDcGroupBytes of features (2048 floats, 1024 doubles);
+//   past that the features are cut into groups on the grid's y axis and
+//   each group forms W once.
+// - A grid that fills the card: owned tiles x walked chunks (x groups) x
+//   the batch, planned from the SM count. With more than one chunk each
+//   block writes its partial to scratch[chunk, owned, d (+1)]; the last block
+//   of an owned tile, elected by an int ticket that it sets back to 0, sums
+//   them in chunk order; past 16 chunks, the last block of each of
+//   ceil(sqrt(chunks)) groups of consecutive chunks sums its group, and the
+//   last of those the groups (dc_sum_groups). A tall-skinny column call
+//   (TX > 16, an owned tile of 4 or 8 columns) runs blocks of 256 threads,
+//   for its pass B and for those sums.
+// - No float atomics, one launch a call, bitwise the same from run to run;
+//   tickets and scratch per (batch, tile) as the other kernels'. No tensor
+//   cores: the differences are cancellation-critical and stay IEEE fp32
+//   ("highest"), which wgmma has no mode for; the fp64 build is the same
+//   body on doubles.
+//
+// What bounds them now (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py phase 3):
+// at 2048 x 30720 x 90 the FP32 pipe and the staging around it, 2.17 ms a
+// call, 0.24 of the operations bound (the first d-chunked kernels: 29.4 ms);
+// where blocks are few, a block's serial steps: 500 x 20 x 90 16-20 us,
+// 500 x 500 x 65 34-38 us, 9700 x 20 x 130 46 us (rows) and 52 us (columns:
+// 4 serial steps a block, then the sum over 76 chunks in 9 groups), under
+// the plain version's 49 and 54; 9700 x 20 x 385 205 / 145 us, over its 95
+// and 82.
+constexpr int kDcRO = 4;            // owned rows a thread (pass A's pairs, pass B's outputs)
+constexpr int kDcMaxTX = 64;        // walked threads of pass A (a stage: kVec * TX rows)
+constexpr int kDcMaxTY = 16;        // owned threads of pass A (a tile: kDcRO * TY rows)
+constexpr int kDcGroupBytes = 8192; // widest feature group of one W pass, bytes of a row
+constexpr int kDcSmemMax = 231424;  // dynamic shared memory a block may take (226 KB)
+
+// The d-chunks of a width w of features: 256-byte chunks (Elem<T>::kDChunk
+// elements); with `merge`, a remainder of up to 16 bytes past two chunks or
+// more rides with the last full chunk (d = 130: 64 + 66, not 64 + 64 + 2; a
+// chunk of a few features costs a whole step's copies, barriers and pass-B
+// walk). The kernel merges where a 17-vector chunk's pass-B items fit its
+// block's threads in one round.
+template <typename T>
+__host__ __device__ constexpr int dc_chunks(int w, bool merge) {
+  constexpr int DC = Elem<T>::kDChunk;
+  return merge && w > 2 * DC && (w - 1) % DC < Elem<T>::kVec ? w / DC : (w + DC - 1) / DC;
+}
+
+// The groups a tile's chunk partials are summed in: one up to 16 chunks
+// (the last block of the tile sums them all), else ceil(sqrt(chunks)) groups
+// of consecutive chunks, whose last blocks sum their group into a second
+// level of scratch that the last of them sums (a block reads ~128 bytes a
+// thread per L2 round trip: the columns at 9700 x 20 x 130, 76 chunks, took
+// 58 us with one summing block a tile and 52 with 9 groups, bench_gram on an
+// NVIDIA H100 80GB HBM3 at 700 W).
+__host__ __device__ constexpr int dc_sum_groups(int n_chunks) {
+  int g = 1;
+  while (n_chunks > 16 && g * g < n_chunks) ++g;
+  return g;
+}
+
+// Shared memory of the d-chunked backward, in elements: the owned tile's
+// accumulators [TO][gw] and row sums; the g tile as g lays it out ([TA][TO]
+// for the columns, [TO][TA] for the rows), which the W tile [TA][TO]
+// (transposed, so that pass B reads kDcRO owned rows as 16 bytes) replaces
+// once a stage's W is formed; the step's owned and walked rows as the
+// passes read them ([TO + TA][P], P = 272 bytes, 17 16-byte units) and the
+// next step's as copied ([TO + TA][P + 16 bytes]: a chunk of up to 272 bytes
+// at any alignment).
+struct DcSmem {
+  int acc_pitch, w_pitch, g_pitch;  // row pitches
+  int acc, rs, wg, stage, raw, total;
+};
+
+template <typename T>
+__host__ __device__ inline DcSmem dc_smem(bool cols, int to, int ta, int gw) {
+  constexpr int V = Elem<T>::kVec;
+  constexpr int P = Elem<T>::kDChunk + V;
+  DcSmem s;
+  s.acc_pitch = round16<T>(gw);
+  s.w_pitch = to + V;
+  s.g_pitch = cols ? to + V : ta + V;
+  s.acc = to * s.acc_pitch;
+  s.rs = round16<T>(to);
+  s.wg = round16<T>(max(ta * s.w_pitch, (cols ? ta : to) * s.g_pitch));
+  s.stage = (to + ta) * P;
+  s.raw = (to + ta) * (P + V);
+  s.total = s.acc + s.rs + s.wg + s.stage + s.raw;
+  return s;
+}
+
+// Copy a rows x cols tile (row pitches src_pitch, dst_pitch) to shared memory
+// with cp.async through L1, the block's nthr threads taking a share: 16 bytes
+// a copy when vec (cols, both pitches and both bases 16-byte aligned), one
+// element otherwise.
+template <typename T>
+__device__ __forceinline__ void dc_stage(T* dst, int dst_pitch, const T* src, size_t src_pitch,
+                                         int rows, int cols, bool vec, int tid, int nthr) {
+  constexpr int V = Elem<T>::kVec;
+  if (vec) {
+    const int per_row = cols / V;
+    for (int v = tid; v < rows * per_row; v += nthr) {
+      const int r = v / per_row;
+      const int c = V * (v - r * per_row);
+      const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(dst + r * dst_pitch + c));
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(sa),
+                   "l"(src + r * src_pitch + c) : "memory");
+    }
+  } else {
+    for (int e = tid; e < rows * cols; e += nthr) {
+      const int r = e / cols;
+      const int c = e - r * cols;
+      cp_async_elem(dst + r * dst_pitch + c, src + r * src_pitch + c);
+    }
+  }
+}
+
+__device__ __forceinline__ void store16(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store16(double* p, const double* v) {
+  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+}
+
+template <typename T, bool kCols, bool kBatched, int RO, int RA>
 __device__ __forceinline__ void bwd_dchunk_body(const T* __restrict__ xs,
                                                 const T* __restrict__ xps,
                                                 const T* __restrict__ sig,
                                                 const T* __restrict__ g, T* __restrict__ out,
-                                                T* __restrict__ rowsum, int n, int m, int d,
-                                                int group, const Batch& bs) {
+                                                T* __restrict__ rowsum, T* __restrict__ scratch,
+                                                int* __restrict__ ticket, int n, int m, int d,
+                                                int tx_n, int ty_n, int chunk, int groups,
+                                                int gw, const Batch& bs) {
+  constexpr int V = Elem<T>::kVec;
   constexpr int DC = Elem<T>::kDChunk;
-  __shared__ T part_s[kWarpsPerBlock][DC + 1];
+  constexpr int P = DC + V;         // the passes' row pitch: 272 bytes
+  constexpr int PR = P + V;         // the raw rows' pitch: a chunk's 16-byte blocks
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  __shared__ int is_last;
+  const int n_own = kCols ? m : n;
+  const int n_walk = kCols ? n : m;
+  const int width = kCols ? d : d + 1;  // a scratch row: the features (and the row sum)
+  const int n_chunks = gridDim.y / groups;
+  const int n_sum = dc_sum_groups(n_chunks);     // the chunks' sum groups
+  const int n_levels2 = n_sum > 1 ? n_sum : 0;  // second-level partials and tickets a tile
   if constexpr (kBatched) {
     const long long b = blockIdx.z;
     xs += b * bs.xs;
@@ -991,112 +1155,381 @@ __device__ __forceinline__ void bwd_dchunk_body(const T* __restrict__ xs,
     g += b * bs.g;
     out += b * bs.out0;
     if constexpr (!kCols) rowsum += b * bs.out1;
+    scratch += b * (n_chunks + n_levels2) * (long long)n_own * width;
+    ticket += b * gridDim.x * (n_levels2 + 1);
   }
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int own = blockIdx.x * (kThreads / group) + threadIdx.x / group;
-  const int t = threadIdx.x & (group - 1);
-  const int n_own = kCols ? m : n;
-  const int n_walk = kCols ? n : m;
-  const bool ok = own < n_own;
-  const T* xo = (kCols ? xps : xs) + (size_t)(ok ? own : 0) * d;  // the owned input row
-  const T* xw = kCols ? xs : xps;                                  // the walked rows
+  const T* xo_g = kCols ? xps : xs;  // the owned rows
+  const T* xa_g = kCols ? xs : xps;  // the walked rows
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  const int to = RO * ty_n;
+  const int ta = RA * tx_n;
+  const int o0 = blockIdx.x * to;
+  const int rows_o = min(to, n_own - o0);
+  const int chunk_i = blockIdx.y / groups;
+  const int grp = blockIdx.y - chunk_i * groups;
+  const int a_begin = chunk_i * chunk;
+  const int a_end = min(n_walk, a_begin + chunk);
+  const int stages = a_end > a_begin ? (a_end - a_begin + ta - 1) / ta : 0;
+  const int k_begin = grp * gw;
+  const int k_end = min(d, k_begin + gw);
+  // A merged chunk's 17 vectors of pass-B items fit the block in one round.
+  const bool merge = (to + RO - 1) / RO * (P / V) <= nthr;
+  const int n_a = dc_chunks<T>(d, merge);                // pass A's chunks: all of d (two or more)
+  const int n_b = dc_chunks<T>(k_end - k_begin, merge);  // pass B's: the group's features
+  const int per_stage = n_a + n_b;
+  const DcSmem lay = dc_smem<T>(kCols, to, ta, gw);
+  T* acc_s = smem;                // [to][acc_pitch]
+  T* rs_s = acc_s + lay.acc;      // [to]
+  T* g_s = rs_s + lay.rs;         // [ta][g_pitch] (columns) or [to][g_pitch] (rows), then
+  T* w_s = g_s;                   // [ta][w_pitch] in its place
+  T* buf_s = g_s + lay.wg;        // 2 x ([to][P], [ta][P])
+  const bool vec_g = (m & (V - 1)) == 0;  // every row of g starts as its first does
+  // Loaded before the copies are issued: the asm of cp.async orders every
+  // later load after it.
   const T s = *sig;
-  const int warp0 = (threadIdx.x / group) * (group >> 5);  // the group's first warp
-  for (int k0 = 0; k0 < d; k0 += DC) {
-    const int kw = min(DC, d - k0);
-    T acc[DC];
-    T rs = T(0);
-#pragma unroll
-    for (int k = 0; k < DC; ++k) acc[k] = T(0);
-    if (ok) {
-      for (int j = t; j < n_walk; j += group) {
-        const T* xj = xw + (size_t)j * d;
-        T d2 = T(0);
-        for (int k = 0; k < d; ++k) {
-          const T u = kCols ? xj[k] - xo[k] : xo[k] - xj[k];  // xs - xps, as the forward
-          d2 = fma_t(u, u, d2);
-        }
-        const T gv = kCols ? g[(size_t)j * m + own] : g[(size_t)own * m + j];
-        const T wv = gv * (s * exp_t(T(-0.5) * d2));
-        rs += wv;
-#pragma unroll
-        for (int k = 0; k < DC; ++k) {
-          if (k < kw) acc[k] = fma_t(wv, xj[k0 + k] - xo[k0 + k], acc[k]);
+  for (int e = tid; e < lay.acc + lay.rs; e += nthr) acc_s[e] = T(0);
+
+  // A row's chunk [k0, k0 + kw) is copied as the 16-byte blocks that hold
+  // it (cp.async, 16 bytes a copy whatever d: a copy of 4 or 8 bytes an
+  // element ran at a few cycles an element), into a raw stage at pitch PR
+  // that keeps the span's alignment: element j of the chunk lands at raw
+  // offset s + j, s the row's misalignment in elements. Blocks that reach
+  // outside the array are copied element by element, within it.
+  constexpr int NB = PR / V;  // 16-byte blocks of a chunk's span, at most
+  const auto misalign = [&](const T* x, long long gi) {
+    return static_cast<int>((reinterpret_cast<uintptr_t>(x + gi) & 15) / sizeof(T));
+  };
+  const auto copy_rows = [&](T* dst, const T* x, int row0, int rows, int k0, int kw,
+                             long long limit) {
+    for (int v = tid; v < rows * NB; v += nthr) {
+      const int r = v / NB;
+      const int bv = (v - r * NB) * V;
+      const long long gi = (long long)(row0 + r) * d + k0;
+      const int s = misalign(x, gi);
+      if (bv >= s + kw) continue;  // past the span
+      const long long e0 = gi - s + bv;
+      T* dd = dst + r * PR + bv;
+      if (e0 >= 0 && e0 + V <= limit) {
+        cp_async16(dd, x + e0);
+      } else {
+        for (int q = 0; q < V; ++q) {
+          if (e0 + q >= 0 && e0 + q < limit) cp_async_elem(dd + q, x + e0 + q);
         }
       }
     }
-    for (int off = 16; off > 0; off >>= 1) {
-      rs += __shfl_xor_sync(kFullMask, rs, off);
+  };
+  // The raw rows into the stage that the passes read, aligned at pitch P,
+  // zeros from kw to a whole 16-byte vector (pass A reads whole vectors).
+  const auto repack = [&](T* dst, const T* raw, const T* x, int row0, int rows, int k0, int kw) {
+    const int nv = round16<T>(kw) / V;
+    for (int v = tid; v < rows * nv; v += nthr) {
+      const int r = v / nv;
+      const int j0 = (v - r * nv) * V;
+      const int s = misalign(x, (long long)(row0 + r) * d + k0);
+      T q[V];
 #pragma unroll
-      for (int k = 0; k < DC; ++k) {
-        if (k < kw) acc[k] += __shfl_xor_sync(kFullMask, acc[k], off);
+      for (int u = 0; u < V; ++u) q[u] = j0 + u < kw ? raw[r * PR + s + j0 + u] : T(0);
+      store16(dst + r * P + j0, q);
+    }
+  };
+  // Step st of the block's schedule: stage st / per_stage, whose n_a >= 2
+  // pass-A chunks of d come first, then its n_b pass-B chunks of the group.
+  const auto step_at = [&](int st, int& a0, int& w_a, int& k0, int& kw) {
+    const int sg = st / per_stage;
+    const int p = st - sg * per_stage;
+    a0 = a_begin + sg * ta;
+    w_a = min(ta, a_end - a0);
+    const bool a = p < n_a;
+    const int c = a ? p : p - n_a;
+    k0 = (a ? 0 : k_begin) + c * DC;
+    kw = c + 1 < (a ? n_a : n_b) ? DC : (a ? d : k_end) - k0;
+    return p;
+  };
+  T* raw_s = buf_s + lay.stage;  // [to + ta][PR]: the next step's rows, as copied
+  // The stage's g tile, once the last stage's pass B is done with the W tile
+  // in its place: 16-byte copies where the tile's rows start aligned, are
+  // whole vectors and land at a pitch of whole vectors (a one-pair tile of
+  // 6 owned columns has a pitch of 10 floats).
+  const auto stage_g_tile = [&](int a0, int w_a) {
+    const T* src = g + (kCols ? (size_t)a0 * m + o0 : (size_t)o0 * m + a0);
+    const int cols = kCols ? rows_o : w_a;
+    const bool vec = vec_g && aligned16(src) && (cols & (V - 1)) == 0 &&
+                     (lay.g_pitch & (V - 1)) == 0;
+    dc_stage(g_s, lay.g_pitch, src, m, kCols ? w_a : rows_o, cols, vec, tid, nthr);
+  };
+  // It comes with the stage's second pass-A chunk.
+  const auto issue = [&](int st) {
+    int a0, w_a, k0, kw;
+    const int p = step_at(st, a0, w_a, k0, kw);
+    copy_rows(raw_s, xo_g, o0, rows_o, k0, kw, (long long)n_own * d);
+    copy_rows(raw_s + to * PR, xa_g, a0, w_a, k0, kw, (long long)n_walk * d);
+    if (p == 1) stage_g_tile(a0, w_a);
+  };
+
+  const bool active = tid < tx_n * ty_n;  // pass A's threads
+  const int tx = active ? tid % tx_n : 0;
+  const int ty = active ? tid / tx_n : 0;
+  T d2[RO][RA];
+#pragma unroll
+  for (int i = 0; i < RO; ++i) {
+#pragma unroll
+    for (int j = 0; j < RA; ++j) d2[i][j] = T(0);
+  }
+  const int total = stages * per_stage;
+  if (total > 0) issue(0);
+  cp_async_commit();
+  const T* bo = buf_s;  // the step's owned rows [to][P], then its walked rows [ta][P]
+  const T* ba = buf_s + to * P;
+  for (int st = 0; st < total; ++st) {
+    cp_async_wait<0>();
+    __syncthreads();  // this step's copies (and the g tile) are in; the last step is done
+    int a0, w_a, k0, kw;
+    const int p = step_at(st, a0, w_a, k0, kw);
+    repack(buf_s, raw_s, xo_g, o0, rows_o, k0, kw);
+    repack(buf_s + to * P, raw_s + to * PR, xa_g, a0, w_a, k0, kw);
+    __syncthreads();  // the stage is in place; the raw rows are free
+    if (st + 1 < total) issue(st + 1);
+    cp_async_commit();
+    if (p < n_a) {
+      // Pass A: this chunk's terms of the distance.
+      const int kwv = round16<T>(kw);
+      if (active) {
+        for (int k = 0; k < kwv; k += V) {
+          T xo[RO][V];
+          T xa[RA][V];
+#pragma unroll
+          for (int i = 0; i < RO; ++i) load16(bo + (ty + ty_n * i) * P + k, xo[i]);
+#pragma unroll
+          for (int j = 0; j < RA; ++j) load16(ba + (tx + tx_n * j) * P + k, xa[j]);
+#pragma unroll
+          for (int u = 0; u < V; ++u) {
+#pragma unroll
+            for (int i = 0; i < RO; ++i) {
+#pragma unroll
+              for (int j = 0; j < RA; ++j) {
+                const T t = xa[j][u] - xo[i][u];  // -(xs - xps) for the rows: the same square
+                d2[i][j] = fma_t(t, t, d2[i][j]);
+              }
+            }
+          }
+        }
+      }
+      if (p == n_a - 1) {  // every chunk is in: W = g * K, 0 outside the Gram
+        T gv[RO][RA];
+#pragma unroll
+        for (int i = 0; i < RO; ++i) {
+#pragma unroll
+          for (int j = 0; j < RA; ++j) {
+            const int o = ty + ty_n * i;
+            const int a = tx + tx_n * j;
+            gv[i][j] = active && o < rows_o && a < w_a
+                           ? (kCols ? g_s[a * lay.g_pitch + o] : g_s[o * lay.g_pitch + a])
+                           : T(0);
+          }
+        }
+        __syncthreads();  // every g read: the W tile takes its place
+        if (active) {
+#pragma unroll
+          for (int i = 0; i < RO; ++i) {
+#pragma unroll
+            for (int j = 0; j < RA; ++j) {
+              const int o = ty + ty_n * i;
+              const int a = tx + tx_n * j;
+              const bool in = o < rows_o && a < w_a;
+              w_s[a * lay.w_pitch + o] = in ? gv[i][j] * (s * exp_t(T(-0.5) * d2[i][j])) : T(0);
+              d2[i][j] = T(0);
+            }
+          }
+        }
+      }
+    } else {
+      // Pass B: W times this chunk's differences, into the owned tile; k0
+      // from here on counts from k_begin. An item is RO owned rows x one
+      // 16-byte vector of the chunk's features; its walked rows are split
+      // into S slices on S neighbouring lanes (S the largest power of two,
+      // up to a warp, that the block's threads allow), whose sums a
+      // butterfly of shuffles adds in a fixed order.
+      k0 -= k_begin;
+      const bool first = !kCols && grp == 0 && k0 == 0;  // this chunk also sums the rows
+      const int nkg = (kw + V - 1) / V;
+      const int items = (rows_o + RO - 1) / RO * nkg;
+      int S = 1;
+      while (S < 32 && items * S * 2 <= nthr) S *= 2;
+      const int span = (w_a + S - 1) / S;
+      for (int u0 = 0; u0 < items * S; u0 += nthr) {  // one round when S > 1
+        const int u = u0 + tid;
+        const int item = u / S;
+        const int sl = u - item * S;
+        const bool valid = item < items;
+        const int ob = valid ? item / nkg * RO : 0;
+        const int kk = valid ? (item - item / nkg * nkg) * V : 0;
+        const bool sums = first && kk == 0;
+        T acc[RO][V];
+        T xo[RO][V];
+        T rs[RO];
+#pragma unroll
+        for (int i = 0; i < RO; ++i) {
+          load16(bo + (ob + i) * P + kk, xo[i]);
+          if (sl == 0 && valid) {
+            load16(acc_s + (ob + i) * lay.acc_pitch + k0 + kk, acc[i]);
+            rs[i] = rs_s[ob + i];
+          } else {
+#pragma unroll
+            for (int q = 0; q < V; ++q) acc[i][q] = T(0);
+            rs[i] = T(0);
+          }
+        }
+        const int hi = valid ? min(w_a, (sl + 1) * span) : 0;
+        for (int a = sl * span; a < hi; ++a) {
+          T w4[RO];
+          T xa[V];
+          if constexpr (RO % V == 0) {
+#pragma unroll
+            for (int q = 0; q < RO; q += V) load16(w_s + a * lay.w_pitch + ob + q, w4 + q);
+          } else {
+#pragma unroll
+            for (int q = 0; q < RO; ++q) w4[q] = w_s[a * lay.w_pitch + ob + q];
+          }
+          load16(ba + a * P + kk, xa);
+#pragma unroll
+          for (int i = 0; i < RO; ++i) {
+            if (sums) rs[i] += w4[i];
+#pragma unroll
+            for (int q = 0; q < V; ++q) acc[i][q] = fma_t(w4[i], xa[q] - xo[i][q], acc[i][q]);
+          }
+        }
+        // An item's S lanes are neighbours in one warp (S divides 32), and
+        // with S > 1 every lane of the block takes part.
+        for (int off = 1; off < S; off <<= 1) {
+#pragma unroll
+          for (int i = 0; i < RO; ++i) {
+            rs[i] += __shfl_xor_sync(kFullMask, rs[i], off);
+#pragma unroll
+            for (int q = 0; q < V; ++q) acc[i][q] += __shfl_xor_sync(kFullMask, acc[i][q], off);
+          }
+        }
+        if (sl == 0 && valid) {
+#pragma unroll
+          for (int i = 0; i < RO; ++i) {
+            store16(acc_s + (ob + i) * lay.acc_pitch + k0 + kk, acc[i]);
+            if (sums) rs_s[ob + i] = rs[i];
+          }
+        }
       }
     }
-    if (lane == 0) {
-#pragma unroll
-      for (int k = 0; k < DC; ++k) {
-        if (k < kw) part_s[warp][k] = acc[k];
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the accumulators (zero with no stage) are final
+
+  // This block's sums over its chunk: the output with one chunk, else this
+  // chunk's slot of scratch; the group's features, and in group 0 the rows'
+  // sums.
+  const bool one_chunk = n_chunks == 1;
+  const int gk = k_end - k_begin;
+  for (int e = tid; e < rows_o * gk; e += nthr) {
+    const int r = e / gk;
+    const int k = k_begin + e - r * gk;
+    const T v = acc_s[r * lay.acc_pitch + k - k_begin];
+    if (one_chunk) out[(size_t)(o0 + r) * d + k] = v;
+    else scratch[((size_t)chunk_i * n_own + o0 + r) * width + k] = v;
+  }
+  if constexpr (!kCols) {
+    if (grp == 0) {
+      for (int r = tid; r < rows_o; r += nthr) {
+        if (one_chunk) rowsum[o0 + r] = rs_s[r];
+        else scratch[((size_t)chunk_i * n_own + o0 + r) * width + d] = rs_s[r];
       }
-      part_s[warp][DC] = rs;
+    }
+  }
+  if (one_chunk) return;
+
+  // Grid level, in a fixed order: the last block of the tile (with one sum
+  // group), else of each group of consecutive chunks and then of the groups,
+  // elected by int tickets that they set back to 0, sums the partials.
+  const size_t chunk_stride = (size_t)n_own * width;
+  const T* parts = scratch + (size_t)o0 * width;
+  int* tk = ticket + blockIdx.x * (n_levels2 + 1);  // the tile's ticket, then its groups'
+  const auto last_of = [&](int* t, int count) {
+    __threadfence();  // this block's scratch writes are visible before its ticket
+    __syncthreads();
+    if (tid == 0) {
+      is_last = atomicAdd(t, 1) == count - 1;
+      if (is_last) *t = 0;  // every block of the count has drawn
     }
     __syncthreads();
-    if (ok) {
-      for (int e = t; e <= kw; e += group) {
-        const int slot = e < kw ? e : DC;
-        T v = part_s[warp0][slot];
-        for (int q = 1; q < (group >> 5); ++q) v += part_s[warp0 + q][slot];
-        if (e < kw) out[(size_t)own * d + k0 + e] = v;
-        else if (!kCols && k0 == 0) rowsum[own] = v;
+    if (is_last) __threadfence();
+    return is_last;
+  };
+  // Partials c0 .. c0 + count - 1 of the tile's rows, added in order (loads
+  // in batches, from L2, as gram_bwd_cols), each element to store(e, sum).
+  const auto sum_parts = [&](const T* base, int count, auto store) {
+    for (int e = tid; e < rows_o * width; e += nthr) {
+      T v = T(0);
+      for (int q0 = 0; q0 < count; q0 += kSumBatch) {
+        T batch[kSumBatch];
+#pragma unroll
+        for (int u = 0; u < kSumBatch; ++u) {
+          batch[u] = q0 + u < count ? __ldcg(base + (q0 + u) * chunk_stride + e) : T(0);
+        }
+#pragma unroll
+        for (int u = 0; u < kSumBatch; ++u) {
+          if (q0 + u < count) v += batch[u];
+        }
       }
+      store(e, v);
     }
-    __syncthreads();  // the next chunk rewrites part_s
+  };
+  const auto store_out = [&](int e, T v) {
+    const int r = e / width;
+    const int k = e - r * width;
+    if (kCols || k < d) out[(size_t)(o0 + r) * d + k] = v;
+    else rowsum[o0 + r] = v;
+  };
+  if (n_sum == 1) {
+    if (!last_of(tk, static_cast<int>(gridDim.y))) return;
+    sum_parts(parts, n_chunks, store_out);
+    return;
   }
+  const int per = (n_chunks + n_sum - 1) / n_sum;  // chunks a group
+  const int n_grp = (n_chunks + per - 1) / per;   // groups that hold chunks
+  const int sg = chunk_i / per;
+  const int c0 = sg * per;
+  const int cn = min(per, n_chunks - c0);
+  if (!last_of(tk + 1 + sg, cn * groups)) return;
+  T* level2 = scratch + (size_t)n_chunks * chunk_stride + (size_t)o0 * width;
+  sum_parts(parts + c0 * chunk_stride, cn,
+            [&](int e, T v) { level2[sg * chunk_stride + e] = v; });
+  if (!last_of(tk, n_grp)) return;
+  sum_parts(level2, n_grp, store_out);
 }
 
-template <typename T, bool kBatched>
-__global__ void __launch_bounds__(kThreads)
+// The thread tile: kWide, kDcRO owned x kVec walked pairs a thread (large
+// Grams: every staged element serves several pairs from a register); else
+// one pair a thread (small Grams, whose time is the latency of a thread's
+// chain of instructions, 16 times shorter so). fp32 takes at most 128
+// registers a thread, two blocks of 256 threads an SM; fp64 at most 255.
+template <typename T, bool kBatched, bool kWide>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 2 : 1)
 gram_bwd_rows_kernel_dchunk(const T* __restrict__ xs, const T* __restrict__ xps,
                             const T* __restrict__ sig, const T* __restrict__ g,
-                            T* __restrict__ d_xs, T* __restrict__ rowsum, int n, int m, int d,
-                            int group, Batch bs) {
-  bwd_dchunk_body<T, false, kBatched>(xs, xps, sig, g, d_xs, rowsum, n, m, d, group, bs);
+                            T* __restrict__ d_xs, T* __restrict__ rowsum, T* __restrict__ scratch,
+                            int* __restrict__ ticket, int n, int m, int d, int tx_n, int ty_n,
+                            int chunk, int groups, int gw, Batch bs) {
+  bwd_dchunk_body<T, false, kBatched, kWide ? kDcRO : 1, kWide ? Elem<T>::kVec : 1>(
+      xs, xps, sig, g, d_xs, rowsum, scratch, ticket, n, m, d, tx_n, ty_n, chunk, groups, gw, bs);
 }
 
-template <typename T, bool kBatched>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, bool kBatched, bool kWide>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 2 : 1)
 gram_bwd_cols_kernel_dchunk(const T* __restrict__ xs, const T* __restrict__ xps,
                             const T* __restrict__ sig, const T* __restrict__ g,
-                            T* __restrict__ d_xps, int n, int m, int d, int group, Batch bs) {
-  bwd_dchunk_body<T, true, kBatched>(xs, xps, sig, g, d_xps, nullptr, n, m, d, group, bs);
-}
-
-// The chunked kernels' group: the walked side's length rounded up to a power
-// of two, from 32 to kThreads.
-int dchunk_group(int walked) {
-  int gsize = 32;
-  while (gsize < kThreads && gsize < walked) gsize *= 2;
-  return gsize;
-}
-
-template <typename T>
-cudaError_t launch_bwd_dchunk(bool cols, const T* xs, const T* xps, const T* sig, const T* g,
-                              T* out, T* rowsum, int n, int m, int d, int batch,
-                              const Batch& bs, cudaStream_t stream) {
-  const int group = dchunk_group(cols ? n : m);
-  const int owned = cols ? m : n;
-  const int per_block = kThreads / group;
-  const dim3 grid((owned + per_block - 1) / per_block, 1, batch);
-  if (cols) {
-    const auto kernel = batch > 1 ? gram_bwd_cols_kernel_dchunk<T, true>
-                                  : gram_bwd_cols_kernel_dchunk<T, false>;
-    kernel<<<grid, kThreads, 0, stream>>>(xs, xps, sig, g, out, n, m, d, group, bs);
-  } else {
-    const auto kernel = batch > 1 ? gram_bwd_rows_kernel_dchunk<T, true>
-                                  : gram_bwd_rows_kernel_dchunk<T, false>;
-    kernel<<<grid, kThreads, 0, stream>>>(xs, xps, sig, g, out, rowsum, n, m, d, group, bs);
-  }
-  return cudaGetLastError();
+                            T* __restrict__ d_xps, T* __restrict__ scratch,
+                            int* __restrict__ ticket, int n, int m, int d, int tx_n, int ty_n,
+                            int chunk, int groups, int gw, Batch bs) {
+  bwd_dchunk_body<T, true, kBatched, kWide ? kDcRO : 1, kWide ? Elem<T>::kVec : 1>(
+      xs, xps, sig, g, d_xps, nullptr, scratch, ticket, n, m, d, tx_n, ty_n, chunk, groups, gw,
+      bs);
 }
 
 // Dynamic shared memory above 48 KB is only granted when asked for.
@@ -1105,6 +1538,47 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// One launch of the d-chunked backward under the plan (tx, ty, chunk, groups,
+// gw, threads) of ops/gram_cuda.py::dchunk_plan: a grid of owned tiles x
+// (walked chunks x feature groups) x batch, blocks of `threads` threads,
+// whole warps, at least tx * ty (the rest stage rows and sum the chunks).
+template <typename T>
+cudaError_t launch_bwd_dchunk(bool cols, bool wide, const T* xs, const T* xps, const T* sig,
+                              const T* g, T* out, T* rowsum, T* scratch, int* ticket, int n, int m,
+                              int d, int tx, int ty, int chunk, int groups, int gw, int threads,
+                              int batch, const Batch& bs, cudaStream_t stream) {
+  const int own = cols ? m : n;
+  const int walk = cols ? n : m;
+  const int ro = wide ? kDcRO : 1;
+  const int to = ro * ty;
+  const int n_chunks = walk > 0 ? (walk - 1) / chunk + 1 : 1;
+  const size_t smem = dc_smem<T>(cols, to, (wide ? Elem<T>::kVec : 1) * tx, gw).total * sizeof(T);
+  if (smem > kDcSmemMax || (long long)n_chunks * groups > 65535 ||
+      (n_chunks > 1 && (scratch == nullptr || ticket == nullptr)))
+    return cudaErrorInvalidValue;
+  const dim3 grid((own + to - 1) / to, n_chunks * groups, batch);
+  if (cols) {
+    const auto kernel = batch > 1 ? (wide ? gram_bwd_cols_kernel_dchunk<T, true, true>
+                                          : gram_bwd_cols_kernel_dchunk<T, true, false>)
+                                  : (wide ? gram_bwd_cols_kernel_dchunk<T, false, true>
+                                          : gram_bwd_cols_kernel_dchunk<T, false, false>);
+    const cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, threads, smem, stream>>>(xs, xps, sig, g, out, scratch, ticket, n, m, d, tx,
+                                            ty, chunk, groups, gw, bs);
+  } else {
+    const auto kernel = batch > 1 ? (wide ? gram_bwd_rows_kernel_dchunk<T, true, true>
+                                          : gram_bwd_rows_kernel_dchunk<T, true, false>)
+                                  : (wide ? gram_bwd_rows_kernel_dchunk<T, false, true>
+                                          : gram_bwd_rows_kernel_dchunk<T, false, false>);
+    const cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, threads, smem, stream>>>(xs, xps, sig, g, out, rowsum, scratch, ticket, n, m,
+                                            d, tx, ty, chunk, groups, gw, bs);
+  }
+  return cudaGetLastError();
 }
 
 // gram_fwd with its element type T deduced from the pointers; d past
@@ -1207,9 +1681,7 @@ int bwd_rows_entry(const T* xs, const T* xps, const T* sig, const T* g, T* d_xs,
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0 || batch == 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d > Elem<T>::kMaxDT)
-    return static_cast<int>(launch_bwd_dchunk<T>(false, xs, xps, sig, g, d_xs, rowsum, n, m, d,
-                                                 batch, bs, st));
+  if (d > Elem<T>::kMaxDT) return static_cast<int>(cudaErrorInvalidValue);  // gram_bwd_dchunk
   const int n_chunks = m > 0 ? (m - 1) / chunk_cols + 1 : 1;
   if (n_chunks > 65535 || (n_chunks > 1 && (scratch == nullptr || ticket == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1234,9 +1706,7 @@ int bwd_cols_entry(const T* xs, const T* xps, const T* sig, const T* g, T* d_xps
     return static_cast<int>(cudaErrorInvalidValue);
   if (m == 0 || batch == 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d > Elem<T>::kMaxDT)
-    return static_cast<int>(launch_bwd_dchunk<T>(true, xs, xps, sig, g, d_xps, nullptr, n, m, d,
-                                                 batch, bs, st));
+  if (d > Elem<T>::kMaxDT) return static_cast<int>(cudaErrorInvalidValue);  // gram_bwd_dchunk
   const int n_chunks = n > 0 ? (n - 1) / chunk_rows + 1 : 1;
   if (n_chunks > 65535 || (n_chunks > 1 && (scratch == nullptr || ticket == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1249,6 +1719,28 @@ int bwd_cols_entry(const T* xs, const T* xps, const T* sig, const T* g, T* d_xps
   }
   return static_cast<int>(launch(xs, xps, sig, g, d_xps, scratch, ticket, n, m, d, chunk_rows,
                                  n_chunks, batch, bs, st));
+}
+
+template <typename T>
+int bwd_dchunk_entry(int cols, int wide, const T* xs, const T* xps, const T* sig, const T* g,
+                     T* out, T* rowsum, T* scratch, int* ticket, int n, int m, int d, int tx,
+                     int ty, int chunk, int groups, int gw, int threads, int batch,
+                     const Batch& bs, void* stream) {
+  constexpr int DC = Elem<T>::kDChunk;
+  if (bad_shape(n, m, d) || d <= DC || bad_batch(batch, bs) || (cols != 0 && cols != 1) ||
+      (wide != 0 && wide != 1) || tx < 1 || tx > kDcMaxTX || (tx > 16 && tx % 16 != 0) ||
+      ty < 1 || ty > kDcMaxTY || tx * ty > kThreads ||
+      (!wide && tx > 16) || threads % 32 != 0 ||
+      threads < tx * ty || threads > kThreads ||
+      chunk < 1 || chunk % ((wide ? Elem<T>::kVec : 1) * tx) != 0 || groups < 1 ||
+      gw < 1 || (groups > 1 && gw % DC != 0) || (long long)gw * groups < d ||
+      (long long)gw * (groups - 1) >= d || (long long)gw * sizeof(T) > kDcGroupBytes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((cols ? m : n) == 0 || batch == 0) return static_cast<int>(cudaSuccess);
+  return static_cast<int>(launch_bwd_dchunk<T>(cols == 1, wide == 1, xs, xps, sig, g, out,
+                                               rowsum, scratch, ticket, n, m, d, tx, ty, chunk,
+                                               groups, gw, threads, batch, bs,
+                                               static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace
@@ -1315,7 +1807,7 @@ int gram_fwd_f64(const double* xs, const double* xps, const double* sig, const d
 // ticket one int per (batch, row tile), 0 at the launch and 0 again after it;
 // calls that share a ticket array must be ordered (one stream). The batch
 // strides of xs, xps, sig, g, d_xs and rowsum as in gram_fwd. Past d = 64
-// the chunked kernel, which takes no plan, scratch or ticket.
+// it refuses the call: gram_bwd_dchunk takes it.
 int gram_bwd_rows(const float* xs, const float* xps, const float* sig, const float* g,
                   float* d_xs, float* rowsum, float* scratch, int* ticket, int n, int m, int d,
                   int lanes_per_row, int slices, int stage_cols, int chunk_cols, int batch,
@@ -1326,7 +1818,7 @@ int gram_bwd_rows(const float* xs, const float* xps, const float* sig, const flo
                                lanes_per_row, slices, stage_cols, chunk_cols, batch, bs, stream);
 }
 
-// gram_bwd_rows on fp64 arrays (scratch fp64 too); past d = 32 the chunked kernel.
+// gram_bwd_rows on fp64 arrays (scratch fp64 too); past d = 32 gram_bwd_dchunk_f64.
 int gram_bwd_rows_f64(const double* xs, const double* xps, const double* sig, const double* g,
                       double* d_xs, double* rowsum, double* scratch, int* ticket, int n, int m,
                       int d, int lanes_per_row, int slices, int stage_cols, int chunk_cols,
@@ -1342,8 +1834,8 @@ int gram_bwd_rows_f64(const double* xs, const double* xps, const double* sig, co
 // than one chunk, scratch holds [batch, ceil(n / chunk_rows), m, d] floats and
 // ticket batch * ceil(m / 32) ints that are 0 at the launch and are 0 again
 // after it; calls that share a ticket array must be ordered (one stream). The
-// batch strides of xs, xps, sig, g and d_xps as in gram_fwd. Past d = 64 the
-// chunked kernel, which takes no plan, scratch or ticket.
+// batch strides of xs, xps, sig, g and d_xps as in gram_fwd. Past d = 64 it
+// refuses the call: gram_bwd_dchunk takes it.
 int gram_bwd_cols(const float* xs, const float* xps, const float* sig, const float* g,
                   float* d_xps, float* scratch, int* ticket, int n, int m, int d,
                   int chunk_rows, int batch, long long xs_bs, long long xps_bs,
@@ -1353,7 +1845,7 @@ int gram_bwd_cols(const float* xs, const float* xps, const float* sig, const flo
                                batch, bs, stream);
 }
 
-// gram_bwd_cols on fp64 arrays (scratch fp64 too); past d = 32 the chunked kernel.
+// gram_bwd_cols on fp64 arrays (scratch fp64 too); past d = 32 gram_bwd_dchunk_f64.
 int gram_bwd_cols_f64(const double* xs, const double* xps, const double* sig, const double* g,
                       double* d_xps, double* scratch, int* ticket, int n, int m, int d,
                       int chunk_rows, int batch, long long xs_bs, long long xps_bs,
@@ -1361,6 +1853,47 @@ int gram_bwd_cols_f64(const double* xs, const double* xps, const double* sig, co
   const Batch bs{xs_bs, xps_bs, sig_bs, g_bs, d_xps_bs, 0};
   return bwd_cols_entry<double>(xs, xps, sig, g, d_xps, scratch, ticket, n, m, d, chunk_rows,
                                 batch, bs, stream);
+}
+
+// The d-chunked backward (d past 64 floats, 32 doubles: d > 256 bytes):
+// cols 0, the row half, out = d_xs [n, d] and rowsum [n]; cols 1, the column
+// half, out = d_xps [m, d] (rowsum null). wide, tx, ty, chunk, groups, gw and
+// threads are the plan's (ops/gram_cuda.py::dchunk_plan):
+// - wide: the thread tile, 1 for 4 owned x 16 / sizeof(T) walked pairs, 0
+//   for one pair;
+// - tx, ty: pass A's walked and owned threads (tx <= 16 or a multiple of 16
+//   up to 64; ty <= 16; tx * ty <= 256). With one pair a thread, tx <= 16;
+// - chunk: the walked rows a block reduces, whole stages of tx walked rows
+//   a thread's;
+// - groups, gw: feature groups of gw features (gw * sizeof(T) <= 8192; a
+//   multiple of the 256-byte chunk when there are several);
+// - threads: the block, whole warps, at least tx * ty.
+// With more than one chunk, scratch holds [batch, chunks + L, owned, d + 1
+// (rows) or d (columns)] elements and ticket 1 + L ints per (batch, owned
+// tile), L = dc_sum_groups(chunks) past 16 chunks (else 0), all 0 at the
+// launch and 0 again after it; calls that share a ticket array must be
+// ordered (one stream). The batch strides as in gram_bwd_rows
+// (out_bs: out's).
+int gram_bwd_dchunk(int cols, int wide, const float* xs, const float* xps, const float* sig,
+                    const float* g, float* out, float* rowsum, float* scratch, int* ticket, int n,
+                    int m, int d, int tx, int ty, int chunk, int groups, int gw, int threads,
+                    int batch, long long xs_bs, long long xps_bs, long long sig_bs,
+                    long long g_bs, long long out_bs, long long rowsum_bs, void* stream) {
+  const Batch bs{xs_bs, xps_bs, sig_bs, g_bs, out_bs, rowsum_bs};
+  return bwd_dchunk_entry<float>(cols, wide, xs, xps, sig, g, out, rowsum, scratch, ticket, n, m,
+                                 d, tx, ty, chunk, groups, gw, threads, batch, bs, stream);
+}
+
+// gram_bwd_dchunk on fp64 arrays (scratch fp64 too).
+int gram_bwd_dchunk_f64(int cols, int wide, const double* xs, const double* xps,
+                        const double* sig, const double* g, double* out, double* rowsum,
+                        double* scratch, int* ticket, int n, int m, int d, int tx, int ty,
+                        int chunk, int groups, int gw, int threads, int batch, long long xs_bs,
+                        long long xps_bs, long long sig_bs, long long g_bs, long long out_bs,
+                        long long rowsum_bs, void* stream) {
+  const Batch bs{xs_bs, xps_bs, sig_bs, g_bs, out_bs, rowsum_bs};
+  return bwd_dchunk_entry<double>(cols, wide, xs, xps, sig, g, out, rowsum, scratch, ticket, n,
+                                  m, d, tx, ty, chunk, groups, gw, threads, batch, bs, stream);
 }
 
 }  // extern "C"

@@ -44,6 +44,10 @@ SIGNATURES = {
     "gram_bwd_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                       _L, _L, _L, _L, _L, _L, _P],
     "gram_bwd_cols": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _P],
+    # The d-chunked backward: cols and wide first, then as gram_bwd_rows with
+    # the plan (tx, ty, chunk, groups, group width, threads).
+    "gram_bwd_dchunk": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _I, _L, _L, _L, _L, _L, _L, _P],
 }
 # The fp64 entry points take the same arguments as their fp32 namesakes.
 SIGNATURES.update({f"{name}_f64": args for name, args in list(SIGNATURES.items())})

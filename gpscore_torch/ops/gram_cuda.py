@@ -24,8 +24,10 @@ Element types: float32, or float64 throughout (inputs, K, the cotangent and
 every output; the kernels' fp64 instantiations, through the ``*_f64`` entry
 points). Any d >= 1: past MAX_D features (fp64: MAX_D / 2) a call takes the
 kernels' d-chunked instantiations (csrc/gram.cu), which sum the squared
-distance over every chunk of d before the exp. Nothing casts and nothing
-falls back: a CUDA tensor of another dtype raises.
+distance over every chunk of d before the exp; the backward's stage tiles
+of pairs in shared memory and form W once per pair, under
+:func:`dchunk_plan`. Nothing casts and nothing falls back: a CUDA tensor of
+another dtype raises.
 
 Dispatch is by device alone: a CPU tensor takes the plain version (the
 cross-term form of `gpscore/ops/kernels.py:28-40,54-64`, so CPU results track
@@ -79,11 +81,12 @@ FWD_ROWS_PER_THREAD = (8, 4, 2, 1)  # gram_fwd: its instantiations, most rows fi
 MAX_BATCH = 65535  # Grams a launch: the grid's z extent (csrc/gram.cu bad_batch)
 
 # The card's peaks for the roofline bound (NVIDIA's H100 SXM data sheet, dense,
-# at the 700 W limit): device memory bandwidth, and fp32 outside the tensor
-# cores (the kernels use no tensor cores).
+# at the 700 W limit): device memory bandwidth; fp32 outside the tensor cores
+# (wgmma has no IEEE fp32 mode); fp64 through the tensor cores (DMMA is IEEE
+# fp64, so the card's fp64 peak, though the fp64 builds do not use it yet).
 H100_BYTES_PER_S = 3.35e12
 H100_FP32_FLOP_PER_S = 67e12
-H100_FP64_FLOP_PER_S = 34e12  # fp64 outside the tensor cores (the fp64 builds)
+H100_FP64_FLOP_PER_S = 67e12
 
 
 def max_unchunked_d(elem: int = 4) -> int:
@@ -206,7 +209,6 @@ class BwdRowsPlan(NamedTuple):
     scratch_shape: Optional[Tuple[int, int, int]]
     launches: int  # kernel launches per call
     batch: int = 1  # Grams in the call: tickets and scratch are per batch
-    dchunk: bool = False  # d past max_unchunked_d: the chunked kernel, no plan of its own
 
 
 def _round_up(v: int, k: int) -> int:
@@ -238,14 +240,11 @@ def bwd_rows_plan(n: int, m: int, d: int, sms: int, batch: int = 1,
 
     In fp64 the stage holds ROWS_STAGE_FLOATS * 4 bytes too (half the
     columns), xps rows sit at an odd number of 16-byte pairs, and every
-    build takes one block an SM. Past ``max_unchunked_d(elem)`` the chunked
-    kernel runs, which sizes its own grid (csrc/gram.cu dchunk_group): the
-    plan is one chunk of one stage, with no scratch (``dchunk``)."""
+    build takes one block an SM. Past ``max_unchunked_d(elem)`` the
+    d-chunked kernel runs, under :func:`dchunk_plan`'s tiling (a
+    :class:`DchunkPlan`)."""
     if d > max_unchunked_d(elem):
-        return BwdRowsPlan(lanes_per_row=1, slices=1, stage_cols=32,
-                           chunk_cols=_round_up(max(m, 1), 32), n_chunks=1, row_tiles=0,
-                           scratch_shape=None, launches=int(n > 0 and batch > 0), batch=batch,
-                           dchunk=True)
+        return dchunk_plan(False, n, m, d, sms, batch, elem)
     resident = sms * THREADS * (2 if d <= 16 and elem == 4 else 1)
     step = min(ROWS_MAX_STEP, 1 << max(m - 1, 0).bit_length())
     while step > ROWS_MIN_STEP and batch * n * step > resident:
@@ -285,7 +284,6 @@ class BwdColsPlan(NamedTuple):
     scratch_shape: Optional[Tuple[int, int, int]]
     launches: int  # kernel launches per call
     batch: int = 1  # Grams in the call: tickets and scratch are per batch
-    dchunk: bool = False  # d past max_unchunked_d: the chunked kernel, no plan of its own
 
 
 def bwd_cols_plan(n: int, m: int, d: int, sms: int, batch: int = 1,
@@ -295,8 +293,7 @@ def bwd_cols_plan(n: int, m: int, d: int, sms: int, batch: int = 1,
     stage-tiles count together). The kernel's shared memory depends on d
     alone (two stages of 64 rows, at most 75 KB in fp64 at its DMAX of 32),
     so the chunks do not depend on ``elem``; past ``max_unchunked_d(elem)``
-    the chunked kernel runs, one block a few columns (``dchunk``, csrc/gram.cu
-    dchunk_group), with no scratch.
+    the d-chunked kernel runs, under :func:`dchunk_plan`'s tiling.
 
     A block reduces whole stages of COLS_STAGE_ROWS rows. It takes one stage
     while the grid has fewer stage-tiles than twice ``sms`` (so a tall-skinny
@@ -304,13 +301,9 @@ def bwd_cols_plan(n: int, m: int, d: int, sms: int, batch: int = 1,
     double-buffered, when there is work for that many blocks several times
     over. The chunks are summed inside the same launch, so a call is always
     one launch."""
-    col_tiles = -(-m // COLS_TILE)
     if d > max_unchunked_d(elem):
-        group = min(THREADS, max(32, 1 << max(n - 1, 0).bit_length()))
-        return BwdColsPlan(chunk_rows=_round_up(max(n, 1), COLS_STAGE_ROWS), n_chunks=1,
-                           col_tiles=col_tiles, blocks=-(-m // (THREADS // group)) * batch,
-                           scratch_shape=None, launches=int(m > 0 and batch > 0), batch=batch,
-                           dchunk=True)
+        return dchunk_plan(True, n, m, d, sms, batch, elem)
+    col_tiles = -(-m // COLS_TILE)
     stages = max(1, -(-n // COLS_STAGE_ROWS))
     per_chunk = max(1, stages * col_tiles * batch // sms)
     n_chunks = -(-stages // per_chunk)
@@ -323,6 +316,222 @@ def bwd_cols_plan(n: int, m: int, d: int, sms: int, batch: int = 1,
         launches=int(m > 0 and batch > 0),
         batch=batch,
     )
+
+
+# ---- the d-chunked backward (past max_unchunked_d) ----------------------------
+#
+# Constants of csrc/gram.cu's d-chunked kernels: a wide thread tile holds the
+# distance of DC_OWN_ROWS owned x (16 / elem) walked pairs, a narrow one of
+# one pair; TX walked and TY owned threads; the widest feature group of one
+# W pass (bytes of a row); the most dynamic shared memory a block takes.
+DC_OWN_ROWS = 4  # kDcRO
+DC_MAX_TX, DC_MAX_TY = 64, 16  # kDcMaxTX, kDcMaxTY
+DC_GROUP_BYTES = 8192  # kDcGroupBytes: W once per pair up to 2048 floats, 1024 doubles
+DC_SMEM_MAX = 231424  # kDcSmemMax
+SM_SMEM = 233472  # shared memory of an H100 SM (228 KB); a block reserves 1 KB of it
+# The last block of an owned tile sums the chunks' partials: at most this many
+# bytes a thread of it, where the card can be filled otherwise (a block reads
+# ~128 bytes a thread per L2 round trip).
+DC_SUM_BYTES_PER_THREAD = 1024
+
+
+class DchunkPlan(NamedTuple):
+    """How the d-chunked backward tiles K: owned tiles (rows of xs for the row
+    kernel, of xps for the column kernel) x walked chunks x feature groups,
+    one block each. Pass A's walk_threads x own_threads threads each take
+    DC_OWN_ROWS owned x (16 / elem) walked pairs (``wide``) or one pair; a
+    block walks its chunk in stages of ``stage`` rows."""
+
+    wide: bool  # the thread tile
+    walk_threads: int  # TX
+    own_threads: int  # TY
+    own_tile: int  # owned rows a block: TY (x DC_OWN_ROWS, wide)
+    stage: int  # walked rows a stage: TX (x 16 / elem, wide)
+    chunk: int  # walked rows a block: whole stages
+    n_chunks: int
+    groups: int  # feature groups: W is formed once per pair and group
+    group_width: int  # features a group (the last may have fewer)
+    tiles: int  # owned tiles
+    tickets: int  # per batch: a tile's, and past 16 chunks its sum groups' too
+    threads: int  # a block: TX * TY rounded up to whole warps, 256 for TX > 16
+    smem_bytes: int
+    blocks: int
+    # Per-chunk partials of one batch (n_chunks + the sum groups' past 16
+    # chunks, owned, d + 1 or d); None for one chunk.
+    scratch_shape: Optional[Tuple[int, int, int]]
+    launches: int  # kernel launches per call
+    batch: int = 1  # Grams in the call: tickets and scratch are per batch
+
+
+def dchunk_sum_groups(n_chunks: int) -> int:
+    """The groups a tile's chunk partials are summed in (csrc/gram.cu
+    dc_sum_groups): one up to 16 chunks, else ceil(sqrt(n_chunks)), each
+    summed by its own last block before the last of those sums the groups."""
+    return 1 if n_chunks <= 16 else math.isqrt(n_chunks - 1) + 1
+
+
+def dchunk_chunks(width: int, merge: bool, elem: int = 4) -> int:
+    """The 256-byte d-chunks of ``width`` features (csrc/gram.cu dc_chunks):
+    with ``merge`` a remainder of up to 16 bytes past two chunks or more
+    rides with the last full chunk."""
+    dc, v = 256 // elem, 16 // elem
+    if merge and width > 2 * dc and (width - 1) % dc < v:
+        return width // dc
+    return -(-width // dc)
+
+
+def dchunk_merges(own_tile: int, wide: bool, threads: int, elem: int = 4) -> bool:
+    """Whether a block merges a short last chunk: where a merged chunk's
+    17 16-byte vectors of pass-B items, per owned-row group, fit its threads
+    in one round."""
+    return own_tile // (DC_OWN_ROWS if wide else 1) * (256 // elem // (16 // elem) + 1) <= threads
+
+
+def dchunk_smem(cols: bool, own_tile: int, stage: int, group_width: int, elem: int = 4) -> int:
+    """Bytes of dynamic shared memory of a d-chunked block (csrc/gram.cu
+    dc_smem): the owned tile's accumulators and row sums, the g tile and in
+    its place the W tile, and the owned and walked rows of a chunk as the
+    passes read them (a pitch of 17 16-byte units) and as copied (18)."""
+    v = 16 // elem
+    pitch = 256 // elem + v
+    acc = own_tile * _round_up(group_width, v)
+    w = stage * (own_tile + v)
+    g = stage * (own_tile + v) if cols else own_tile * (stage + v)
+    return elem * (acc + _round_up(own_tile, v) + _round_up(max(w, g), v)
+                   + (own_tile + stage) * (2 * pitch + v))
+
+
+def _dchunk_resident(smem: int, threads: int, elem: int) -> int:
+    """Blocks of a d-chunked plan an SM holds: by shared memory (1 KB a block
+    reserved), by registers (at most 128 a thread in fp32, 255 in fp64), by
+    threads (2048)."""
+    regs = 128 if elem == 4 else 255
+    return max(1, min(SM_SMEM // (smem + 1024), 65536 // (threads * regs), 2048 // threads))
+
+
+def _dchunk_shapes(own: int, walk: int, v: int):
+    """Pass A's (wide, TX, TY) candidates. Wide: TX covers the walked side in
+    16-byte rows up to 16, TY the owned side up to 16 (also TY that fill
+    whole warps beside TX), and, for at most 32 owned rows and a long walked
+    side, TX = 32 or 64 at TY <= 2 (a tall-skinny column call, whose last
+    block then sums small partials). Narrow, one pair a thread: TX covers
+    the walked side up to 16, TY the owned side up to 16. Those that fill at
+    least 2/3 of their warps, if any."""
+    tx0 = min(16, max(1, -(-walk // v)))
+    ty_cap = min(DC_MAX_TY, max(1, -(-own // DC_OWN_ROWS)))
+    tys = {ty_cap, 16, 12, 8, 6, 4, 2, 1} | {32 * k // tx0 for k in range(1, 9)}
+    shapes = [(True, tx0, ty) for ty in sorted(tys, reverse=True) if 1 <= ty <= ty_cap]
+    if ty_cap <= 8:  # few owned rows: wider stages beside the narrowest tiles
+        shapes += [(True, tx, ty) for tx in (32, 64) if tx0 == 16 and walk > tx // 2 * v
+                   for ty in (2, 1) if ty <= ty_cap]
+    tx1 = min(16, max(1, walk))
+    shapes += [(False, tx1, ty) for ty in (16, 12, 8, 6, 4, 2) if ty <= own + 1]
+    full = [s for s in shapes if 3 * s[1] * s[2] >= 2 * _round_up(s[1] * s[2], 32)]
+    return full or shapes
+
+
+def dchunk_candidates(cols: bool, n: int, m: int, d: int, sms: int, batch: int = 1,
+                      elem: int = 4):
+    """[(estimated cycles, DchunkPlan)] for each shape of
+    :func:`_dchunk_shapes` whose shared memory fits, at K of n x m on d
+    features, ``batch`` Grams of ``elem``-byte elements, ``sms``
+    multiprocessors (the column kernel when ``cols``).
+
+    Features: one group (W once per pair) up to DC_GROUP_BYTES of a row,
+    else groups of whole 256-byte chunks. The walked side is cut into chunks
+    of whole stages only where the owned tiles (times groups and batch)
+    leave SMs idle, as many as give every SM a block, up to as many as the
+    blocks resident on it (:func:`_dchunk_resident`) and the last block's
+    sum (DC_SUM_BYTES_PER_THREAD a thread) allow.
+
+    The estimate, in cycles, per stage of a wave of blocks: the longest of a
+    thread's chain of instructions (~d (4 q + 2 (RO + RA) / v) for q = RO x
+    RA pairs, and its share of the staging, ~16 an 16-byte copy or repack;
+    ~8 / q cycles an instruction where q < 8), the SM's issue of
+    every resident warp's, the SM's shared-memory reads (128 bytes a cycle;
+    a thread reads its RO + RA rows' 16 bytes per 16 bytes of features, in
+    both passes), the SM's copies from L2 (~32 bytes a cycle: the
+    stage's rows twice and its g tile) and the steps' copy round trips and
+    barriers (~1,500 cycles a 256-byte chunk); plus the last block's sum,
+    ~128 bytes a thread per L2 round trip of ~800 cycles."""
+    own, walk = (m, n) if cols else (n, m)
+    v, dc = 16 // elem, 256 // elem
+    groups = -(-d * elem // DC_GROUP_BYTES)
+    gw = d if groups == 1 else _round_up(-(-d // groups), dc)
+    groups = -(-d // gw)
+    width = d if cols else d + 1
+    out = []
+    for wide, tx, ty in _dchunk_shapes(own, walk, v):
+        ro, ra = (DC_OWN_ROWS, v) if wide else (1, 1)
+        to, ta = ro * ty, ra * tx
+        smem = dchunk_smem(cols, to, ta, gw, elem)
+        if smem > DC_SMEM_MAX:
+            continue
+        warps = -(-tx * ty // 32)  # pass A's and pass B's
+        # A tall-skinny column plan (TX > 16) sums many chunks' partials in
+        # each tile's last block: a whole block of threads for that.
+        threads = THREADS if tx > 16 else 32 * warps
+        merge = dchunk_merges(to, wide, threads, elem)
+        steps = dchunk_chunks(d, merge, elem) + dchunk_chunks(gw, merge, elem)
+        resident = _dchunk_resident(smem, threads, elem)
+        tiles = -(-own // to)
+        stages = -(-walk // ta)
+        per = tiles * groups * batch
+        spc = max(stages, 1)
+        if stages > 1 and 0 < per < sms:
+            lo = -(-sms // per)
+            cap = max(1, threads * DC_SUM_BYTES_PER_THREAD // (to * width * elem))
+            target = min(stages, max(lo, resident * sms // per), max(lo, cap))
+            spc = max(1, stages // target)
+        n_chunks = max(1, -(-stages // spc))
+        blocks = tiles * n_chunks * groups * batch
+        waves = -(-blocks // (resident * sms))
+        on_sm = min(resident, -(-blocks // sms))
+        q = ro * ra
+        # A thread's instructions a stage: the pairs' and, per 256-byte
+        # step, its share of the rows' 16-byte copies and repacks (~16 each).
+        chain = (d * (4 * q + 2 * (ro + ra) / v)
+                 + steps * (to + ta) * 2 * (dc // v + 1) * 16 / threads)
+        lds = 2 * d / v * (ro + ra) * 16  # shared bytes a thread reads a stage, both passes
+        stage_cycles = max(chain * max(1.0, 8 / q), on_sm * warps * chain / 4,
+                           on_sm * warps * 32 * lds / 128,
+                           on_sm * elem * (2 * (to + ta) * d + to * ta) / 32, steps * 1500)
+        n_sum = dchunk_sum_groups(n_chunks)
+        per = -(-n_chunks // n_sum)  # the last blocks sum a group's chunks, then the groups
+        levels = per + (-(-n_chunks // per) if n_sum > 1 else 0)
+        sums = 0 if n_chunks == 1 else -(-levels * to * width * elem // threads)
+        est = waves * min(spc, max(stages, 1)) * stage_cycles + 800 * -(-sums // 128)
+        out.append((est, DchunkPlan(
+            wide=wide, walk_threads=tx, own_threads=ty, own_tile=to, stage=ta, chunk=spc * ta,
+            n_chunks=n_chunks, groups=groups, group_width=gw, tiles=tiles,
+            tickets=tiles * (1 + (n_sum if n_sum > 1 else 0)), threads=threads,
+            smem_bytes=smem, blocks=blocks,
+            scratch_shape=((n_chunks + (n_sum if n_sum > 1 else 0), own, width)
+                           if n_chunks > 1 else None),
+            launches=int(own > 0 and batch > 0), batch=batch)))
+    return out
+
+
+def dchunk_plan(cols: bool, n: int, m: int, d: int, sms: int, batch: int = 1,
+                elem: int = 4, wide: Optional[bool] = None) -> DchunkPlan:
+    """The tiling of the d-chunked backward (the column kernel when ``cols``)
+    at K of n x m on d features, for ``batch`` Grams of ``elem``-byte
+    elements on a card with ``sms`` multiprocessors: among the candidates
+    (:func:`dchunk_candidates`) whose grid gives nine SMs in ten a block (all,
+    if none does; at 500 x 500 x 65, 128 blocks of 128 threads took 37 us
+    where 256 of 64 took 43, on an H100) and whose estimate is within 5% of
+    the least, the one of most
+    pairs a block-stage (the larger tile amortizes a step's copies and
+    barriers, which the estimate does not see), then the most blocks.
+    ``wide``: only that thread tile (bench_gram --tiles times the other)."""
+    cands = [c for c in dchunk_candidates(cols, n, m, d, sms, batch, elem)
+             if wide is None or c[1].wide == wide]
+    if not cands:
+        raise ValueError(f"no d-chunked tiling fits {n} x {m} x {d} ({elem}-byte elements)")
+    pool = [c for c in cands if 10 * c[1].blocks >= 9 * sms] or cands
+    best = min(est for est, _ in pool)
+    near = [p for est, p in pool if est <= 1.05 * best]  # within the estimate's noise
+    return max(near, key=lambda p: (p.own_tile * p.stage, p.blocks, p.own_threads))
 
 
 # ---- plain versions (CPU path, and the kernels' oracle on the card) ---------
@@ -536,9 +745,32 @@ def gram_fwd_cuda(xs, xps, sig, out_dtype=None, diag_add=None):
     return out
 
 
+def _launch_dchunk(lib, cols, chunks, arrays, bs, n, m, d):
+    """The d-chunked kernel (the column half when ``cols``) over the batch
+    chunks [(first Gram, DchunkPlan)]: ``arrays`` are (xs, xps, sig, g, out,
+    rowsum or None), ``bs`` their batch strides."""
+    xs = arrays[0]
+    launch = _entry(lib, "gram_bwd_dchunk", xs.dtype)
+    name = "bwd_cols" if cols else "bwd_rows"
+    with torch.cuda.device(xs.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for _, plan in chunks:  # one workspace, sized for the largest chunk
+            ticket, scratch = _workspace(xs.device, stream, plan.tickets, plan.scratch_shape,
+                                         plan.batch, xs.dtype)
+        for start, plan in chunks:
+            ptrs = [None if t is None else _at(t, start, b) for t, b in zip(arrays, bs)]
+            rc = launch(int(cols), int(plan.wide), *ptrs, scratch.data_ptr(), ticket.data_ptr(),
+                        n, m, d,
+                        plan.walk_threads, plan.own_threads, plan.chunk, plan.groups,
+                        plan.group_width, plan.threads, plan.batch, *bs, stream)
+            _raise_if_failed(f"gram_{name}", rc)
+            LAUNCHES[name] += 1
+
+
 def gram_bwd_rows_cuda(xs, xps, sig, g):
     """(d_xs, rowsum) from the row kernel of the backward: one launch a
-    chunk of :func:`batch_chunks`, tiled by :func:`bwd_rows_plan`; [B, n, d]
+    chunk of :func:`batch_chunks`, tiled by :func:`bwd_rows_plan` (past
+    max_unchunked_d the d-chunked kernel, :func:`dchunk_plan`); [B, n, d]
     and [B, n] for a batched call."""
     _require_cuda(xs)
     batch = _check(xs, xps, sig, g)
@@ -552,8 +784,11 @@ def gram_bwd_rows_cuda(xs, xps, sig, g):
               for start, size in batch_chunks(batch or 1)]
     if not chunks[0][1].launches:  # no rows
         return d_xs, row
-    launch = _entry(lib, "gram_bwd_rows", xs.dtype)
     bs = [_bstride(t, batch) for t in (xs, xps, sig, g, d_xs)] + [0 if batch is None else n]
+    if isinstance(chunks[0][1], DchunkPlan):
+        _launch_dchunk(lib, False, chunks, (xs, xps, sig, g, d_xs, row), bs, n, m, d)
+        return d_xs, row
+    launch = _entry(lib, "gram_bwd_rows", xs.dtype)
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream().cuda_stream
         for _, plan in chunks:  # one workspace, sized for the largest chunk
@@ -571,8 +806,9 @@ def gram_bwd_rows_cuda(xs, xps, sig, g):
 
 def gram_bwd_cols_cuda(xs, xps, sig, g):
     """d_xps from the column kernel of the backward: one launch a chunk of
-    :func:`batch_chunks`, cut by :func:`bwd_cols_plan`; [B, m, d] for a
-    batched call."""
+    :func:`batch_chunks`, cut by :func:`bwd_cols_plan` (past max_unchunked_d
+    the d-chunked kernel, :func:`dchunk_plan`); [B, m, d] for a batched
+    call."""
     _require_cuda(xs)
     batch = _check(xs, xps, sig, g)
     lib = _build.load_library()
@@ -584,8 +820,11 @@ def gram_bwd_cols_cuda(xs, xps, sig, g):
               for start, size in batch_chunks(batch or 1)]
     if not chunks[0][1].launches:  # no columns
         return d_xps
-    launch = _entry(lib, "gram_bwd_cols", xs.dtype)
     bs = [_bstride(t, batch) for t in (xs, xps, sig, g, d_xps)]
+    if isinstance(chunks[0][1], DchunkPlan):
+        _launch_dchunk(lib, True, chunks, (xs, xps, sig, g, d_xps, None), bs + [0], n, m, d)
+        return d_xps
+    launch = _entry(lib, "gram_bwd_cols", xs.dtype)
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream().cuda_stream
         for _, plan in chunks:  # one workspace, sized for the largest chunk

@@ -55,12 +55,17 @@ def test_gram_kernels_match_plain(dev, n, m, d):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("B,n,m,d", [(None, 500, 500, 65), (None, 9700, 20, 130),
                                      (None, 500, 20, 8), (None, 20, 8192, 33),
-                                     (3, 300, 70, 65), (3, 20, 20, 8)])
+                                     (3, 300, 70, 65), (3, 20, 20, 8),
+                                     (None, 9700, 20, 385), (None, 2048, 4096, 90),
+                                     (None, 500, 500, 40), (3, 9700, 20, 130)])
 def test_wide_d_and_float64_kernels_match_plain(dev, dtype, B, n, m, d):
     """The d-chunked builds (d past 64 floats / 32 doubles) and the float64
     builds against their plain versions, values and both gradients, unbatched
-    and batched; a second call is bitwise the first. fp32 at the tolerances
-    above; fp64 at 1e-12 (K) and 1e-11 + 1e-11 * max|ref| (the backward)."""
+    and batched (the tall-skinny column plans' chunk sums, the large-n block's
+    wide tiles, float64's d-chunked build at d = 40); a second call is bitwise
+    the first. fp32 at the tolerances above; fp64 at 1e-12 (K) and 1e-11 +
+    1e-11 * max|ref| (the backward). The inputs are scaled by sqrt(8 / d),
+    so K spans a range and W is not zero off the diagonal."""
     gen = torch.Generator(device=dev).manual_seed(n + m + d)
     lead = () if B is None else (B,)
     xs, xps = ((torch.rand((*lead, rows, d), generator=gen, device=dev, dtype=dtype) * 2 - 1)
@@ -71,6 +76,7 @@ def test_wide_d_and_float64_kernels_match_plain(dev, dtype, B, n, m, d):
     K = gram_cuda.gram_fwd_cuda(xs, xps, sig)
     assert K.dtype == dtype
     assert (K - gram_cuda.gram_fwd_plain(xs, xps, sig)).abs().max() <= f_tol
+    assert K.min() < 0.5 * K.max()
     got = gram_cuda.gram_bwd_cuda(xs, xps, sig, g)
     for a, b in zip(got, gram_cuda.gram_bwd_plain(xs, xps, sig, g)):
         assert a.dtype == dtype
@@ -78,6 +84,38 @@ def test_wide_d_and_float64_kernels_match_plain(dev, dtype, B, n, m, d):
     assert torch.equal(K, gram_cuda.gram_fwd_cuda(xs, xps, sig))
     assert all(torch.equal(a, b) for a, b in zip(got, gram_cuda.gram_bwd_cuda(xs, xps, sig, g)))
 
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,m,d", [(500, 20, 90), (257, 33, 130), (96, 700, 70)])
+def test_every_dchunk_tiling_matches_plain(dev, dtype, n, m, d):
+    """Every candidate tiling of the d-chunked kernels (both thread tiles,
+    every TX x TY the plans may pick, chunked or not), not only the one the
+    plan takes, against the plain version at the tolerances above; one
+    launch each, a second bitwise the first."""
+    gen = torch.Generator(device=dev).manual_seed(n + d)
+    xs, xps = ((torch.rand((rows, d), generator=gen, device=dev, dtype=dtype) * 2 - 1)
+               * (8 / d) ** 0.5 for rows in (n, m))
+    g = torch.randn((n, m), generator=gen, device=dev, dtype=dtype)
+    sig = torch.tensor(1.7, device=dev, dtype=dtype)
+    atol, rtol = (1e-5, 1e-4) if dtype == torch.float32 else (1e-11, 1e-11)
+    lib = _build.load_library()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    want = gram_cuda.gram_bwd_plain(xs, xps, sig, g)
+    for cols, ref in ((False, (want[0], want[2])), (True, (want[1],))):
+        for _, plan in gram_cuda.dchunk_candidates(cols, n, m, d, sms, elem=xs.element_size()):
+            outs = []
+            for _ in range(2):
+                out = torch.empty_like(ref[0])
+                row = None if cols else torch.empty_like(ref[1])
+                gram_cuda.reset_launches()
+                gram_cuda._launch_dchunk(lib, cols, [(0, plan)], (xs, xps, sig, g, out, row),
+                                         [0] * 6, n, m, d)
+                assert sum(gram_cuda.LAUNCHES.values()) == 1
+                outs.append((out,) if cols else (out, row))
+            for a, b, w in zip(*outs, ref):
+                assert torch.equal(a, b), plan
+                assert (a - w).abs().max() <= atol + rtol * w.abs().max(), plan
 
 def test_float64_gram_refuses_a_2_byte_output(dev):
     xs = torch.zeros(4, 3, dtype=torch.float64, device=dev)

@@ -13,6 +13,7 @@ kernel's direct-difference form. Those emulations are held against the plain ver
 
 import re
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -413,3 +414,272 @@ def test_batch_chunks_cut_a_call_at_the_grids_z_limit(batch, chunks):
     assert got == chunks
     assert sum(size for _, size in got) == batch
     assert all(s == prev + size for (prev, size), (s, _) in zip(got, got[1:]))
+
+
+# ---- the d-chunked backward (past max_unchunked_d) ------------------------------
+
+
+def _dchunk_case(cols, n, m, d, elem=4, batch=1, sms=H100_SMS):
+    plan = gram_cuda.dchunk_plan(cols, n, m, d, sms, batch, elem)
+    own, walk = (m, n) if cols else (n, m)
+    return plan, own, walk
+
+
+@pytest.mark.parametrize("elem,d", [(4, 65), (4, 90), (4, 130), (4, 385), (8, 33), (8, 40),
+                                    (8, 130)])
+@pytest.mark.parametrize("cols", [False, True])
+@pytest.mark.parametrize("n,m,batch", [(500, 20, 1), (20, 20, 1), (500, 500, 1), (9700, 20, 1),
+                                       (2048, 30720, 1), (2048, 4096, 1), (9700, 20, 3),
+                                       (257, 33, 2)])
+def test_dchunk_plan_tiles_the_gram(elem, d, cols, n, m, batch):
+    """Every d-chunked plan covers K once: owned tiles x walked chunks of
+    whole stages x feature groups, one block each; the thread tile and its
+    block as the kernel derives them; the scratch of the chunk partials
+    (rows: d + 1 with the row sums); shared memory as csrc/gram.cu dc_smem
+    counts it, within a block's limit; the bwd_rows_plan / bwd_cols_plan
+    dispatch past max_unchunked_d."""
+    plan, own, walk = _dchunk_case(cols, n, m, d, elem, batch)
+    want = (gram_cuda.bwd_cols_plan if cols else gram_cuda.bwd_rows_plan)(n, m, d, H100_SMS, batch,
+                                                                          elem=elem)
+    assert want == plan and isinstance(plan, gram_cuda.DchunkPlan)
+    v = 16 // elem
+    ro, ra = (gram_cuda.DC_OWN_ROWS, v) if plan.wide else (1, 1)
+    assert (plan.own_tile, plan.stage) == (ro * plan.own_threads, ra * plan.walk_threads)
+    assert 1 <= plan.walk_threads <= gram_cuda.DC_MAX_TX and 1 <= plan.own_threads <= 16
+    assert plan.walk_threads <= 16 or plan.walk_threads % 16 == 0
+    warps = -(-plan.walk_threads * plan.own_threads // 32)
+    assert plan.threads == (THREADS if plan.walk_threads > 16 else 32 * warps) <= THREADS
+    assert plan.tiles == -(-own // plan.own_tile)
+    assert plan.chunk % plan.stage == 0
+    assert plan.chunk * (plan.n_chunks - 1) < walk <= plan.chunk * plan.n_chunks
+    assert plan.blocks == plan.tiles * plan.n_chunks * plan.groups * batch
+    assert plan.launches == 1 and plan.batch == batch
+    assert plan.groups == 1 and plan.group_width == d  # d * elem <= DC_GROUP_BYTES
+    width = d if cols else d + 1
+    levels = gram_cuda.dchunk_sum_groups(plan.n_chunks)
+    levels = levels if levels > 1 else 0  # past 16 chunks, the sum groups' partials and tickets
+    assert plan.scratch_shape == (None if plan.n_chunks == 1
+                                  else (plan.n_chunks + levels, own, width))
+    assert plan.tickets == plan.tiles * (1 + levels)
+    assert plan.smem_bytes == gram_cuda.dchunk_smem(cols, plan.own_tile, plan.stage, d, elem)
+    assert plan.smem_bytes <= gram_cuda.DC_SMEM_MAX
+
+
+@pytest.mark.parametrize("elem,d", [(4, 65), (4, 90), (4, 130), (4, 385), (8, 33), (8, 40),
+                                    (8, 130)])
+def test_dchunk_plan_fills_the_card_where_the_work_allows(elem, d):
+    """Past 64 features (32 doubles): the full pool's FITC gradient, the
+    column kernel at 9700 x 20, gives every SM a block (the first d-chunked
+    kernel ran 20 blocks there); the row kernel's owned tiles already do, so it cuts no
+    chunk; so does the column kernel of a large-n backward block, whose owned
+    side is n; the row kernel at m = 20 leaves under a third of its pass-A
+    threads idle."""
+    cols_pool, _, _ = _dchunk_case(True, 9700, 20, d, elem)
+    assert cols_pool.blocks >= H100_SMS and cols_pool.n_chunks > 1
+    rows_pool, _, _ = _dchunk_case(False, 9700, 20, d, elem)
+    assert rows_pool.tiles >= H100_SMS and rows_pool.n_chunks == 1
+    assert rows_pool.scratch_shape is None
+    cols_block, _, _ = _dchunk_case(True, 2048, 30720, d, elem)
+    assert cols_block.tiles >= H100_SMS and cols_block.n_chunks == 1
+    for n in (500, 9700):
+        rows, _, _ = _dchunk_case(False, n, 20, d, elem)
+        assert 3 * rows.walk_threads * rows.own_threads >= 2 * rows.threads
+        assert rows.stage <= 20 or rows.stage % 20 == 0
+
+
+def test_dchunk_plan_forms_w_once_per_pair_up_to_2048_floats():
+    """One feature group (W formed once per pair) up to DC_GROUP_BYTES of a
+    row: 2048 floats, 1024 doubles; past it, groups of whole 256-byte chunks
+    on the grid, W formed once per group."""
+    assert gram_cuda.DC_GROUP_BYTES == 8192
+    for elem, widest in ((4, 2048), (8, 1024)):
+        one = gram_cuda.dchunk_plan(False, 500, 500, widest, H100_SMS, elem=elem)
+        assert one.groups == 1 and one.group_width == widest
+        two = gram_cuda.dchunk_plan(False, 500, 500, widest + 1, H100_SMS, elem=elem)
+        assert two.groups == 2 and two.group_width % (256 // elem) == 0
+        assert two.group_width < widest + 1 <= two.groups * two.group_width
+    wide = gram_cuda.dchunk_plan(True, 500, 500, 4100, H100_SMS)
+    assert wide.groups == 3 and wide.blocks == wide.tiles * wide.n_chunks * 3
+
+
+
+
+@pytest.mark.parametrize("elem,d,merged,plain", [
+    (4, 65, 2, 2), (4, 90, 2, 2), (4, 129, 2, 3), (4, 130, 2, 3), (4, 132, 2, 3),
+    (4, 133, 3, 3), (4, 385, 6, 7), (4, 384, 6, 6), (8, 65, 2, 3), (8, 66, 2, 3),
+    (8, 67, 3, 3), (8, 130, 4, 5)])
+def test_dchunk_chunks_fold_a_short_last_chunk_where_the_block_merges(elem, d, merged, plain):
+    """d in 256-byte chunks; where a block merges (a 17-vector chunk's pass-B
+    items fit its threads), a remainder of up to 16 bytes past two chunks
+    rides with the last full one (at most 68 floats, 34 doubles: the raw
+    stage's 18 16-byte units hold it at any alignment): d = 130 takes 2 steps
+    a pass, not 3. Two pass-A chunks at least remain (the g tile comes with
+    the second)."""
+    dc, v = 256 // elem, 16 // elem
+    assert gram_cuda.dchunk_chunks(d, False, elem) == plain == -(-d // dc)
+    got = gram_cuda.dchunk_chunks(d, True, elem)
+    assert got == merged >= 2
+    last = d - dc * (got - 1)
+    assert 0 < last <= dc + v
+    # The tall-skinny column plan merges; a 64-row owned tile of 256 threads does not.
+    assert gram_cuda.dchunk_merges(8, True, 256, elem)
+    assert not gram_cuda.dchunk_merges(64, True, 256, elem)
+
+@pytest.mark.parametrize("elem", [4, 8])
+def test_dchunk_one_pair_tiles_take_any_owned_rows(elem):
+    """The one-pair thread tile takes owned tiles of any height (6 among the
+    candidates at 96 x 700 x 70, whose columns' last tile of 4 starts
+    aligned), and the kernel copies the g tile 16 bytes at a time only to a
+    pitch of whole 16-byte vectors: a tile of 6 owned columns has a g pitch
+    of 6 + 16 / elem elements, which a 16-byte cp.async may not hit."""
+    cands = [p for _, p in gram_cuda.dchunk_candidates(True, 96, 700, 70, H100_SMS, elem=elem)]
+    six = [p for p in cands if not p.wide and p.own_tile == 6]
+    assert six and 700 % 6 == 4 and (700 - 4) % (16 // elem) == 0
+    src = (_build.CSRC_DIR / "gram.cu").read_text()
+    body = src[src.index("const auto stage_g_tile = "):]
+    body = body[:body.index("};")]
+    assert "(lay.g_pitch & (V - 1)) == 0" in body
+    entry = src[src.index("int bwd_dchunk_entry("):]
+    entry = entry[:entry.index("return static_cast<int>(cudaErrorInvalidValue);")]
+    assert "(!wide && tx > 16)" in entry and "% 4" not in entry
+
+
+def test_dchunk_plan_of_an_empty_side():
+    """No owned rows: no launch. No walked rows: one chunk, whose blocks
+    write zeros."""
+    assert gram_cuda.dchunk_plan(False, 0, 20, 90, H100_SMS).launches == 0
+    empty = gram_cuda.dchunk_plan(False, 20, 0, 90, H100_SMS)
+    assert empty.launches == 1 and empty.n_chunks == 1 and empty.scratch_shape is None
+
+
+def test_dchunk_plan_constants_match_the_kernel_source():
+    src = (_build.CSRC_DIR / "gram.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const("kDcRO") == gram_cuda.DC_OWN_ROWS
+    assert (const("kDcMaxTX"), const("kDcMaxTY")) == (gram_cuda.DC_MAX_TX, gram_cuda.DC_MAX_TY)
+    assert const("kDcGroupBytes") == gram_cuda.DC_GROUP_BYTES
+    assert const("kDcSmemMax") == gram_cuda.DC_SMEM_MAX
+    # The shared memory the wrapper's plan counts is the kernel's layout.
+    body = src[src.index("__host__ __device__ inline DcSmem dc_smem("):]
+    body = body[:body.index("\n}\n")]
+    for line in ("s.acc_pitch = round16<T>(gw);", "s.w_pitch = to + V;",
+                 "s.g_pitch = cols ? to + V : ta + V;", "s.acc = to * s.acc_pitch;",
+                 "s.rs = round16<T>(to);",
+                 "s.wg = round16<T>(max(ta * s.w_pitch, (cols ? ta : to) * s.g_pitch));",
+                 "s.stage = (to + ta) * P;", "s.raw = (to + ta) * (P + V);",
+                 "s.total = s.acc + s.rs + s.wg + s.stage + s.raw;"):
+        assert line in body, line
+    # The chunks of d, and where a block merges a short last one.
+    assert ("return merge && w > 2 * DC && (w - 1) % DC < Elem<T>::kVec ? w / DC : "
+            "(w + DC - 1) / DC;") in src
+    assert "const bool merge = (to + RO - 1) / RO * (P / V) <= nthr;" in src
+    # The chunks' sum groups, as the plan sizes their tickets and scratch.
+    assert "while (n_chunks > 16 && g * g < n_chunks) ++g;" in src
+    for n_chunks, groups in ((1, 1), (16, 1), (17, 5), (38, 7), (76, 9), (81, 9), (82, 10)):
+        assert gram_cuda.dchunk_sum_groups(n_chunks) == groups
+    # The entry point's arguments, as _build declares them.
+    entry = src[src.index("int gram_bwd_dchunk(int cols"):]
+    entry = entry[:entry.index(")")]
+    assert entry.count(",") + 1 == len(_build.SIGNATURES["gram_bwd_dchunk"])
+    assert _build.SIGNATURES["gram_bwd_dchunk_f64"] == _build.SIGNATURES["gram_bwd_dchunk"]
+    # The thread tiles and the register budget the plan's residency assumes.
+    assert "bwd_dchunk_body<T, false, kBatched, kWide ? kDcRO : 1, kWide ? Elem<T>::kVec : 1>" \
+        in src
+    assert src.count("__launch_bounds__(kThreads, sizeof(T) == 4 ? 2 : 1)") == 2
+
+
+def _dchunk_emulated(xs, xps, sig, g, plan, cols):
+    """The d-chunked kernel's order in plain PyTorch: per walked chunk, the
+    stages' terms added in stage order (a stage's walked rows in S slices,
+    added together, S as a 64-feature chunk's pass B takes it: the largest
+    power of two up to 32 with its items times S within the block); the
+    chunks' partials added in chunk order, past 16 chunks by sum groups of
+    consecutive chunks and then the groups in order, as the last blocks of
+    an owned tile add them. Returns d_xps (``cols``) or (d_xs, rowsum); batched as
+    the plain versions are."""
+    walk = (xs if cols else xps).shape[-2]
+    ro = gram_cuda.DC_OWN_ROWS if plan.wide else 1
+    items = plan.own_tile // ro * (256 // xs.element_size() // (16 // xs.element_size()))
+    slices = 1
+    while slices < 32 and items * slices * 2 <= plan.threads:
+        slices *= 2
+
+    def term(a0, a1):
+        if cols:
+            return (gram_cuda.gram_bwd_cols_plain(xs[..., a0:a1, :], xps, sig, g[..., a0:a1, :]),)
+        return gram_cuda.gram_bwd_rows_plain(xs, xps[..., a0:a1, :], sig, g[..., a0:a1])
+
+    def add(u, v):
+        return v if u is None else tuple(a + b for a, b in zip(u, v))
+
+    parts = []
+    for c in range(plan.n_chunks):
+        part = None
+        for s0 in range(c * plan.chunk, min(walk, (c + 1) * plan.chunk), plan.stage):
+            w = min(plan.stage, walk - s0)
+            span = -(-w // slices)
+            for q in range(slices):
+                lo, hi = s0 + q * span, min(s0 + w, s0 + (q + 1) * span)
+                if lo < hi:
+                    part = add(part, term(lo, hi))
+        parts.append(part)
+    per = -(-plan.n_chunks // gram_cuda.dchunk_sum_groups(plan.n_chunks))
+    total = None
+    for g0 in range(0, plan.n_chunks, per):  # past 16 chunks, groups of them, then the groups
+        group = None
+        for part in parts[g0:g0 + per]:
+            group = add(group, part)
+        total = add(total, group)
+    return total[0] if cols else total
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n,m,d,batch,sms", [
+    (300, 70, 65, None, H100_SMS),  # 65: a chunk and one feature
+    (257, 33, 130, None, 8),        # ragged sides, few SMs: several chunks
+    (40, 600, 130, 2, H100_SMS),    # batched, a long walked side for the rows
+    (500, 12, 385, None, H100_SMS),
+    (9, 300, 385, 3, 16),
+    (2400, 12, 70, None, H100_SMS),  # the columns' tall-skinny plan: sum groups of chunks
+])
+def test_dchunk_reduction_matches_plain_and_jax(dtype, n, m, d, batch, sms):
+    """The d-chunked kernels' order of sums (stage terms, then chunk
+    partials in chunk order) under the plans of both halves, against
+    gram_bwd_plain and against the JAX package's _bwd at zero log lengths
+    (where its d_x, d_xp are the scaled-input gradients and its d_log_sig
+    the sum of the row sums), per Gram of a batch. Tolerances as the card's
+    checks: fp32 1e-5 + 1e-4 * max|ref| (fp32 sums over up to 600 terms in
+    other orders), fp64 against the plain version 1e-11 + 1e-11 * max|ref|
+    (its cross-term form leaves ~1e-15 * |xs|^2); against _bwd the fp32 one
+    in both types, since the Pallas Gram that _bwd recomputes writes K in
+    float32 whatever its inputs."""
+    rng = np.random.default_rng(n + m + d)
+    lead = () if batch is None else (batch,)
+    scale = np.sqrt(8.0 / d)  # the distances of the d = 8 case, as the smoke scales them
+    xs = (rng.uniform(-1, 1, (*lead, n, d)) * scale).astype(dtype)
+    xps = (rng.uniform(-1, 1, (*lead, m, d)) * scale).astype(dtype)
+    g = rng.standard_normal((*lead, n, m)).astype(dtype)
+    sig = np.asarray(np.e if batch is None else np.e * (1 - 0.02 * np.arange(batch)), dtype)
+    elem = np.dtype(dtype).itemsize
+    atol, rtol = (1e-5, 1e-4) if dtype == np.float32 else (1e-11, 1e-11)
+    tx = [torch.tensor(a) for a in (xs, xps, sig, g)]
+    plans = [gram_cuda.dchunk_plan(c, n, m, d, sms, batch or 1, elem) for c in (False, True)]
+    assert any(p.n_chunks > 1 for p in plans) or sms == H100_SMS
+    d_xs, row = (a.numpy() for a in _dchunk_emulated(*tx, plans[0], False))
+    d_xps = _dchunk_emulated(*tx, plans[1], True).numpy()
+    plain = [a.numpy() for a in gram_cuda.gram_bwd_plain(*tx)]
+    K = gram_cuda.gram_fwd_plain(*tx).numpy()
+    assert K.min() < 0.5 * K.max()  # K spans a range: W is not zero off a diagonal
+    for got, ref in zip((d_xs, d_xps, row), plain):
+        assert np.abs(got - ref).max() <= atol + rtol * np.abs(ref).max()
+    with jax.enable_x64(dtype == np.float64):
+        for b in range(batch or 1):
+            pick = (lambda a: a) if batch is None else (lambda a: a[b])
+            res = (jnp.asarray(pick(xs)), jnp.asarray(pick(xps)), jnp.asarray(pick(sig)),
+                   jnp.zeros(d, dtype))
+            jx, jxp, jsig, _ = (np.asarray(a) for a in jax_gram_bwd(res, jnp.asarray(pick(g))))
+            for got, ref in ((pick(d_xs), jx), (pick(d_xps), jxp), (pick(row).sum(), jsig)):
+                assert np.abs(got - ref).max() <= 1e-5 + 1e-4 * np.abs(ref).max()

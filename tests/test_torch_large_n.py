@@ -25,6 +25,7 @@ import pytest
 import torch
 
 import gpscore.fit.objectives as jobjectives
+import gpscore.ops.fold_stream as jfold
 import gpscore.ops.loo_fused as jloo
 from gpscore.fit import make_objective as jax_make_objective
 from gpscore.models.exact import exact_predictive_diag_large as jax_predictive_large
@@ -35,6 +36,7 @@ from gpscore_torch.experiments import bench_ceiling, large_n
 from gpscore_torch.fit import SCHEDULES, fit_gd, make_objective
 from gpscore_torch.fit import objectives as tobjectives
 from gpscore_torch.models import exact as texact
+from gpscore_torch.ops import fold_stream as tfold
 from gpscore_torch.ops import loo_fused as tloo
 from gpscore_torch.ops import potri_inplace as tpotri
 from torch_parity import close, jax_params, t, torch_params
@@ -179,6 +181,44 @@ def test_fused_core_values_and_gradients_match_jax(core, n, block):
         with torch.no_grad():
             close(_torch_core(core, x, block)(*targs), float(want), 1e-5)
 
+
+
+@pytest.mark.parametrize("core", ["loo", "fold"])
+def test_fused_cores_at_a_wide_input_match_jax(core):
+    """At d = 70 (the Gram kernels' d-chunked builds on a card), n = 96,
+    block 40 (a ragged last panel): the fused LOO core and the fold-streamed
+    fold statistics (fold_k = 4), value and gradients to the three
+    log-parameters and y, through a scalar function of their outputs. The log
+    lengths are raised by log(d / 8) / 2, so K is no identity; gradients at
+    RTOL with ATOL + RTOL of the leaf's largest entry (a length gradient's
+    entry sums 96^2 terms of both signs)."""
+    n, d, block = 96, 70, 40
+    x, y, p = _problem(6, n, d)
+    p["log_length"] = (p["log_length"] + 0.5 * np.log(d / 8.0)).astype(np.float32)
+    xs = x * np.exp(-p["log_length"])
+    K = np.exp(-0.5 * ((xs[:, None, :] - xs[None, :, :]) ** 2).sum(-1))
+    assert K[np.triu_indices(n, 1)].max() > 10 * K[np.triu_indices(n, 1)].min()
+    if core == "loo":
+        jf, tf = _jax_core("loo", x, block), _torch_core("loo", x, block)
+    else:
+        wts = [np.random.default_rng(7).standard_normal(s).astype(np.float32)
+               for s in ((4, n // 4), (4,), (4, n // 4), (n,))]
+        xj, xt = jnp.asarray(x), t(x)
+
+        def jf(s_, ell, nu, yy):
+            outs = jfold.ard_fold_stats_stream(s_, ell, nu, xj, yy, 4, True)
+            return sum(jnp.sum(jnp.asarray(w) * o) for w, o in zip(wts, outs))
+
+        def tf(s_, ell, nu, yy):
+            outs = tfold.ard_fold_stats_stream(s_, ell, nu, xt, yy, 4, True, block)
+            return sum(torch.sum(t(w) * o) for w, o in zip(wts, outs))
+    jargs = _jax_args(p) + [jnp.asarray(y)]
+    want, want_g = jax.jit(jax.value_and_grad(jf, argnums=(0, 1, 2, 3)))(*jargs)
+    targs = _torch_args(p, requires_grad=True) + [torch.tensor(y, requires_grad=True)]
+    got = tf(*targs)
+    close(got, float(want), RTOL, ATOL)
+    for g, w in zip(torch.autograd.grad(got, targs), want_g):
+        close(g, w, RTOL, ATOL + RTOL * float(np.abs(np.asarray(w)).max()))
 
 @pytest.mark.parametrize("core", ["loo", "kfold", "nlml"])
 def test_log_signal_gradient_closed_form_equals_the_streamed_sum(core):

@@ -59,6 +59,32 @@ def test_fitc_objective_value_and_grad_match_jax(rule):
         close(g, w, RTOL, _grad_atol(w))
 
 
+
+@pytest.mark.parametrize("rule", OBJECTIVE_RULES)
+def test_fitc_objective_at_a_wide_input_matches_jax(rule):
+    """At d = 70, past the Gram kernels' 64-feature chunk (their d-chunked
+    builds on a card), n = 64, m = 8: the same values and gradients at
+    RTOL. The log lengths are raised by log(d / 8) / 2, so the squared
+    distances are the d = 8 case's and K is no identity (at unit lengths
+    they are ~45 and W ~0 off the diagonal, where any gradient agrees)."""
+    d = 70
+    x, y, p = problem(seed=5, n=64, m=8, d=d)
+    p["log_length"] = (p["log_length"] + 0.5 * np.log(d / 8.0)).astype(np.float32)
+    xs = x * np.exp(-p["log_length"])
+    d2 = ((xs[:, None, :] - xs[None, :, :]) ** 2).sum(-1)
+    assert np.exp(-0.5 * d2[np.triu_indices(64, 1)]).max() > 10 * np.exp(-0.5 * d2.max())
+    key = jax.random.PRNGKey(7)
+    jloss = jax_make_objective(rule, model="fitc", num_sim=NUM_SIM)
+    want, jg = jax.jit(jax.value_and_grad(jloss))(jax_params(p), jnp.asarray(x),
+                                                  jnp.asarray(y), key)
+    tp = torch_params(p, requires_grad=True)
+    eps = _es_eps(key, x.shape[0], p["inducing"].shape[0]) if rule == "es" else None
+    got = make_objective(rule, model="fitc", num_sim=NUM_SIM)(tp, t(x), t(y), eps=eps)
+    close(got, want, RTOL)
+    for f, g in zip(tp.leaves(), torch.autograd.grad(got, list(tp.leaves().values()))):
+        w = getattr(jg, f)
+        close(g, w, RTOL, _grad_atol(w))
+
 def test_rbf_kernel_objective_matches_jax():
     """The isotropic kernel (scalar log squared length) through the ARD kernel."""
     x, y, p = problem(seed=2, n=32, m=4, d=2)
