@@ -7,7 +7,9 @@ Phases, none of whose failures is caught:
 1. Device: exits non-zero without CUDA; prints the card's name and power limit.
 2. Build: compiles gpscore_torch/csrc/ with nvcc (first use) and prints the
    compiler's register/spill report and the build time; fails unless the
-   report shows 0 spill bytes for every instantiation of the three kernels.
+   report shows 0 spill bytes for every instantiation of the four kernels
+   (the forward, its d-chunked build gram_fwd_kernel_dchunk, the backward's
+   two halves).
 3. Kernels against their plain PyTorch versions, on the card, at the main
    path's shapes (500x20x8, 20x20x8), the evaluation's (500x500x8), the full
    pool's (9700x20x8), the size at which the exact GP hands over to the
@@ -18,8 +20,9 @@ Phases, none of whose failures is caught:
    300x120x1, 300x300x1; 120x5x1, 5x5x1, 300x5x1); a row block of the
    large-n backward (2048x30720x8), and gram_fwd alone at the whole large-n
    K(x, x) (30720x30720x8) and the large-n evaluation's K(x, x*)
-   (30720x2048x8), and all of K at the song set's width (30720x30720x90,
-   phase 17's large-n step, K spanning a range); the sharded steps' backward shapes: 30720x30720x8 (the
+   (30720x2048x8), and all of K at the song set's width and its evaluation's
+   K(x, x*) (30720x30720x90 and 30720x2048x90, phase 17's large-n step, K
+   spanning a range); the sharded steps' backward shapes: 30720x30720x8 (the
    out-of-place stack at p = 1), 256x30720x8 and 256x7680x8 (a fused sharded
    step's streamed row block at p = 1 and 4), checked and timed (CUDA events)
    beside their bounds, and the fused sharded forward's f16 Gram panel
@@ -40,7 +43,13 @@ Phases, none of whose failures is caught:
    first, K spanning a range at the d-chunked shapes; timed beside the bound
    (fp64: the card's 67 TFLOP/s fp64 rate, DMMA's), the batched one beside a loop of its
    launches; then parity_report --dtype float64 on the card, every 5e-9
-   target.
+   target. The d-chunked forward (gram_fwd_dchunk) also: every candidate
+   tiling of gram_cuda.fwd_dchunk_plan at every d-chunked shape and at
+   30720x30720x90 and 30720x2048x90 (there the best tiling of each thread
+   tile), fp32 and fp64, against plain, a second call bitwise the first;
+   K(u, u) at 20x20x90 and 500x500x65 exactly symmetric with an exact sig
+   diagonal; its bf16 and f16 output with a noise diagonal bitwise the fp32
+   output plus the diagonal rounded once.
 4. The FITC slice: the five-rule KIN40K FITC-20 fit (n = 500, d = 8, m = 20)
    from the committed initial parameters, 25 GD steps per rule through fit_gd
    on CUDA (its default there: three eager steps, then 22 replays of the step
@@ -227,17 +236,21 @@ Phases, none of whose failures is caught:
    before and read just after (the "wide" path); at every step CUDA against
    the CPU at the same parameters (phase 4's limits); the microseconds of a
    replayed crps step at d = 90 and d = 8 and the Gram kernels' device
-   microseconds in it. (b) The exact GP's large-n step at n = 30,720 (the
-   "wide_large_n" path): crps (fused LOO) and dss (fold-streamed), step 0
-   against a float64 witness within phases 8 and 9's limits; the step's
-   seconds, peak and device time by kind and the Gram backward's
-   milliseconds (experiments/bench_wide.py).
+   microseconds in it (the forward's gram_fwd_dchunk apart from gram_fwd).
+   (b) The exact GP's large-n step at n = 30,720 (the "wide_large_n" path):
+   crps (fused LOO) and dss (fold-streamed), step 0 against a float64
+   witness within phases 8 and 9's limits; the step's seconds, peak and
+   device time by kind, the Gram backward's milliseconds and the forward's
+   (experiments/bench_wide.py), and the forward at the step's shape timed
+   alone by CUDA events.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit;
 before it, one JSON line describes every kernel: ``ms``, ``plain_ms``,
-``bound_ms`` and ``bound_by`` at the FITC path's 500x20x8 (``library_ms`` is
-null: no single PyTorch call computes the ARD Gram or either half of its
-VJP), ``launches`` summed over the FITC, exact, large-n, large-n fold, graph,
+``bound_ms`` and ``bound_by`` at the FITC path's 500x20x8 (gram_fwd_dchunk:
+the FITC-20 K_fu at d = 90, 500x20x90; ``library_ms`` is null: no single
+PyTorch call computes the ARD Gram or either half of its VJP; gram_fwd's
+shapes are those up to 64 features, 32 doubles, gram_fwd_dchunk's those
+past), ``launches`` summed over the FITC, exact, large-n, large-n fold, graph,
 precision, two sweep, analysis, sharded, fused sharded, results_parity and two wide paths (each
 path's count under
 ``launches_by_path``; a graph's replays are counted, gram_fwd's 2-byte
@@ -302,6 +315,7 @@ RULES = ["crps", "nlml", "logs", "dss", "kc"]
 SOURCE = "gpscore_torch/csrc/gram.cu"
 REPLACES = {
     "gram_fwd": "gpscore/ops/gram_pallas.py:40",  # _gram_kernel
+    "gram_fwd_dchunk": "gpscore/ops/gram_pallas.py:40",  # _gram_kernel past 64 features
     "gram_bwd_rows": "gpscore/ops/gram_pallas.py:116",  # _bwd
     "gram_bwd_cols": "gpscore/ops/gram_pallas.py:116",  # _bwd
 }
@@ -325,8 +339,9 @@ TIMED_SHAPES = [(500, 20, 8), (20, 20, 8), (500, 500, 8), (9700, 20, 8), (120, 1
 # The large-n path's other forward shapes, checked and timed for gram_fwd
 # alone: all of K at n = 30,720 (one launch a step and one an evaluation),
 # and the evaluation's K(x, x*) for a chunk of 2048 test points; all of K at
-# n = 30,720 and the song set's width (phase 17's large-n step).
-FWD_SHAPES = [(30720, 30720, 8), (30720, 2048, 8), (30720, 30720, 90)]
+# n = 30,720 and the song set's width (phase 17's large-n step), and its
+# evaluation's K(x, x*) there (gram_fwd_dchunk's largest shapes).
+FWD_SHAPES = [(30720, 30720, 8), (30720, 2048, 8), (30720, 30720, 90), (30720, 2048, 90)]
 # The sharded steps' backward: the out-of-place stack's (phase 14) cotangent
 # of K(x_local, x) is [n/p, n], all of K at p = 1 and n = 30,720, a shape whose
 # plans and chunks no other path gives the two backward kernels; the fused
@@ -350,13 +365,29 @@ F64_SHAPES = [(500, 20, 8), (500, 500, 8), (8192, 8192, 8)]
 # float64 kernel against its plain version (the cross-term form in float64,
 # whose cancellation leaves ~1e-16 * |xs|^2): K and the backward.
 F64_FWD_ATOL, F64_BWD_ATOL, F64_BWD_RTOL = 1e-12, 1e-11, 1e-11
-KERNELS = [("gram_fwd", "fwd"), ("gram_bwd_rows", "bwd_rows"), ("gram_bwd_cols", "bwd_cols")]
+KERNELS = [("gram_fwd", "fwd"), ("gram_bwd_rows", "bwd_rows"), ("gram_bwd_cols", "bwd_cols"),
+           ("gram_fwd_dchunk", "fwd_dchunk")]
+# The Gram kernels a path at d = 8 launches (the launch counters' keys), and
+# one at d = 90 (phase 17): the forward past 64 features is gram_fwd_dchunk.
+D8_KERNELS = ("fwd", "bwd_rows", "bwd_cols")
+# gram_fwd_dchunk's entry in the kernels line: the FITC-20 K_fu at d = 90.
+WIDE_FITC_KFU = (500, 20, 90)
+WIDE_KERNELS = ("fwd_dchunk", "bwd_rows", "bwd_cols")
+# Each launch counter's kernels in a torch.profiler list of kernel names: the
+# unchunked forward's symbol is gram_fwd_kernel<...>, the d-chunked one's
+# gram_fwd_kernel_dchunk<...>; each backward half's names both its builds.
+GRAM_PROFILE_NAMES = {"fwd": "gram_fwd_kernel<", "fwd_dchunk": "gram_fwd_kernel_dchunk<",
+                      "bwd_rows": "gram_bwd_rows", "bwd_cols": "gram_bwd_cols"}
 # Per kernel, each unbatched and batched: gram_fwd's rows per thread times its
-# three fp32 output types and its fp64 one, each unchunked and d-chunked; the
-# backward's fp32 DMAX buckets (8, 16, 32, 64), its fp64 ones (8, 16, 32) and
-# its d-chunked kernel in fp32 and fp64, each with its wide and its one-pair
-# thread tile.
-INSTANTIATIONS = {"gram_fwd": 64, "gram_bwd_rows": 22, "gram_bwd_cols": 22}
+# three fp32 output types and its fp64 one; gram_fwd_dchunk's four thread
+# tiles times the same four types; the backward's fp32 DMAX buckets (8, 16,
+# 32, 64), its fp64 ones (8, 16, 32) and its d-chunked kernel in fp32 and
+# fp64, each with its wide and its one-pair thread tile. The kernels'
+# symbols, as nvcc mangles them: gram_fwd_kernelI... (not ..._dchunkI...).
+INSTANTIATIONS = {"gram_fwd": 32, "gram_bwd_rows": 22, "gram_bwd_cols": 22,
+                  "gram_fwd_dchunk": 32}
+SYMBOLS = {"gram_fwd": "gram_fwd_kernelI", "gram_bwd_rows": "gram_bwd_rows_kernel",
+           "gram_bwd_cols": "gram_bwd_cols_kernel", "gram_fwd_dchunk": "gram_fwd_kernel_dchunkI"}
 # The plain forward uses the cross-term form, whose cancellation leaves
 # ~1e-7 * |xs|^2 in the exponent; K <= sig = e here.
 FWD_ATOL = 2e-5
@@ -553,7 +584,7 @@ def spills(report):
 def check_spills(report):
     found = spills(report)
     for name, _ in KERNELS:
-        mine = {sym: v for sym, v in found.items() if f"{name}_kernel" in sym}
+        mine = {sym: v for sym, v in found.items() if SYMBOLS[name] in sym}
         assert len(mine) == INSTANTIATIONS[name], (name, sorted(mine))
         assert all(v == (0, 0) for v in mine.values()), (name, mine)
     log("[build] ptxas: 0 spill bytes in every instantiation: "
@@ -609,7 +640,8 @@ def check_repair(dev, err):
             errs[name] = e
         torch.cuda.synchronize()
         if not f64:  # the fp32 error columns of the kernels line
-            err["gram_fwd"] = max(err["gram_fwd"], errs["K"])
+            fwd = "gram_fwd_dchunk" if chunked else "gram_fwd"
+            err[fwd] = max(err[fwd], errs["K"])
             err["gram_bwd_rows"] = max(err["gram_bwd_rows"], errs["d_xs"], errs["rowsum"])
             err["gram_bwd_cols"] = max(err["gram_bwd_cols"], errs["d_xps"])
         del got, again, want, xs, xps, g
@@ -630,9 +662,70 @@ def check_repair(dev, err):
         + ", ".join(f"{k} {errs[k]:.2g}" for k in sorted(report)))
 
 
+def check_fwd_dchunk(dev, err):
+    """gram_fwd_dchunk (the forward past 64 floats, 32 doubles) beyond
+    check_repair: every candidate tiling of fwd_dchunk_plan at every
+    d-chunked forward shape (at the two 30720-row ones, the best tiling of
+    each thread tile), fp32 and fp64, against the plain version (one launch
+    each, a second bitwise the first); K(u, u) at 20x20x90 and
+    500x500x65 exactly symmetric with an exact sig diagonal; the 2-byte
+    output with a noise diagonal bitwise the fp32 kernel's output plus the
+    diagonal, rounded once, at every d-chunked shape."""
+    lib = _build.load_library()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    shapes = CHUNK_SHAPES + [s for s in FWD_SHAPES if s[2] > gram_cuda.max_unchunked_d()]
+    for dt, f_tol in ((torch.float32, FWD_ATOL), (torch.float64, F64_FWD_ATOL)):
+        for s, (n, m, d) in enumerate(shapes + (F64_CHUNK_SHAPES if dt == torch.float64 else [])):
+            xs, xps, sig, _ = kernel_inputs(n, m, d, dev, seed=600 + s, dtype=dt, cotangent=False)
+            elem = xs.element_size()
+            want = gram_cuda.gram_fwd_plain(xs, xps, sig)
+            cands = [p for _, p in gram_cuda.fwd_dchunk_candidates(n, m, d, sms, elem=elem)]
+            if n * m > 10 ** 8:  # all of K at n = 30,720: the best tiling of each thread tile
+                cands = [gram_cuda.fwd_dchunk_plan(n, m, d, sms, elem=elem, tile=t)
+                         for t in range(len(gram_cuda.FD_TILES))]
+            worst = 0.0
+            for plan in cands:
+                outs = []
+                for _ in range(2):
+                    out = torch.empty((n, m), dtype=dt, device=dev)
+                    gram_cuda._launch_fwd_dchunk(lib, [(0, 1, plan)], (xs, xps, sig, out), None,
+                                                 0, [0] * 4, n, m, d)
+                    outs.append(out)
+                e = float((outs[0] - want).abs().max())
+                assert torch.equal(*outs) and e <= f_tol, (n, m, d, dt, plan, e)
+                worst = max(worst, e)
+                del outs, out
+            if dt == torch.float32:
+                err["gram_fwd_dchunk"] = max(err["gram_fwd_dchunk"], worst)
+            log(f"[fwd_dchunk] {n}x{m}x{d} {str(dt)[6:]}: {len(cands)} candidate tilings (tiles "
+                f"{sorted({gram_cuda.FD_TILES[p.tile] for p in cands})}) against plain, max err "
+                f"{worst:.3g} (tol {f_tol}); each second call bitwise equal")
+            del xs, xps, want
+            torch.cuda.empty_cache()
+        for n, d in ((20, 90), (500, 65)):
+            xs, _, sig, _ = kernel_inputs(n, n, d, dev, seed=700 + n, square=True, dtype=dt,
+                                          cotangent=False)
+            K = gram_cuda.gram_fwd_cuda(xs, xs, sig)
+            assert torch.equal(K, K.T) and torch.equal(torch.diagonal(K), sig.expand(n)), (n, d)
+            log(f"[fwd_dchunk] K(u, u) at {n}x{n}x{d} {str(dt)[6:]}: exactly symmetric, "
+                f"diagonal exactly sig")
+    noise = torch.tensor(0.25, device=dev)
+    for s, (n, m, d) in enumerate(CHUNK_SHAPES):
+        xs, xps, sig, _ = kernel_inputs(n, m, d, dev, seed=800 + s, cotangent=False)
+        K = gram_cuda.gram_fwd_cuda(xs, xps, sig, diag_add=noise)
+        for st in (torch.bfloat16, torch.float16):
+            got = gram_cuda.gram_fwd_cuda(xs, xps, sig, out_dtype=st, diag_add=noise)
+            assert torch.equal(got, K.to(st)), (n, m, d, st)
+        del K, got
+    log(f"[fwd_dchunk] bf16 and f16 output with a noise diagonal at "
+        f"{', '.join('x'.join(map(str, s)) for s in CHUNK_SHAPES)}: bitwise the fp32 kernel's "
+        f"output plus the diagonal, rounded once")
+
+
 def phase_kernels(dev):
     err = {k: 0.0 for k in REPLACES}
     check_repair(dev, err)
+    check_fwd_dchunk(dev, err)
     for s, (n, m, d) in enumerate(KERNEL_SHAPES):
         xs, xps, sig, g = kernel_inputs(n, m, d, dev, seed=s, square=(n, m) in SQUARE)
         K = gram_cuda.gram_fwd_cuda(xs, xps, sig)
@@ -675,8 +768,9 @@ def phase_kernels(dev):
         if d > 8:  # not an identity: the comparison is not vacuous
             assert float(K.min()) < 0.5 * float(K.max()), (n, m, d)
         del K
-        err["gram_fwd"] = max(err["gram_fwd"], e_f)
-        log(f"[kernels] {n}x{m}x{d} (gram_fwd alone{', K(x, x)' if n == m else ''}): fwd err "
+        fwd = "gram_fwd_dchunk" if d > gram_cuda.max_unchunked_d() else "gram_fwd"
+        err[fwd] = max(err[fwd], e_f)
+        log(f"[kernels] {n}x{m}x{d} ({fwd} alone{', K(x, x)' if n == m else ''}): fwd err "
             f"{e_f:.3g} (tol {FWD_ATOL})"
             + ("; exactly symmetric with an exact diagonal" if n == m else ""))
     # Each entry's device_ms is torch.profiler's; at 30720^2 the profiler's
@@ -795,8 +889,8 @@ def phase_slice(dev):
     launches = dict(gram_cuda.LAUNCHES)
     log(f"[slice] {len(RULES)} rules x {SMOKE_STEPS} steps + evaluation on CUDA: "
         f"{time.perf_counter() - t0:.2f} s; kernel launches {launches}")
-    for k, v in launches.items():
-        assert v > 0, f"kernel {k} was not launched on the main path"
+    for k in D8_KERNELS:
+        assert launches[k] > 0, f"kernel {k} was not launched on the main path"
     for rule in RULES:
         sched = SCHEDULES[("kin40k_fitc", rule)]
         loss_fn = make_objective(rule, model="fitc")
@@ -921,8 +1015,8 @@ def phase_exact(dev):
     launches = dict(gram_cuda.LAUNCHES)
     log(f"[exact] {len(EXACT_RULES)} rules x {SMOKE_STEPS} steps + evaluation on CUDA, "
         f"n = 500, d = 8: {time.perf_counter() - t0:.2f} s; kernel launches {launches}")
-    for k, v in launches.items():
-        assert v > 0, f"kernel {k} was not launched on the exact path"
+    for k in D8_KERNELS:
+        assert launches[k] > 0, f"kernel {k} was not launched on the exact path"
     for rule in EXACT_RULES:
         sched = SCHEDULES[("kin40k_full", rule)]
         loss_fn = make_objective(rule, model="exact")
@@ -1303,8 +1397,8 @@ def phase_large_n(dev):
     launches = dict(gram_cuda.LAUNCHES)
     log(f"[large_n] {len(LARGE_RULES)} rules x {LARGE_STEPS} steps + evaluation, n = {n}: "
         f"kernel launches {launches}")
-    for k, v in launches.items():
-        assert v > 0, f"kernel {k} was not launched on the large_n path"
+    for k in D8_KERNELS:
+        assert launches[k] > 0, f"kernel {k} was not launched on the large_n path"
     for rule in LARGE_RULES:
         hist = fits[rule].loss_history.cpu()
         assert torch.isfinite(hist).all() and int(fits[rule].stall_iters) == 0, (rule, hist)
@@ -1483,8 +1577,8 @@ def phase_folds(dev):
     launches = dict(gram_cuda.LAUNCHES)
     log(f"[folds] {len(FOLD_RULES)} rules x {LARGE_STEPS} steps, n = {n}, fold_k = {FOLD_K}: "
         f"kernel launches {launches}")
-    for k, v in launches.items():
-        assert v > 0, f"kernel {k} was not launched on the large_n fold path"
+    for k in D8_KERNELS:
+        assert launches[k] > 0, f"kernel {k} was not launched on the large_n fold path"
     for rule in FOLD_RULES:
         hist = fits[rule].loss_history.cpu()
         assert torch.isfinite(hist).all() and int(fits[rule].stall_iters) == 0, (rule, hist)
@@ -1657,7 +1751,8 @@ def phase_graph(dev):
     (fits, seconds), wall = timed_fit(lambda: bench.fit_all(p_fitc, x, y))
     launches = dict(gram_cuda.LAUNCHES)
     total = sum(len(r.loss_history) for r in fits.values())
-    assert launches == {k: 2 * total for k in launches}, (launches, total)
+    assert launches == {k: 2 * total if k in D8_KERNELS else 0 for k in launches}, (launches,
+                                                                                  total)
     (_, eager_seconds), eager_wall = timed_fit(
         lambda: bench.fit_all(p_fitc, x, y, iters=GRAPH_EAGER_STEPS, graph=False))
     log(f"[graph] five-rule FITC-20 fit, {total} iterations replayed ({total} - "
@@ -2052,8 +2147,8 @@ def phase_precision(dev, crps_fit, times):
     launches = dict(gram_cuda.LAUNCHES)
     log(f"[precision] modes x rules at n = {n}, the recovering fits, the predictives and the "
         f"drivers: kernel launches {launches}")
-    for k, v in launches.items():
-        check(v > 0, f"kernel {k} was not launched on the precision path")
+    for k in D8_KERNELS:
+        check(launches[k] > 0, f"kernel {k} was not launched on the precision path")
     del x, y, xt
     torch.cuda.empty_cache()
 
@@ -2332,7 +2427,7 @@ def sweep_multi_restart(x, y, pb):
     launches = dict(gram_cuda.LAUNCHES)
     iters = sum(SCHEDULES[("kin40k_fitc", r)].iters for r in ("crps", "nlml"))
     # Two Grams a step (K_uu, K_fu) for all R restarts, four in each evaluation.
-    want = {"fwd": 2 * iters + 8, "bwd_rows": 2 * iters, "bwd_cols": 2 * iters}
+    want = {"fwd": 2 * iters + 8, "bwd_rows": 2 * iters, "bwd_cols": 2 * iters, "fwd_dchunk": 0}
     assert launches == want, (launches, want)
     for tag, rec in res.items():
         assert rec["num_restarts"] == R and np.isfinite(rec["best_final_loss"]), (tag, rec)
@@ -2386,8 +2481,8 @@ def sweep_replicates(dev):
         looped[rule] = (time.perf_counter() - t0, crps)
     for rule, rec in batched.items():
         assert rec["num_failed"] == 0 and np.isfinite(rec["crps"]), (rule, rec)
-        for k, v in replicate_launches.items():
-            assert v > 0, (k, "not launched by the batched replicate sweep")
+        for k in D8_KERNELS:
+            assert replicate_launches[k] > 0, (k, "not launched by the batched replicate sweep")
     total, loop_total = (sum(rec["wall_s"] for rec in batched.values()),
                          sum(v[0] for v in looped.values()))
     log(f"[sweeps] kin40k_full --replicates {SWEEP_REPLICATES} batched: summed wall_s "
@@ -2521,7 +2616,8 @@ def analysis_surfaces(dev, err):
         gram_cuda.reset_launches()
         z = surface().cpu()
         launched = dict(gram_cuda.LAUNCHES)
-        assert launched == {"fwd": 1, "bwd_rows": 0, "bwd_cols": 0}, (rule, launched)
+        assert launched == {"fwd": 1, "bwd_rows": 0, "bwd_cols": 0, "fwd_dchunk": 0}, (rule,
+                                                                                      launched)
         want = analysis.objective_surface(cpu.train_x, cpu.train_y, ls, ns, rule=rule)
         f64 = analysis.objective_surface(cpu.train_x.double(), cpu.train_y.double(),
                                          ls.double(), ns.double(), rule=rule)
@@ -2617,7 +2713,7 @@ def analysis_surfaces(dev, err):
             torch.cuda.synchronize()
             launched = dict(gram_cuda.LAUNCHES)
         grads[where] = [K.detach().cpu()] + [g.cpu() for g in got]
-    assert launched == {"fwd": 2, "bwd_rows": 2, "bwd_cols": 2}, launched
+    assert launched == {"fwd": 2, "bwd_rows": 2, "bwd_cols": 2, "fwd_dchunk": 0}, launched
     worst = []
     for i, (a, b) in enumerate(zip(grads["cuda"], grads["cpu"])):
         e = float((a - b).abs().max())
@@ -2630,7 +2726,7 @@ def analysis_surfaces(dev, err):
     xs = (host[0] * torch.exp(-host[3])[:, None, :]).to(dev)
     xps = (host[1] * torch.exp(-host[3])[:, None, :]).to(dev)
     key = "x".join(map(str, BIG_BWD))
-    times[key] = check_and_time(key, [k for k in REPLACES], (
+    times[key] = check_and_time(key, list(kernel_calls()), (
         xs, xps, torch.exp(host[2]).to(dev), host[4].to(dev)), BIG_BWD, err, reps=20)
     return times
 
@@ -2721,7 +2817,7 @@ def phase_analysis(dev):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(gram_cuda.LAUNCHES)
-    assert all(v > 0 for v in launches.values()), launches
+    assert all(launches[k] > 0 for k in D8_KERNELS), launches
     assert all(torch.isfinite(z).all() for z in out["surfaces"].values())
     assert all(torch.isfinite(c).all() for c in out["curves"].values())
     assert bool(out["fit"].ok) and torch.isfinite(out["prediction"].mean).all()
@@ -2885,8 +2981,8 @@ def phase_mesh(dev):
         launches = dict(gram_cuda.LAUNCHES)
         log(f"[mesh] the sharded path (Gram, sweep, the two steps, the Cholesky family, the dry "
             f"run): kernel launches {launches}")
-        for k, v in launches.items():
-            assert v > 0, f"kernel {k} was not launched on the sharded path"
+        for k in D8_KERNELS:
+            assert launches[k] > 0, f"kernel {k} was not launched on the sharded path"
         log(f"[mesh] dryrun_multichip legs (1)-(12) on one rank in {dry_s:.2f} s: {dry}")
         # Against the unsharded sweep (not counted).
         ref = restart_sweep(floss, pb, s.train_x, s.train_y, sched.iters, sched.lr,
@@ -3006,8 +3102,8 @@ def phase_sharded_fused(dev):
         torch.cuda.synchronize()
         launches = dict(gram_cuda.LAUNCHES)
     log(f"[fused] the fused sharded path ({len(runs)} steps): kernel launches {launches}")
-    for k, v in launches.items():
-        assert v > 0, f"kernel {k} was not launched on the fused sharded path"
+    for k in D8_KERNELS:
+        assert launches[k] > 0, f"kernel {k} was not launched on the fused sharded path"
     assert not failed, failed
     del x, y, eps
     torch.cuda.empty_cache()
@@ -3039,7 +3135,7 @@ def phase_results_parity(dev):
             log("[parity] " + ln)
     assert rc == 0 and checks and all(ln.endswith(": pass") for ln in checks), \
         [ln for ln in checks if not ln.endswith(": pass")]
-    assert all(v > 0 for v in launches.values()), launches
+    assert all(launches[k] > 0 for k in D8_KERNELS), launches
     with open(os.path.join(PARITY_OUT, "verdicts.json")) as f:
         summary = json.load(f)
     assert summary["num_failed"] == 0 and summary["num_checks"] == len(checks), summary
@@ -3105,7 +3201,7 @@ def phase_wide(dev):
                             sched.lr, sched.lr_inducing, record_params=True)
     torch.cuda.synchronize()
     launches = dict(gram_cuda.LAUNCHES)
-    assert all(v > 0 for v in launches.values()), launches
+    assert all(launches[k] > 0 for k in WIDE_KERNELS), launches
     for rule in WIDE_RULES:
         loss_fn = make_objective(rule, model="fitc")
         res = fits[rule]
@@ -3140,8 +3236,8 @@ def phase_wide(dev):
         per_step = (walls[1] - walls[0]) / (WIDE_TIMED[1] - WIDE_TIMED[0])
         _, _, top, _ = bench_ceiling.device_profile(
             lambda: fit_gd(loss_fn, pd, xd, yd, WIDE_TIMED[0], sched.lr, sched.lr_inducing))
-        gram_us = {k: sum(sec for name, sec in top if f"gram_{k}" in name) / WIDE_TIMED[0] * 1e6
-                   for k in ("fwd", "bwd_rows", "bwd_cols")}
+        gram_us = {k: sum(sec for name, sec in top if pattern in name) / WIDE_TIMED[0] * 1e6
+                   for k, pattern in GRAM_PROFILE_NAMES.items()}
         log(f"[wide] FITC-20 crps at d = {d}: {per_step * 1e6:.1f} us a replayed step "
             f"({WIDE_TIMED[1]} - {WIDE_TIMED[0]} steps); the Gram kernels' device us a step: "
             + ", ".join(f"{k} {v:.2f}" for k, v in gram_us.items()))
@@ -3153,6 +3249,10 @@ def phase_wide(dev):
     sig = torch.exp(p0.log_signal_sq)
     lo, hi = off_diagonal_span(gram_cuda.gram_fwd_cuda(xs[:F64_ROWS].contiguous(),
                                                        xs[:F64_ROWS].contiguous(), sig), sig)
+    # The step's forward (all of K at n = 30,720, d = 90) timed alone, by CUDA
+    # events: torch.profiler has lost that kernel's events at 30720^2.
+    xs = xs.contiguous()
+    fwd_ms = cuda_ms(lambda: gram_cuda.gram_fwd_cuda(xs, xs, sig), reps=10, warmup=2)
     log(f"[wide] large n = {LARGE_N}, d = {WIDE_D}: K's first {F64_ROWS} rows off the diagonal "
         f"span {lo:.3g} to {hi:.3g}")
     del xs
@@ -3163,7 +3263,7 @@ def phase_wide(dev):
         steps[rule] = vg(make_objective(rule, model="exact"), p0, x, y)
     torch.cuda.synchronize()
     launches_large = dict(gram_cuda.LAUNCHES)
-    assert all(v > 0 for v in launches_large.values()), launches_large
+    assert all(launches_large[k] > 0 for k in WIDE_KERNELS), launches_large
     # Timed and profiled before the float64 witness takes its ~3 n^2 * 8 B.
     recs = {rule: bench_wide.measure(rule, x, y, p0, repeats=1) for rule in WIDE_LARGE_RULES}
     torch.cuda.empty_cache()
@@ -3180,7 +3280,9 @@ def phase_wide(dev):
             f"{rec['step_s']:.4f} s, peak {rec['peak_n2']:.3f} n^2 * 4 B, device busy "
             f"{rec['busy_s']:.4f} s (ms by kind: "
             + ", ".join(f"{k} {ms:.1f}" for k, ms in rec["ms_by_kind"].items())
-            + f"), the Gram backward {rec['gram_bwd_ms']:.2f} ms a step (peak limit "
+            + f"), the Gram backward {rec['gram_bwd_ms']:.2f} ms and the forward (gram_fwd_dchunk, "
+            f"all of K_hat) {rec['gram_fwd_ms']:.2f} ms ({rec['gram_fwd_kernel_names']} kernel(s) "
+            f"seen by torch.profiler; {fwd_ms:.3f} ms a call by CUDA events) a step (peak limit "
             f"{PEAK_LIMIT_N2})")
         assert rel <= LARGE_LOSS_RTOL and all(e <= limits[f] for f, e in leaves.items()), \
             (rule, rel, leaves)
@@ -3231,7 +3333,13 @@ def main():
     log(f"[phases] 1-17 in {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, key in KERNELS:
-        on_path = times[(name, *TIMED_SHAPES[0])]
+        # The timings are keyed by the wrapper, gram_fwd for both forward
+        # kernels; gram_fwd_dchunk's shapes are those past the unchunked d.
+        timed = "gram_fwd" if name == "gram_fwd_dchunk" else name
+        mine = {k: t for k, t in times.items() if k[0] == timed and (
+            not timed == "gram_fwd"
+            or (k[3] > gram_cuda.max_unchunked_d(8 if "f64" in k else 4)) == (timed != name))}
+        on_path = times[(timed, *(WIDE_FITC_KFU if name == "gram_fwd_dchunk" else TIMED_SHAPES[0]))]
         kernels.append({"name": name, "route": "cuda", "source": SOURCE,
                         "replaces": REPLACES[name],
                         "launches": sum(c[key] for c in launches.values()),
@@ -3240,15 +3348,15 @@ def main():
                         "ms": on_path["ms"],
                         "plain_ms": on_path["plain_ms"], "bound_ms": on_path["bound_ms"],
                         "bound_by": on_path["bound_by"], "library_ms": None,
-                        "shapes": {**{"x".join(map(str, s)): times[(name, *s)]
+                        "shapes": {**{"x".join(map(str, s)): mine[(timed, *s)]
                                       for s in TIMED_SHAPES + FWD_SHAPES + CHUNK_SHAPES
-                                      + MESH_BWD_SHAPES if (name, *s) in times},
+                                      + MESH_BWD_SHAPES if (timed, *s) in mine},
                                    **{"x".join(map(str, k[1:4])) + "/" + k[4]: t
-                                      for k, t in times.items() if k[0] == name and len(k) == 5},
-                                   **{"x".join(map(str, k[1:5])): t for k, t in times.items()
-                                      if k[0] == name and k[-1] == "batched"},
-                                   **{shape: t[name] for shape, t in btimes.items()},
-                                   **{shape: t[name] for shape, t in ptimes.items()},
+                                      for k, t in mine.items() if len(k) == 5},
+                                   **{"x".join(map(str, k[1:5])): t for k, t in mine.items()
+                                      if k[-1] == "batched"},
+                                   **{shape: t[name] for shape, t in btimes.items() if name in t},
+                                   **{shape: t[name] for shape, t in ptimes.items() if name in t},
                                    **{shape: t[name] for shape, t in atimes.items()
                                       if name in t}}})
     print(json.dumps({"kernels": kernels}))

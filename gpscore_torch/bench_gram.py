@@ -4,6 +4,7 @@
     python -m gpscore_torch.bench_gram --shapes 8192x8192x8 500x500x8 --out t.json
     python -m gpscore_torch.bench_gram --chunked [--dtype float64]   # the d-chunked shapes
     python -m gpscore_torch.bench_gram --chunked --tiles   # the d-chunked plans' thread tiles
+    python -m gpscore_torch.bench_gram --chunked --kernels gram_fwd   # the d-chunked forward
 
 For each shape n x m x d and each kernel (``gram_fwd``, ``gram_bwd_rows``,
 ``gram_bwd_cols``): the mean time per call of the kernel's wrapper and of its
@@ -11,10 +12,15 @@ plain version over 200 back-to-back calls (CUDA events, in the order plain,
 kernel, kernel, plain, so that a drift in clocks hits both alike), and the
 device time per call (torch.profiler's CUDA events over 50 calls). One
 ``[time]`` line per kernel and shape, then the card's ``nvidia-smi`` name and
-power limit, then one JSON line of all the numbers. With ``--tiles``, for the
-d-chunked backward at each shape instead: the plan's tiling beside the best
-plan of the other thread tile (``gram_cuda.dchunk_plan(wide=...)``), each
-checked against the plain version and timed (device time per call).
+power limit, then one JSON line of all the numbers. ``--chunked`` also
+times the forward at all of K at n = 30,720 and its evaluation K(x, x*) at
+d = 90 (FWD_CHUNK_SHAPES) with CUDA events alone, kernel against plain
+(torch.profiler loses the events of the 30720^2 kernel). With ``--tiles``,
+for the d-chunked kernels at each shape instead: the backward plan's tiling
+beside the best plan of the other thread tile
+(``gram_cuda.dchunk_plan(wide=...)``), and the forward plan's beside the
+best plan of each other thread tile (``gram_cuda.fwd_dchunk_plan(tile=...)``),
+each checked against the plain version and timed (device time per call).
 
 It uses only the wrappers and plain versions of ``gpscore_torch.ops.gram_cuda``,
 so the same file can time an older checkout of the package: copy it into
@@ -44,6 +50,10 @@ DEFAULT_SHAPES = [(500, 20, 8), (20, 20, 8), (500, 500, 8), (9700, 20, 8), (120,
 CHUNK_SHAPES = [(500, 500, 65), (9700, 20, 130), (9700, 20, 385), (2048, 4096, 90),
                 (500, 20, 90), (20, 20, 90), (2048, 30720, 90)]
 F64_CHUNK_SHAPES = [(500, 500, 40)]
+# The d-chunked forward alone at the large-n step's widths: all of K_hat at n =
+# 30,720, d = 90 (one launch a step), and the evaluation's K(x, x*) for 2048
+# test points.
+FWD_CHUNK_SHAPES = [(30720, 30720, 90), (30720, 2048, 90)]
 
 
 def nvidia_smi_line():
@@ -101,12 +111,13 @@ def device_ms(fn, reps=50, warmup=5, floor_ms=0.0):
     return None, None
 
 
-def kernel_inputs(n, m, d, dev, seed, square=False, dtype=torch.float32):
+def kernel_inputs(n, m, d, dev, seed, square=False, dtype=torch.float32, cotangent=True):
     """Scaled inputs as the main path makes them: KIN40K-like x in [-1, 1],
     log lengths in [0, 1] (plus log(d / 8) / 2 past 64 features, so that the
-    squared distance stays at KIN40K's d = 8 scale), sig = e, g standard normal;
-    xps = xs when ``square`` (a K(u, u)). ``dtype``: float32 or float64
-    (the same draws, cast)."""
+    squared distance stays at KIN40K's d = 8 scale), sig = e, g standard normal
+    (None without ``cotangent``: a forward needs none); xps = xs when
+    ``square`` (a K(u, u)). ``dtype``: float32 or float64 (the same draws,
+    cast)."""
     rng = np.random.default_rng(seed)
     ll = rng.uniform(0.0, 1.0, d) + (0.5 * np.log(d / 8.0) if d > 64 else 0.0)
     x = rng.uniform(-1.0, 1.0, (n, d)).astype(np.float32)
@@ -114,7 +125,8 @@ def kernel_inputs(n, m, d, dev, seed, square=False, dtype=torch.float32):
     inv = np.exp(-ll.astype(np.float32))
     xs = torch.tensor(x * inv, device=dev, dtype=dtype)
     xps = torch.tensor(xp * inv, device=dev, dtype=dtype)
-    g = torch.tensor(rng.standard_normal((n, m), dtype=np.float32), device=dev, dtype=dtype)
+    g = (torch.tensor(rng.standard_normal((n, m), dtype=np.float32), device=dev, dtype=dtype)
+         if cotangent else None)
     return xs, xps, torch.tensor(np.e, dtype=dtype, device=dev), g
 
 
@@ -225,6 +237,75 @@ def time_tiles(shapes, dev, dtype=torch.float32, seed=99, log=print):
     return res
 
 
+def time_fwd_tiles(shapes, dev, dtype=torch.float32, seed=99, log=print):
+    """{"gram_fwd <n>x<m>x<d>": {"plan": ..., "tile <rows>x<cols>": ...}}: the
+    d-chunked forward plan's tiling and the best plan of each other thread
+    tile, each checked against the plain version (fp32 2e-5, fp64 1e-12) and
+    its device time per call (CUDA events where the profiler loses them)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lib = gram_cuda._build.load_library()
+    res = {}
+    for shape in shapes:
+        xs, xps, sig, _ = kernel_inputs(*shape, dev, seed, dtype=dtype, cotangent=False)
+        n, m, d = shape
+        elem = xs.element_size()
+        tol = 2e-5 if elem == 4 else 1e-12
+        want = gram_cuda.gram_fwd_plain(xs, xps, sig)
+        plan = gram_cuda.fwd_dchunk_plan(n, m, d, sms, elem=elem)
+        plans = {"plan": plan}
+        for t in range(len(gram_cuda.FD_TILES)):
+            if t != plan.tile:
+                plans["tile %dx%d" % gram_cuda.FD_TILES[t]] = gram_cuda.fwd_dchunk_plan(
+                    n, m, d, sms, elem=elem, tile=t)
+        row = {}
+        for key, p in plans.items():
+            out = torch.empty((n, m), dtype=dtype, device=dev)
+
+            def fn(p=p, out=out):
+                gram_cuda._launch_fwd_dchunk(lib, [(0, 1, p)], (xs, xps, sig, out), None, 0,
+                                             [0] * 4, n, m, d)
+                return out
+
+            err = float((fn() - want).abs().max())
+            assert err <= tol, (shape, p, err, tol)
+            big = n * m > 1e8
+            row[key] = {"tile": "%dx%d" % gram_cuda.FD_TILES[p.tile], "tx": p.col_threads,
+                        "ty": p.row_threads, "stage": p.stage, "blocks": p.blocks,
+                        "max_abs_err": err,
+                        "device_ms": None if big else device_ms(fn)[0],
+                        "ms": cuda_ms(fn, reps=5 if big else 200, warmup=2 if big else 20)}
+            del out
+        label = f"gram_fwd {'x'.join(map(str, shape))}{'/f64' if elem == 8 else ''}"
+        res[label] = row
+        log(f"[tiles] {label}: " + "; ".join(
+            f"{k} {r['tile']} {r['tx']}x{r['ty']} stage {r['stage']} ({r['blocks']} blocks) "
+            f"device {ms_text(r['device_ms'])}, per call {r['ms']:.5f} ms, err "
+            f"{r['max_abs_err']:.3g}" for k, r in row.items()))
+        del xs, xps, want
+        torch.cuda.empty_cache()
+    return res
+
+
+def time_fwd_large(shapes, dev, dtype=torch.float32, seed=99, log=print):
+    """{(gram_fwd, n, m, d[, "f64"]): {"ms", "plain_ms"}} with CUDA events
+    alone (plain, kernel, kernel, plain), at shapes whose kernel events the
+    profiler loses."""
+    times = {}
+    f64 = dtype == torch.float64
+    for shape in shapes:
+        kern, plain = kernel_pairs(*kernel_inputs(*shape, dev, seed, dtype=dtype,
+                                                  cotangent=False))["gram_fwd"]
+        p1, k1, k2, p2 = (cuda_ms(f, reps=r, warmup=2) for f, r in
+                          ((plain, 5), (kern, 20), (kern, 20), (plain, 5)))
+        key = ("gram_fwd", *shape, *(("f64",) if f64 else ()))
+        times[key] = t = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "device_ms": None,
+                          "plain_device_ms": None}
+        log(f"[time] gram_fwd {'x'.join(map(str, key[1:]))}: per call kernel {t['ms']:.5f} ms, "
+            f"plain {t['plain_ms']:.5f} ms (CUDA events, back to back)")
+        torch.cuda.empty_cache()
+    return times
+
+
 def _shape(text):
     n, m, d = (int(v) for v in text.split("x"))
     return n, m, d
@@ -237,9 +318,10 @@ def main(argv=None):
     ap.add_argument("--kernels", nargs="+", default=None,
                     help="only these of gram_fwd, gram_bwd_rows, gram_bwd_cols")
     ap.add_argument("--chunked", action="store_true",
-                    help="the d-chunked backward's shapes (CHUNK_SHAPES) instead of --shapes")
+                    help="the d-chunked shapes (CHUNK_SHAPES, and for gram_fwd "
+                         "FWD_CHUNK_SHAPES) instead of --shapes")
     ap.add_argument("--tiles", action="store_true",
-                    help="the d-chunked backward's plan beside the other thread tile's best")
+                    help="the d-chunked plans beside the other thread tiles' best")
     ap.add_argument("--dtype", choices=("float32", "float64"), default="float32")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
@@ -252,12 +334,19 @@ def main(argv=None):
     if args.chunked:
         shapes = CHUNK_SHAPES + (F64_CHUNK_SHAPES if dtype == torch.float64 else [])
     result = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+    wide = [s for s in shapes
+            if s[2] > gram_cuda.max_unchunked_d(8 if dtype == torch.float64 else 4)]
+    fwd = args.kernels is None or "gram_fwd" in args.kernels
     if args.tiles:
-        result["tiles"] = time_tiles([s for s in shapes
-                                      if s[2] > gram_cuda.max_unchunked_d(8 if dtype == torch.float64
-                                                                          else 4)], dev, dtype)
+        result["tiles"] = {}
+        if args.kernels is None or any(k != "gram_fwd" for k in args.kernels):
+            result["tiles"].update(time_tiles(wide, dev, dtype))
+        if fwd and hasattr(gram_cuda, "fwd_dchunk_plan"):  # an older checkout has no such plan
+            result["tiles"].update(time_fwd_tiles(wide + FWD_CHUNK_SHAPES, dev, dtype))
     else:
         times = time_shapes(shapes, dev, args.kernels, dtype=dtype)
+        if args.chunked and fwd:
+            times.update(time_fwd_large(FWD_CHUNK_SHAPES, dev, dtype))
         result["times"] = {f"{k[0]} {'x'.join(map(str, k[1:4]))}"
                            f"{'/' + k[4] if len(k) > 4 else ''}": v for k, v in times.items()}
     print(smi)

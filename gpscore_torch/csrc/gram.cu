@@ -32,12 +32,13 @@
 //
 // Any d: the instantiations above keep their d buckets (gram_fwd any d that
 // its shared memory holds, the backward DMAX of 8 to kMaxD; in fp64 to
-// kMaxD / 2). Past them a call takes the d-chunked instantiations, which
-// walk d in chunks of 256 bytes (Elem<T>::kDChunk: 64 floats, 32 doubles)
-// in their own bodies: gram_fwd stages one chunk of xs and xps at a time and
-// sums the squared distance over every chunk before the exp, in ascending k
-// as the unchunked one does, so K is bitwise what a wide unchunked build
-// would give; the backward's d-chunked kernels (gram_bwd_rows_kernel_dchunk,
+// kMaxD / 2). Past them (Elem<T>::kDChunk: 64 floats, 32 doubles) a call
+// takes the d-chunked kernels: gram_fwd_kernel_dchunk (entry point
+// gram_fwd_dchunk) stages the features of a tile's rows in as many stages
+// as shared memory needs and sums each pair's squared distance over them in
+// ascending k, as the unchunked one does, so K is bitwise what a wide
+// unchunked build would give (its own note below); the backward's d-chunked
+// kernels (gram_bwd_rows_kernel_dchunk,
 // gram_bwd_cols_kernel_dchunk, one body, entry point gram_bwd_dchunk) stage
 // each chunk of a tile of pairs in shared memory, sum the same distance over
 // every chunk into registers, form W = g * K once per pair into a shared
@@ -68,6 +69,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -157,18 +159,6 @@ __device__ __forceinline__ void stage_span(T* dst, const T* src, int count) {
     e += count & ~(V - 1);
   }
   for (; e < count; e += kThreads) cp_async_elem(dst + e, src + e);
-}
-
-// Copy rows x cols elements at row pitches src_pitch and dst_pitch, one
-// element a copy (the chunked gram_fwd's slices of xs rows).
-template <typename T>
-__device__ __forceinline__ void stage_elems(T* dst, int dst_pitch, const T* src, size_t src_pitch,
-                                            int rows, int cols) {
-  for (int e = threadIdx.x; e < rows * cols; e += kThreads) {
-    const int r = e / cols;
-    const int c = e - r * cols;
-    cp_async_elem(dst + r * dst_pitch + c, src + r * src_pitch + c);
-  }
 }
 
 // Copy the g tile rows [i0, i0 + rows) x columns [j0, j0 + w) to dst with row
@@ -275,11 +265,8 @@ __device__ __forceinline__ void stage_tile(T* dst, int dst_pitch, const T* src,
 // two 16-byte stores, and sums and exp are double. The bound is the fp64
 // rate, 34 TFLOP/s without tensor cores, past a few inputs.
 //
-// kChunk (d past Elem<T>::kDChunk): shared memory holds one chunk of d of
-// the block's xs rows and xps columns at a time; the block stages chunk
-// after chunk, each thread adding each chunk's terms to its sums in
-// ascending k, and the exp comes once every chunk is in. Threads with no
-// columns stay for the barriers of every chunk.
+// It takes d up to Elem<T>::kDChunk (64 floats, 32 doubles); past that,
+// gram_fwd_kernel_dchunk (its own note below).
 template <typename OutT>
 struct Out4;
 
@@ -330,7 +317,7 @@ struct Out4<__half> {
   }
 };
 
-template <typename T, int RT, typename OutT, bool kBatched, bool kChunk>
+template <typename T, int RT, typename OutT, bool kBatched>
 __global__ void __launch_bounds__(kThreads)
 gram_fwd_kernel(const T* __restrict__ xs, const T* __restrict__ xps,
                 const T* __restrict__ sig, const T* __restrict__ diag,
@@ -351,9 +338,8 @@ gram_fwd_kernel(const T* __restrict__ xs, const T* __restrict__ xps,
   const int j0 = blockIdx.x * col_tile;
   const int rows = min(rows_tile, n - i0);
   const int w = min(col_tile, m - j0);
-  const int dw = kChunk ? Elem<T>::kDChunk : d;  // the d of one stage
-  T* xs_s = smem;                      // [rows_tile][dw]
-  T* xpt_s = smem + rows_tile * dw;    // [dw][col_tile]: xps transposed
+  T* xs_s = smem;                     // [rows_tile][d]
+  T* xpt_s = smem + rows_tile * d;    // [d][col_tile]: xps transposed
 
   const int tx = threadIdx.x & (col_threads - 1);  // col_threads is a power of two
   const int ty = threadIdx.x >> (__ffs(col_threads) - 1);
@@ -366,49 +352,29 @@ gram_fwd_kernel(const T* __restrict__ xs, const T* __restrict__ xps,
   }
   // Columns of the tile past w and rows past `rows` read shared memory that
   // was not filled; their sums are never stored.
-  const auto accumulate = [&](int kw) {
-    for (int k = 0; k < kw; ++k) {
-      T xp[kFwdColsPerThread];
+  stage_span(xs_s, xs + (size_t)i0 * d, rows * d);
+  if (threadIdx.x < w) {
+    const T* src = xps + (size_t)(j0 + threadIdx.x) * d;
+    for (int k = 0; k < d; ++k) cp_async_elem(xpt_s + k * col_tile + threadIdx.x, src + k);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  if (c >= w) return;
+  for (int k = 0; k < d; ++k) {
+    T xp[kFwdColsPerThread];
 #pragma unroll
-      for (int q = 0; q < kFwdColsPerThread; q += Elem<T>::kVec)
-        load16(xpt_s + k * col_tile + c + q, xp + q);
+    for (int q = 0; q < kFwdColsPerThread; q += Elem<T>::kVec)
+      load16(xpt_s + k * col_tile + c + q, xp + q);
 #pragma unroll
-      for (int r = 0; r < RT; ++r) {
-        const T xi = xs_s[(ty + r * row_groups) * dw + k];
+    for (int r = 0; r < RT; ++r) {
+      const T xi = xs_s[(ty + r * row_groups) * d + k];
 #pragma unroll
-        for (int q = 0; q < kFwdColsPerThread; ++q) {
-          const T t = xi - xp[q];
-          d2[r][q] = fma_t(t, t, d2[r][q]);
-        }
+      for (int q = 0; q < kFwdColsPerThread; ++q) {
+        const T t = xi - xp[q];
+        d2[r][q] = fma_t(t, t, d2[r][q]);
       }
     }
-  };
-  if constexpr (!kChunk) {
-    stage_span(xs_s, xs + (size_t)i0 * d, rows * d);
-    if (threadIdx.x < w) {
-      const T* src = xps + (size_t)(j0 + threadIdx.x) * d;
-      for (int k = 0; k < d; ++k) cp_async_elem(xpt_s + k * col_tile + threadIdx.x, src + k);
-    }
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    if (c >= w) return;
-    accumulate(d);
-  } else {
-    for (int k0 = 0; k0 < d; k0 += dw) {
-      const int kw = min(dw, d - k0);
-      stage_elems(xs_s, dw, xs + (size_t)i0 * d + k0, d, rows, kw);
-      if (threadIdx.x < w) {
-        const T* src = xps + (size_t)(j0 + threadIdx.x) * d + k0;
-        for (int k = 0; k < kw; ++k) cp_async_elem(xpt_s + k * col_tile + threadIdx.x, src + k);
-      }
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
-      if (c < w) accumulate(kw);
-      __syncthreads();  // the next chunk refills the stage just read
-    }
-    if (c >= w) return;
   }
   const T s = *sig;
   const bool vec = (m & 3) == 0 &&
@@ -1125,6 +1091,43 @@ __device__ __forceinline__ void store16(double* p, const double* v) {
   *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
 }
 
+// Element gi of x's misalignment, in elements, from the 16-byte block that holds it.
+template <typename T>
+__device__ __forceinline__ int misalign_elems(const T* x, long long gi) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(x + gi) & 15) / sizeof(T));
+}
+
+// Rows row0 .. row0 + rows - 1 of x [., d], features [k0, k0 + kw), into a
+// raw stage of row pitch `pitch` (elements, a multiple of 16 bytes): each row's
+// span as the 16-byte blocks that hold it (cp.async through L1, 16 bytes a
+// copy whatever d: a copy of 4 or 8 bytes an element ran at a few cycles an
+// element), at most nb blocks a row, so that element j of the span lands at
+// dst[r * pitch + s + j], s the row's misalignment (misalign_elems). Blocks
+// that reach outside x's limit elements are copied element by element,
+// within it. The block's nthr threads take a share each.
+template <typename T>
+__device__ __forceinline__ void copy_row_spans(T* dst, int pitch, int nb, const T* x, int d,
+                                               int row0, int rows, int k0, int kw,
+                                               long long limit, int tid, int nthr) {
+  constexpr int V = Elem<T>::kVec;
+  for (int v = tid; v < rows * nb; v += nthr) {
+    const int r = v / nb;
+    const int bv = (v - r * nb) * V;
+    const long long gi = (long long)(row0 + r) * d + k0;
+    const int s = misalign_elems(x, gi);
+    if (bv >= s + kw) continue;  // past the span
+    const long long e0 = gi - s + bv;
+    T* dd = dst + r * pitch + bv;
+    if (e0 >= 0 && e0 + V <= limit) {
+      cp_async16(dd, x + e0);
+    } else {
+      for (int q = 0; q < V; ++q) {
+        if (e0 + q >= 0 && e0 + q < limit) cp_async_elem(dd + q, x + e0 + q);
+      }
+    }
+  }
+}
+
 template <typename T, bool kCols, bool kBatched, int RO, int RA>
 __device__ __forceinline__ void bwd_dchunk_body(const T* __restrict__ xs,
                                                 const T* __restrict__ xps,
@@ -1191,33 +1194,12 @@ __device__ __forceinline__ void bwd_dchunk_body(const T* __restrict__ xs,
   for (int e = tid; e < lay.acc + lay.rs; e += nthr) acc_s[e] = T(0);
 
   // A row's chunk [k0, k0 + kw) is copied as the 16-byte blocks that hold
-  // it (cp.async, 16 bytes a copy whatever d: a copy of 4 or 8 bytes an
-  // element ran at a few cycles an element), into a raw stage at pitch PR
-  // that keeps the span's alignment: element j of the chunk lands at raw
-  // offset s + j, s the row's misalignment in elements. Blocks that reach
-  // outside the array are copied element by element, within it.
+  // it into a raw stage at pitch PR that keeps the span's alignment
+  // (copy_row_spans).
   constexpr int NB = PR / V;  // 16-byte blocks of a chunk's span, at most
-  const auto misalign = [&](const T* x, long long gi) {
-    return static_cast<int>((reinterpret_cast<uintptr_t>(x + gi) & 15) / sizeof(T));
-  };
   const auto copy_rows = [&](T* dst, const T* x, int row0, int rows, int k0, int kw,
                              long long limit) {
-    for (int v = tid; v < rows * NB; v += nthr) {
-      const int r = v / NB;
-      const int bv = (v - r * NB) * V;
-      const long long gi = (long long)(row0 + r) * d + k0;
-      const int s = misalign(x, gi);
-      if (bv >= s + kw) continue;  // past the span
-      const long long e0 = gi - s + bv;
-      T* dd = dst + r * PR + bv;
-      if (e0 >= 0 && e0 + V <= limit) {
-        cp_async16(dd, x + e0);
-      } else {
-        for (int q = 0; q < V; ++q) {
-          if (e0 + q >= 0 && e0 + q < limit) cp_async_elem(dd + q, x + e0 + q);
-        }
-      }
-    }
+    copy_row_spans(dst, PR, NB, x, d, row0, rows, k0, kw, limit, tid, nthr);
   };
   // The raw rows into the stage that the passes read, aligned at pitch P,
   // zeros from kw to a whole 16-byte vector (pass A reads whole vectors).
@@ -1226,7 +1208,7 @@ __device__ __forceinline__ void bwd_dchunk_body(const T* __restrict__ xs,
     for (int v = tid; v < rows * nv; v += nthr) {
       const int r = v / nv;
       const int j0 = (v - r * nv) * V;
-      const int s = misalign(x, (long long)(row0 + r) * d + k0);
+      const int s = misalign_elems(x, (long long)(row0 + r) * d + k0);
       T q[V];
 #pragma unroll
       for (int u = 0; u < V; ++u) q[u] = j0 + u < kw ? raw[r * PR + s + j0 + u] : T(0);
@@ -1532,6 +1514,376 @@ gram_bwd_cols_kernel_dchunk(const T* __restrict__ xs, const T* __restrict__ xps,
       bs);
 }
 
+// ---- gram_fwd, d-chunked -------------------------------------------------------
+//
+// K_ij = sig * exp(-1/2 |xs_i - xps_j|^2), gram_pallas.py:_gram_kernel
+// (:40-53), past gram_fwd_kernel's widest d (Elem<T>::kDChunk: 64 floats, 32
+// doubles): the song set's d = 90, the slice set's 385.
+//
+// What bounds it: the operations. A pair costs d differences and d FMAs, two
+// FP32-pipe instructions a feature: the distance stays in IEEE direct
+// differences (it is cancellation-critical, and wgmma has no IEEE fp32
+// mode), so the Pallas kernel's cross-term dot is not carried over. At
+// 30720 x 30720 x 90 (all of K_hat at n = 30,720) the FP32 pipe's issue of
+// those instructions takes 5.07 ms at the card's boost clock, over the 3.8 ms
+// of the roofline's 3d + 3 FLOP a pair and the 1.1 ms of K's bytes. At the
+// FITC path's Grams (500 x 20 x 90, 20 x 20 x 90), a launch and a copy round
+// trip. The first d-chunked build (a loop around gram_fwd_kernel's body,
+// NVIDIA H100 80GB HBM3 at 700 W) took 17.4 ms at 30720^2 x 90 and 22 us at
+// 500 x 500 x 65: 4-byte copies of rows 260-1540 bytes apart, two serial
+// barriers a 256-byte chunk, and a 32 x 256 tile that staged xps 960 times.
+//
+// What this design does about it:
+// - A thread tile of RT rows x CT columns (kFdRows, kFdCols): 8 x 8 (at 16 x
+//   16 threads a 128 x 128 tile: xps is staged n / 128 times, and a feature
+//   costs a thread 4 shared loads of 16 bytes for 64 pairs), 4 x 4 (16 sums
+//   in flight a thread where the 8 x 8 tile leaves too few blocks), 1 x 4
+//   (tall-skinny Grams) or 1 x 1 (small Grams, whose time is a thread's
+//   chain). Rows come in groups of min(RT, 4) neighbours, group g of thread
+//   ty at row g * 4 * TY + 4 * ty; columns likewise, so that a group is one
+//   16-byte load of the transposed stage. TX, TY and the tile are the plan's
+//   (ops/gram_cuda.py::fwd_dchunk_plan).
+// - Staging in 16-byte blocks: each row's span of a stage's features is
+//   copied as the 16-byte blocks that hold it, whatever d (fd_copy_rows, the
+//   d-chunked backward's copies), then transposed to [feature][row]: a warp
+//   takes 4 rows x 8 features at a time over the whole tile and stage width
+//   (uniform bounds, no branch an element), kFdBatch loads before their
+//   stores; at a transposed pitch 4 floats past a multiple of 32 and a raw
+//   pitch 8 past a multiple of 16 its stores hit 32 banks and its loads at
+//   most two a bank. A tile of one row a thread sums its xs row straight
+//   from the raw stage and transposes xps alone.
+// - A pipeline, one barrier a stage: three raw stages (four where xs is read
+//   raw) and two transposed ones in a ring. After stage c's barrier the
+//   block transposes stage c, issues the copies of stage c + 2 and sums
+//   stage c - 1, so two stages' copies are in flight while one is summed. A
+//   stage holds as many features as shared memory allows for two blocks an
+//   SM (the plan's kc): where the tile's rows and all of d fit, all of d is
+//   one stage.
+// - Each pair's squared distance is one thread's sum in ascending k, with fma
+//   of (xs - xps): K is bitwise what the d-chunked backward's pass A
+//   recomputes, and K(u, u) is exactly symmetric with an exact sig diagonal.
+//   The epilogue is gram_fwd_kernel's (OutT, diag, 16-byte stores where m %
+//   4 == 0), column group by column group.
+//
+// What bounds it now (NVIDIA H100 80GB HBM3, 700 W; bench_gram --chunked):
+// at 30720 x 30720 x 90 9.18 ms, 0.42 of the operations bound; built without
+// its copies and transposes (experiments/bench_fwd_stages.py) 6.72 ms, 0.75 of
+// the FP32 pipe's issue floor; 30720 x 2048 x 90 0.64 ms (0.40); where
+// blocks are few, a thread's chain and a copy round trip: 3.4-3.9 us at the
+// FITC-20 Grams, 6.4 us at 500 x 500 x 65, 12.4 us at 9700 x 20 x 130.
+constexpr int kFdTiles = 4;                      // thread tiles, by index
+constexpr int kFdRows[kFdTiles] = {1, 1, 8, 4};  // rows a thread
+constexpr int kFdCols[kFdTiles] = {1, 4, 8, 4};  // columns a thread
+constexpr int kFdBatch = 4;                      // a transposing thread's loads in flight
+
+// Shared memory of the d-chunked forward, in elements: nraw raw stages of
+// the tile's rows as copied ([rt4 + ct4][pr]: nb 16-byte blocks a row, at
+// any alignment; the row counts rounded up to 4), then ntr transposed stages
+// ([kc][ps] for xs, [kc][px] for xps). A call of one stage takes one of
+// each; of two, two raw stages.
+struct FdSmem {
+  int nb, pr, ps, px;  // blocks of a raw row; the raw, xs^T and xps^T pitches
+  int nraw, ntr, raw, tr, total;
+};
+
+template <typename T>
+__host__ __device__ inline FdSmem fd_smem(int rt, int ct, int kc, int d, bool xs_raw) {
+  constexpr int V = Elem<T>::kVec;
+  constexpr int E = static_cast<int>(sizeof(T));
+  FdSmem s;
+  const int stages = (d + kc - 1) / kc;
+  s.nb = (kc + 2 * V - 2) / V;
+  s.pr = s.nb * V;
+  while (s.pr * E % 64 != 32) s.pr += V;
+  s.ps = (rt + 3) / 4 * 4;
+  while (s.ps * E % 128 != 16) s.ps += V;
+  s.px = (ct + 3) / 4 * 4;
+  while (s.px * E % 128 != 16) s.px += V;
+  // A stage's raw xs rows are read until the stage after next has been issued
+  // where they are summed from there (xs_raw): four raw stages then.
+  const int ring = xs_raw ? 4 : 3;
+  s.nraw = stages < ring ? stages : ring;
+  s.ntr = stages < 2 ? stages : 2;
+  s.raw = ((rt + 3) / 4 + (ct + 3) / 4) * 4 * s.pr;
+  s.tr = kc * ((xs_raw ? 0 : s.ps) + s.px);
+  s.total = s.nraw * s.raw + s.ntr * s.tr;
+  return s;
+}
+
+// copy_row_spans for the forward: the same copies, stepped from one to the
+// next without a division, and, where every row's blocks lie inside x (all
+// but a call's first and last rows, as a rule), by a loop without the
+// per-block limit check. On an NVIDIA H100 80GB HBM3 the forward took ~5%
+// longer with copy_row_spans (30720 x 30720 x 90: 9.63 ms against 9.18), the
+// backward ~1.2% longer with this loop (its large-n block), so each keeps its
+// own.
+template <typename T>
+__device__ __forceinline__ void fd_copy_rows(T* dst, int pitch, int nb, const T* x, int d,
+                                             int row0, int rows, int k0, int kw,
+                                             long long limit, int tid, int nthr) {
+  constexpr int V = Elem<T>::kVec;
+  const long long first = (long long)row0 * d + k0;  // the first row's span
+  const long long last = first + (long long)(rows - 1) * d;
+  const int s_last = misalign_elems(x, last);
+  const bool inside = first - misalign_elems(x, first) >= 0 &&
+                      last - s_last + (s_last + kw + V - 1) / V * V <= limit;
+  // Copy v = tid + i * nthr is block b of row r, v = r * nb + b.
+  const int step_r = nthr / nb;
+  const int step_b = nthr - step_r * nb;
+  const auto walk = [&](auto checked) {
+    int r = tid / nb;
+    int b = tid - r * nb;
+    for (; r < rows; r += step_r, b += step_b) {
+      if (b >= nb) {
+        b -= nb;
+        ++r;
+        if (r >= rows) break;
+      }
+      const int bv = b * V;
+      const long long gi = first + (long long)r * d;
+      const int s = misalign_elems(x, gi);
+      if (bv >= s + kw) continue;  // past the span
+      const long long e0 = gi - s + bv;
+      T* dd = dst + r * pitch + bv;
+      if (!decltype(checked)::value || (e0 >= 0 && e0 + V <= limit)) {
+        cp_async16(dd, x + e0);
+      } else {
+        for (int q = 0; q < V; ++q) {
+          if (e0 + q >= 0 && e0 + q < limit) cp_async_elem(dd + q, x + e0 + q);
+        }
+      }
+    }
+  };
+  if (inside) walk(std::false_type{});
+  else walk(std::true_type{});
+}
+
+// The rt4 rows (rt rounded up to 4) of a raw stage (pitch pr, each row at its
+// misalignment as copy_row_spans leaves it) into dst[k * p + r] for k < kc:
+// a warp takes 4 rows x 8 features at a time, lane l row l % 4 and feature
+// l / 4, kFdBatch of them at once, their loads before their stores: kAlongK,
+// a row group's features k, k + 8, ... (a one-stage call's long rows); else
+// row groups g, g + warps, ... (a stage's many short rows), feature after
+// feature. A batch past the last group or feature repeats that one, load and
+// store alike. Row r's misalignment is (mis + r * d) mod the elements of 16
+// bytes, mis that of the stage's first element (x / sizeof(T) + row0 * d +
+// k0, mod 2^32). Cells past the Gram's rows or the stage's kw features take
+// what the raw stage holds there, and are never read. (One element at a
+// time, each load waited behind the store before it: the two stages share
+// one shared array, so the compiler keeps a load after the store before it.)
+template <bool kAlongK, typename T>
+__device__ __forceinline__ void fd_transpose(T* dst, int p, const T* raw, int pr, unsigned mis,
+                                             int d, int rt, int kc, int tid, int nthr) {
+  constexpr unsigned V = Elem<T>::kVec;
+  const int lane = tid & 31;
+  const int rl = lane & 3;
+  const int kl = lane >> 2;
+  const int groups = (rt + 3) >> 2;  // of 4 rows
+  const int nw = nthr >> 5;
+  const auto at = [&](int r) {
+    return r * pr + static_cast<int>((mis + unsigned(r) * unsigned(d)) & (V - 1));
+  };
+  if constexpr (kAlongK) {
+    for (int g = tid >> 5; g < groups; g += nw) {
+      const int r = 4 * g + rl;
+      const T* src = raw + at(r);
+      for (int k0 = kl; k0 < kc; k0 += 8 * kFdBatch) {
+        T v[kFdBatch];
+#pragma unroll
+        for (int u = 0; u < kFdBatch; ++u) v[u] = src[min(k0 + 8 * u, kc - 1)];
+#pragma unroll
+        for (int u = 0; u < kFdBatch; ++u) dst[min(k0 + 8 * u, kc - 1) * p + r] = v[u];
+      }
+    }
+  } else {
+    for (int g0 = tid >> 5; g0 < groups; g0 += kFdBatch * nw) {
+      int r[kFdBatch];
+      int src[kFdBatch];
+#pragma unroll
+      for (int u = 0; u < kFdBatch; ++u) {
+        r[u] = 4 * min(g0 + u * nw, groups - 1) + rl;
+        src[u] = at(r[u]);
+      }
+      for (int k = kl; k < kc; k += 8) {
+        T v[kFdBatch];
+#pragma unroll
+        for (int u = 0; u < kFdBatch; ++u) v[u] = raw[src[u] + k];
+#pragma unroll
+        for (int u = 0; u < kFdBatch; ++u) dst[k * p + r[u]] = v[u];
+      }
+    }
+  }
+}
+
+// W neighbouring elements of shared memory (16-byte aligned when W > 1).
+template <int W, typename T>
+__device__ __forceinline__ void load_w(const T* p, T* v) {
+  if constexpr (W == 1) {
+    v[0] = *p;
+  } else {
+#pragma unroll
+    for (int u = 0; u < W; u += Elem<T>::kVec) load16(p + u, v + u);
+  }
+}
+
+// fp32 takes at most 128 registers a thread for the 8 x 8 tile (two blocks
+// of 256 threads an SM), 64 for the others; fp64 twice that.
+template <typename T, int RT, int CT, typename OutT, bool kBatched>
+__global__ void __launch_bounds__(kThreads, (sizeof(T) == 4 ? 2 : 1) * (RT * CT >= 16 ? 1 : 2))
+gram_fwd_kernel_dchunk(const T* __restrict__ xs, const T* __restrict__ xps,
+                       const T* __restrict__ sig, const T* __restrict__ diag,
+                       OutT* __restrict__ out, int n, int m, int d, int tx_n, int ty_n, int kc,
+                       Batch bs) {
+  constexpr int RW = RT < 4 ? RT : 4;  // rows of a group
+  constexpr int CW = CT < 4 ? CT : 4;  // columns of a group
+  constexpr int RG = RT / RW;
+  constexpr int CG = CT / CW;
+  // Features a thread's loop takes at once: enough loads in flight to hide
+  // their latency where a feature is a few instructions.
+  constexpr int kUnroll = RT * CT >= 64 ? 2 : 8;
+  // One row a thread: it sums its xs row from the raw stage (one element a
+  // feature at any alignment), and only xps is transposed.
+  constexpr bool kXsRaw = RT == 1;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  if constexpr (kBatched) {
+    const long long b = blockIdx.z;
+    xs += b * bs.xs;
+    xps += b * bs.xps;
+    sig += b * bs.sig;
+    out += b * bs.out0;
+  }
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  const int rt = RT * ty_n;  // the block's tile
+  const int ct = CT * tx_n;
+  const int rt4 = (rt + 3) / 4 * 4;  // the tile's rows in the raw stages
+  // Row tiles on x (up to 2^31 - 1), column tiles on y.
+  const int i0 = blockIdx.x * rt;
+  const int j0 = blockIdx.y * ct;
+  const int rows = min(rt, n - i0);
+  const int cols = min(ct, m - j0);
+  const int stages = (d + kc - 1) / kc;
+  const FdSmem lay = fd_smem<T>(rt, ct, kc, d, kXsRaw);
+  T* raw_s = smem;                       // nraw x [rt4 + ct4][pr]
+  T* tr_s = smem + lay.nraw * lay.raw;   // ntr x ([kc][ps] unless kXsRaw, [kc][px])
+  const int pso = kXsRaw ? 0 : lay.ps;   // xps^T's offset in a transposed stage, in rows of ps
+  // Loaded before the copies are issued: the asm of cp.async orders every
+  // later load after it.
+  const T s = *sig;
+  const auto issue = [&](int c) {
+    const int k0 = c * kc;
+    const int kw = min(kc, d - k0);
+    T* raw = raw_s + (c % lay.nraw) * lay.raw;
+    fd_copy_rows(raw, lay.pr, lay.nb, xs, d, i0, rows, k0, kw, (long long)n * d, tid, nthr);
+    fd_copy_rows(raw + rt4 * lay.pr, lay.pr, lay.nb, xps, d, j0, cols, k0, kw, (long long)m * d,
+                 tid, nthr);
+  };
+  // The first rows' misalignment in elements, mod 2^32 (fd_transpose).
+  const unsigned mis_s = static_cast<unsigned>(reinterpret_cast<uintptr_t>(xs) / sizeof(T)) +
+                         unsigned(i0) * unsigned(d);
+  const unsigned mis_p = static_cast<unsigned>(reinterpret_cast<uintptr_t>(xps) / sizeof(T)) +
+                         unsigned(j0) * unsigned(d);
+  const bool active = tid < tx_n * ty_n;
+  const int tx = tid % tx_n;
+  const int ty = tid / tx_n;
+  T d2[RT][CT];
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+#pragma unroll
+    for (int j = 0; j < CT; ++j) d2[i][j] = T(0);
+  }
+  issue(0);
+  cp_async_commit();
+  if (stages > 1) issue(1);
+  cp_async_commit();
+  // Rows past `rows` and columns past `cols` sum what their transposed
+  // cells hold; their sums are never stored.
+  for (int c = 0; c <= stages; ++c) {
+    if (c < stages) cp_async_wait<1>();  // stage c's copies; c + 1's may fly on
+    __syncthreads();  // stage c is in; stage c - 1 is transposed; c - 2 summed
+    if (c < stages) {
+      const unsigned k0 = unsigned(c * kc);
+      const T* raw = raw_s + (c % lay.nraw) * lay.raw;
+      T* tb = tr_s + (c & 1) * lay.tr;
+      if constexpr (!kXsRaw) fd_transpose<false>(tb, lay.ps, raw, lay.pr, mis_s + k0, d, rt, kc, tid,
+                                                 nthr);
+      fd_transpose<kXsRaw>(tb + kc * pso, lay.px, raw + rt4 * lay.pr, lay.pr, mis_p + k0, d, ct,
+                           kc, tid, nthr);
+      if (c + 2 < stages) issue(c + 2);  // into the raw stage that c - 1 left
+      cp_async_commit();
+    }
+    if (c > 0 && active) {
+      const int kw = min(kc, d - (c - 1) * kc);
+      // kXsRaw: this thread's row where stage c - 1's raw copy put it.
+      const T* xt = kXsRaw ? raw_s + ((c - 1) % lay.nraw) * lay.raw + ty * lay.pr +
+                                 static_cast<int>((mis_s + unsigned((c - 1) * kc) +
+                                                   unsigned(ty) * unsigned(d)) &
+                                                  (Elem<T>::kVec - 1))
+                           : tr_s + ((c - 1) & 1) * lay.tr + RW * ty;
+      const T* pt = tr_s + ((c - 1) & 1) * lay.tr + kc * pso + CW * tx;
+#pragma unroll kUnroll
+      for (int k = 0; k < kw; ++k) {
+        T a[RT];
+        T b[CT];
+#pragma unroll
+        for (int g = 0; g < RG; ++g) {
+          if constexpr (kXsRaw) a[0] = xt[k];
+          else load_w<RW>(xt + k * lay.ps + g * RW * ty_n, a + g * RW);
+        }
+#pragma unroll
+        for (int h = 0; h < CG; ++h) load_w<CW>(pt + k * lay.px + h * CW * tx_n, b + h * CW);
+#pragma unroll
+        for (int i = 0; i < RT; ++i) {
+#pragma unroll
+          for (int j = 0; j < CT; ++j) {
+            const T t = a[i] - b[j];
+            d2[i][j] = fma_t(t, t, d2[i][j]);
+          }
+        }
+      }
+    }
+  }
+  if (!active) return;
+  const bool vec = CW == kFwdColsPerThread && (m & 3) == 0 &&
+                   (reinterpret_cast<uintptr_t>(out) & (kFwdColsPerThread * sizeof(OutT) - 1)) == 0;
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const int ri = (i / RW) * RW * ty_n + RW * ty + i % RW;
+    if (ri >= rows) continue;
+#pragma unroll
+    for (int h = 0; h < CG; ++h) {
+      const int c0 = h * CW * tx_n + CW * tx;
+      if (c0 >= cols) continue;
+      T v[CW];
+#pragma unroll
+      for (int q = 0; q < CW; ++q) v[q] = s * exp_t(T(-0.5) * d2[i][h * CW + q]);
+      if constexpr (Out4<OutT>::kDiag) {
+        if (diag != nullptr) {
+          const int q = i0 + ri - (j0 + c0);  // the column of this row's diagonal, if it is ours
+          if (q >= 0 && q < CW) {
+#pragma unroll
+            for (int u = 0; u < CW; ++u) {
+              if (u == q) v[u] = __fadd_rn(v[u], *diag);
+            }
+          }
+        }
+      }
+      OutT* o = out + (size_t)(i0 + ri) * m + j0 + c0;
+      if constexpr (CW == kFwdColsPerThread) {
+        if (vec) {  // then cols % 4 == 0, so all four columns are in the tile
+          Out4<OutT>::store(o, v);
+          continue;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < CW; ++q) {
+        if (c0 + q < cols) o[q] = Out4<OutT>::one(v[q]);
+      }
+    }
+  }
+}
+
 // Dynamic shared memory above 48 KB is only granted when asked for.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
@@ -1581,21 +1933,17 @@ cudaError_t launch_bwd_dchunk(bool cols, bool wide, const T* xs, const T* xps, c
   return cudaGetLastError();
 }
 
-// gram_fwd with its element type T deduced from the pointers; d past
-// Elem<T>::kDChunk takes the chunked instantiation, whose stages hold one chunk.
+// gram_fwd with its element type T deduced from the pointers (d up to
+// Elem<T>::kDChunk; past it gram_fwd_dchunk).
 template <int RT, typename OutT, typename T>
 cudaError_t launch_fwd(const T* xs, const T* xps, const T* sig, const T* diag,
                        void* out, int n, int m, int d, int col_threads, int batch,
                        const Batch& bs, cudaStream_t stream) {
   const int rows_tile = kThreads / col_threads * RT;
   const int col_tile = kFwdColsPerThread * col_threads;
-  const bool chunk = d > Elem<T>::kDChunk;
-  const size_t smem =
-      fwd_smem_floats(rows_tile, col_tile, chunk ? Elem<T>::kDChunk : d) * sizeof(T);
-  const auto kernel = chunk ? (batch > 1 ? gram_fwd_kernel<T, RT, OutT, true, true>
-                                         : gram_fwd_kernel<T, RT, OutT, false, true>)
-                            : (batch > 1 ? gram_fwd_kernel<T, RT, OutT, true, false>
-                                         : gram_fwd_kernel<T, RT, OutT, false, false>);
+  const size_t smem = fwd_smem_floats(rows_tile, col_tile, d) * sizeof(T);
+  const auto kernel = batch > 1 ? gram_fwd_kernel<T, RT, OutT, true>
+                                : gram_fwd_kernel<T, RT, OutT, false>;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((m + col_tile - 1) / col_tile, (n + rows_tile - 1) / rows_tile, batch);
@@ -1617,6 +1965,51 @@ cudaError_t launch_fwd_rt(int rows_per_thread, const T* xs, const T* xps,
                                        stream);
     case 8: return launch_fwd<8, OutT>(xs, xps, sig, diag, out, n, m, d, col_threads, batch, bs,
                                        stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// One launch of the d-chunked forward under the plan (tile, tx, ty, threads,
+// kc) of ops/gram_cuda.py::fwd_dchunk_plan: a grid of row tiles x column
+// tiles x batch, blocks of `threads` threads (whole warps, at least tx * ty;
+// the rest copy and transpose).
+template <typename T, int RT, int CT, typename OutT>
+cudaError_t launch_fwd_dchunk(const T* xs, const T* xps, const T* sig, const T* diag, void* out,
+                              int n, int m, int d, int tx, int ty, int threads, int kc, int batch,
+                              const Batch& bs, cudaStream_t stream) {
+  const int rt = RT * ty;
+  const int ct = CT * tx;
+  const size_t smem = fd_smem<T>(rt, ct, kc, d, RT == 1).total * sizeof(T);
+  const int col_tiles = (m + ct - 1) / ct;
+  if (smem > kDcSmemMax || col_tiles > 65535) return cudaErrorInvalidValue;
+  const auto kernel = batch > 1 ? gram_fwd_kernel_dchunk<T, RT, CT, OutT, true>
+                                : gram_fwd_kernel_dchunk<T, RT, CT, OutT, false>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + rt - 1) / rt, col_tiles, batch);
+  kernel<<<grid, threads, smem, stream>>>(xs, xps, sig, diag, static_cast<OutT*>(out), n, m, d,
+                                          tx, ty, kc, bs);
+  return cudaGetLastError();
+}
+
+template <typename OutT, typename T>
+cudaError_t launch_fwd_dchunk_tile(int tile, const T* xs, const T* xps, const T* sig,
+                                   const T* diag, void* out, int n, int m, int d, int tx, int ty,
+                                   int threads, int kc, int batch, const Batch& bs,
+                                   cudaStream_t stream) {
+  switch (tile) {
+    case 0:
+      return launch_fwd_dchunk<T, kFdRows[0], kFdCols[0], OutT>(
+          xs, xps, sig, diag, out, n, m, d, tx, ty, threads, kc, batch, bs, stream);
+    case 1:
+      return launch_fwd_dchunk<T, kFdRows[1], kFdCols[1], OutT>(
+          xs, xps, sig, diag, out, n, m, d, tx, ty, threads, kc, batch, bs, stream);
+    case 2:
+      return launch_fwd_dchunk<T, kFdRows[2], kFdCols[2], OutT>(
+          xs, xps, sig, diag, out, n, m, d, tx, ty, threads, kc, batch, bs, stream);
+    case 3:
+      return launch_fwd_dchunk<T, kFdRows[3], kFdCols[3], OutT>(
+          xs, xps, sig, diag, out, n, m, d, tx, ty, threads, kc, batch, bs, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1722,6 +2115,39 @@ int bwd_cols_entry(const T* xs, const T* xps, const T* sig, const T* g, T* d_xps
 }
 
 template <typename T>
+int fwd_dchunk_entry(const T* xs, const T* xps, const T* sig, const T* diag, void* out, int n,
+                     int m, int d, int tile, int tx, int ty, int threads, int kc, int out_type,
+                     int batch, const Batch& bs, void* stream) {
+  if (bad_shape(n, m, d) || d <= Elem<T>::kDChunk || bad_batch(batch, bs) || tile < 0 ||
+      tile >= kFdTiles || tx < 1 || ty < 1 || tx * ty > kThreads || threads % 32 != 0 ||
+      threads < tx * ty || threads > kThreads || kc < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0 || m == 0 || batch == 0) return static_cast<int>(cudaSuccess);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if constexpr (sizeof(T) == 8) {
+    if (out_type != 0 || diag != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(launch_fwd_dchunk_tile<double>(tile, xs, xps, sig, diag, out, n, m,
+                                                           d, tx, ty, threads, kc, batch, bs, st));
+  } else {
+    switch (out_type) {
+      case 0:
+        if (diag != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+        return static_cast<int>(launch_fwd_dchunk_tile<float>(tile, xs, xps, sig, diag, out, n,
+                                                              m, d, tx, ty, threads, kc, batch,
+                                                              bs, st));
+      case 1:
+        return static_cast<int>(launch_fwd_dchunk_tile<__nv_bfloat16>(
+            tile, xs, xps, sig, diag, out, n, m, d, tx, ty, threads, kc, batch, bs, st));
+      case 2:
+        return static_cast<int>(launch_fwd_dchunk_tile<__half>(
+            tile, xs, xps, sig, diag, out, n, m, d, tx, ty, threads, kc, batch, bs, st));
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+}
+
+template <typename T>
 int bwd_dchunk_entry(int cols, int wide, const T* xs, const T* xps, const T* sig, const T* g,
                      T* out, T* rowsum, T* scratch, int* ticket, int n, int m, int d, int tx,
                      int ty, int chunk, int groups, int gw, int threads, int batch,
@@ -1755,13 +2181,14 @@ extern "C" {
 // a 2-byte output (the float instantiation carries no diagonal code, so an
 // fp32 K adds its diagonal after the launch). col_threads (8, 16, 32 or 64)
 // and rows_per_thread (1, 2, 4 or 8) are the plan's
-// (ops/gram_cuda.py::fwd_plan). Any d >= 1: past 64 the chunked build.
+// (ops/gram_cuda.py::fwd_plan). d from 1 to 64: past it gram_fwd_dchunk.
 int gram_fwd(const float* xs, const float* xps, const float* sig, const float* diag, void* out,
              int n, int m, int d, int col_threads, int rows_per_thread, int out_type, int batch,
              long long xs_bs, long long xps_bs, long long sig_bs, long long out_bs,
              void* stream) {
   const Batch bs{xs_bs, xps_bs, sig_bs, 0, out_bs, 0};
-  if (bad_shape(n, m, d) || bad_batch(batch, bs) || bad_col_threads(col_threads))
+  if (bad_shape(n, m, d) || d > Elem<float>::kDChunk || bad_batch(batch, bs) ||
+      bad_col_threads(col_threads))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0 || m == 0 || batch == 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1783,19 +2210,44 @@ int gram_fwd(const float* xs, const float* xps, const float* sig, const float* d
 }
 
 // gram_fwd on fp64 inputs: K in fp64 (out_type 0, the only one; no diag).
-// Past 32 features the chunked build.
+// d from 1 to 32: past it gram_fwd_dchunk_f64.
 int gram_fwd_f64(const double* xs, const double* xps, const double* sig, const double* diag,
                  void* out, int n, int m, int d, int col_threads, int rows_per_thread,
                  int out_type, int batch, long long xs_bs, long long xps_bs, long long sig_bs,
                  long long out_bs, void* stream) {
   const Batch bs{xs_bs, xps_bs, sig_bs, 0, out_bs, 0};
-  if (bad_shape(n, m, d) || bad_batch(batch, bs) || bad_col_threads(col_threads) ||
-      out_type != 0 || diag != nullptr)
+  if (bad_shape(n, m, d) || d > Elem<double>::kDChunk || bad_batch(batch, bs) ||
+      bad_col_threads(col_threads) || out_type != 0 || diag != nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0 || m == 0 || batch == 0) return static_cast<int>(cudaSuccess);
   return static_cast<int>(launch_fwd_rt<double>(rows_per_thread, xs, xps, sig, diag, out, n, m,
                                                 d, col_threads, batch, bs,
                                                 static_cast<cudaStream_t>(stream)));
+}
+
+// gram_fwd past 64 floats (gram_fwd_dchunk) or 32 doubles (gram_fwd_dchunk_f64):
+// the same arrays, output types, diag and batch strides; tile (0: 1 x 1, 1: 1
+// x 4, 2: 8 x 8 rows x columns a thread), tx and ty (column and row threads,
+// tx * ty <= 256), threads (the block, whole warps, at least tx * ty) and kc
+// (features a shared-memory stage) are the plan's
+// (ops/gram_cuda.py::fwd_dchunk_plan). The fp64 build writes fp64 only, no
+// diag.
+int gram_fwd_dchunk(const float* xs, const float* xps, const float* sig, const float* diag,
+                    void* out, int n, int m, int d, int tile, int tx, int ty, int threads, int kc,
+                    int out_type, int batch, long long xs_bs, long long xps_bs, long long sig_bs,
+                    long long out_bs, void* stream) {
+  const Batch bs{xs_bs, xps_bs, sig_bs, 0, out_bs, 0};
+  return fwd_dchunk_entry<float>(xs, xps, sig, diag, out, n, m, d, tile, tx, ty, threads, kc,
+                                 out_type, batch, bs, stream);
+}
+
+int gram_fwd_dchunk_f64(const double* xs, const double* xps, const double* sig,
+                        const double* diag, void* out, int n, int m, int d, int tile, int tx,
+                        int ty, int threads, int kc, int out_type, int batch, long long xs_bs,
+                        long long xps_bs, long long sig_bs, long long out_bs, void* stream) {
+  const Batch bs{xs_bs, xps_bs, sig_bs, 0, out_bs, 0};
+  return fwd_dchunk_entry<double>(xs, xps, sig, diag, out, n, m, d, tile, tx, ty, threads, kc,
+                                  out_type, batch, bs, stream);
 }
 
 // d_xs[n, d] = sum_j W_ij (xps_j - xs_i), rowsum[n] = sum_j W_ij, W = g * K,

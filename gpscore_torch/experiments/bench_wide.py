@@ -42,17 +42,19 @@ def wide_params(d: int, device):
     return p.replace(log_length=p.log_length + 0.5 * math.log(d / 8.0))
 
 
-def gram_bwd(top):
-    """(milliseconds, kernels) of the Gram backward's kernels in a
+def kernel_ms(top, kernel):
+    """(milliseconds, kernels) of the kernels whose name holds ``kernel`` in a
     :func:`bench_ceiling.device_profile` list of (name, seconds)."""
-    rows = [(name, sec) for name, sec in top if "gram_bwd" in name]
+    rows = [(name, sec) for name, sec in top if kernel in name]
     return sum(sec for _, sec in rows) * 1e3, len(rows)
 
 
 def measure(rule: str, x, y, params, repeats: int = 2) -> dict:
     """The step of ``rule``'s exact objective at (x, y, params): wall
     seconds (the fastest of ``repeats``), peak in n^2 * 4 bytes, device
-    seconds by kind, the Gram backward's ms."""
+    seconds by kind, the Gram backward's ms and the d-chunked forward's
+    (torch.profiler's; it has lost that kernel's events at 30720^2: 0 kernels
+    then)."""
     n = x.shape[0]
     loss = make_objective(rule, model="exact")
     walls = []
@@ -66,11 +68,13 @@ def measure(rule: str, x, y, params, repeats: int = 2) -> dict:
     peak = torch.cuda.max_memory_allocated()
     busy, kinds, top, _ = bench_ceiling.device_profile(
         lambda: bench_ceiling.value_and_grad(loss, params, x, y))
-    bwd_ms, bwd_names = gram_bwd(top)
+    bwd_ms, bwd_names = kernel_ms(top, "gram_bwd")
+    fwd_ms, fwd_names = kernel_ms(top, "gram_fwd_kernel_dchunk")
     return {"rule": rule, "n": n, "d": x.shape[1], "step_s": min(walls),
             "peak_n2": peak / (4.0 * n * n), "busy_s": busy,
             "ms_by_kind": {k: v * 1e3 for k, v in kinds.items()},
-            "gram_bwd_ms": bwd_ms, "gram_bwd_kernel_names": bwd_names}
+            "gram_bwd_ms": bwd_ms, "gram_bwd_kernel_names": bwd_names,
+            "gram_fwd_ms": fwd_ms, "gram_fwd_kernel_names": fwd_names}
 
 
 def main(argv=None):

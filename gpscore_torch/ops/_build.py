@@ -41,6 +41,10 @@ _L = ctypes.c_longlong
 # stride (elements) per array.
 SIGNATURES = {
     "gram_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _P],
+    # The d-chunked forward: as gram_fwd with the plan (tile, tx, ty, threads,
+    # stage features) in place of (col_threads, rows_per_thread).
+    "gram_fwd_dchunk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _L, _L, _L, _L, _P],
     "gram_bwd_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                       _L, _L, _L, _L, _L, _L, _P],
     "gram_bwd_cols": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _P],

@@ -23,10 +23,11 @@ as `gram_pallas.py:127-132` does.
 Element types: float32, or float64 throughout (inputs, K, the cotangent and
 every output; the kernels' fp64 instantiations, through the ``*_f64`` entry
 points). Any d >= 1: past MAX_D features (fp64: MAX_D / 2) a call takes the
-kernels' d-chunked instantiations (csrc/gram.cu), which sum the squared
-distance over every chunk of d before the exp; the backward's stage tiles
-of pairs in shared memory and form W once per pair, under
-:func:`dchunk_plan`. Nothing casts and nothing falls back: a CUDA tensor of
+kernels' d-chunked builds (csrc/gram.cu), which sum the squared distance
+over every stage of d before the exp: the forward's under
+:func:`fwd_dchunk_plan` (a kernel of its own, counted as "fwd_dchunk"); the
+backward's stage tiles of pairs in shared memory and form W once per pair,
+under :func:`dchunk_plan`. Nothing casts and nothing falls back: a CUDA tensor of
 another dtype raises.
 
 Dispatch is by device alone: a CPU tensor takes the plain version (the
@@ -62,7 +63,9 @@ from gpscore_torch.ops import _build
 
 # Kernel launches by kernel: a wrapper adds one where it launches, and
 # add_launches adds the replays of a graph that captured such launches.
-LAUNCHES = {"fwd": 0, "bwd_rows": 0, "bwd_cols": 0}
+# The d-chunked forward is a kernel of its own ("fwd_dchunk"); the d-chunked
+# backward's launches count under its halves.
+LAUNCHES = {"fwd": 0, "bwd_rows": 0, "bwd_cols": 0, "fwd_dchunk": 0}
 # The widest d of the unchunked fp32 backward (csrc/gram.cu kMaxD), and the
 # d-chunk of the chunked builds: 256 bytes, 64 floats or 32 doubles.
 MAX_D = 64
@@ -122,8 +125,8 @@ class Roofline(NamedTuple):
 def roofline(kernel: str, n: int, m: int, d: int, out_bytes: Optional[int] = None,
              diag: bool = False, batch: int = 1, shared_x: bool = False,
              elem: int = 4) -> Roofline:
-    """Roofline bound of one call of ``kernel`` ("gram_fwd", "gram_bwd_rows"
-    or "gram_bwd_cols") at K of n x m on d inputs, ``batch`` such Grams in
+    """Roofline bound of one call of ``kernel`` ("gram_fwd" or its d-chunked
+    build "gram_fwd_dchunk", "gram_bwd_rows" or "gram_bwd_cols") at K of n x m on d inputs, ``batch`` such Grams in
     the call (bytes and FLOPs times ``batch``: every batch reads its own
     inputs). ``shared_x``: the call is K(x, x), one tensor given as both xs
     and xps (n == m), so x is read once.
@@ -142,7 +145,7 @@ def roofline(kernel: str, n: int, m: int, d: int, out_bytes: Optional[int] = Non
         raise ValueError(f"shared_x needs a square K, not {n} x {m}")
     inputs = n * d + (0 if shared_x else m * d) + 1
     out = 0
-    if kernel == "gram_fwd":
+    if kernel in ("gram_fwd", "gram_fwd_dchunk"):
         floats, flops = inputs + int(diag), (3 * d + 3) * n * m
         out = out_bytes * n * m
     elif kernel == "gram_bwd_rows":
@@ -170,16 +173,20 @@ class FwdPlan(NamedTuple):
 
 def fwd_plan(n: int, m: int, d: int, sms: int, batch: int = 1, elem: int = 4) -> FwdPlan:
     """The tiling of ``gram_fwd`` on a card with ``sms`` multiprocessors,
-    for ``batch`` Grams in one launch, of ``elem``-byte elements.
+    for ``batch`` Grams in one launch, of ``elem``-byte elements; past
+    ``max_unchunked_d(elem)`` the d-chunked kernel's, :func:`fwd_dchunk_plan`
+    (a :class:`FwdDchunkPlan`).
 
-    A block stages (rows_tile + col_tile) x min(d, the d-chunk) elements,
-    at most 288 x 256 bytes = 72 KB in either type, so two blocks fit an SM
-    at every plan and the tiling does not depend on ``elem``.
+    A block stages (rows_tile + col_tile) x d elements, at most 288 x 256
+    bytes = 72 KB in either type, so two blocks fit an SM at every plan and
+    the tiling does not depend on ``elem``.
 
     The narrowest column tile that covers m (at most 256 columns), then the
     most rows per thread that still gives every SM two blocks, counting the
     tiles of every batch: 8 where K is megabytes (32 x 256 outputs, 32 KB, a
     block), 1 at the main path's small Grams, whose time is the launch's."""
+    if d > max_unchunked_d(elem):
+        return fwd_dchunk_plan(n, m, d, sms, batch, elem)
     col_threads = next((c for c in FWD_COL_THREADS if FWD_COLS_PER_THREAD * c >= m),
                        FWD_COL_THREADS[-1])
     col_tile = FWD_COLS_PER_THREAD * col_threads
@@ -447,7 +454,11 @@ def dchunk_candidates(cols: bool, n: int, m: int, d: int, sms: int, batch: int =
     The estimate, in cycles, per stage of a wave of blocks: the longest of a
     thread's chain of instructions (~d (4 q + 2 (RO + RA) / v) for q = RO x
     RA pairs, and its share of the staging, ~16 an 16-byte copy or repack;
-    ~8 / q cycles an instruction where q < 8), the SM's issue of
+    ~8 / q cycles an instruction where q < 8, and 4 / w where a wide tile
+    leaves its SM's schedulers w < 1 warp each: a lone warp issues its chain
+    at the latency; without that term the plan took the wide tile at the
+    rows of 9700 x 20 x 385 and at fp64 20 x 20 x 90, 203 and 27 us, where
+    one pair a thread took 173 and 20, NVIDIA H100 80GB HBM3), the SM's issue of
     every resident warp's, the SM's shared-memory reads (128 bytes a cycle;
     a thread reads its RO + RA rows' 16 bytes per 16 bytes of features, in
     both passes), the SM's copies from L2 (~32 bytes a cycle: the
@@ -493,7 +504,12 @@ def dchunk_candidates(cols: bool, n: int, m: int, d: int, sms: int, batch: int =
         chain = (d * (4 * q + 2 * (ro + ra) / v)
                  + steps * (to + ta) * 2 * (dc // v + 1) * 16 / threads)
         lds = 2 * d / v * (ro + ra) * 16  # shared bytes a thread reads a stage, both passes
-        stage_cycles = max(chain * max(1.0, 8 / q), on_sm * warps * chain / 4,
+        # Schedulers left with under a warp each (on_sm * warps < 4) issue a
+        # thread's chain at its latency, ~4 cycles an instruction.
+        per_sched = on_sm * warps / 4
+        lone = 4 / per_sched if q > 1 and 0 < per_sched < 1 else 1.0
+        stage_cycles = max(chain * max(1.0, 8 / q, lone),
+                           on_sm * warps * chain / 4,
                            on_sm * warps * 32 * lds / 128,
                            on_sm * elem * (2 * (to + ta) * d + to * ta) / 32, steps * 1500)
         n_sum = dchunk_sum_groups(n_chunks)
@@ -532,6 +548,157 @@ def dchunk_plan(cols: bool, n: int, m: int, d: int, sms: int, batch: int = 1,
     best = min(est for est, _ in pool)
     near = [p for est, p in pool if est <= 1.05 * best]  # within the estimate's noise
     return max(near, key=lambda p: (p.own_tile * p.stage, p.blocks, p.own_threads))
+
+
+# ---- the d-chunked forward (past max_unchunked_d) -----------------------------
+#
+# Constants of csrc/gram.cu's gram_fwd_kernel_dchunk: its thread tiles (rows x
+# columns a thread, kFdRows / kFdCols, by index), and the shared memory a
+# block may take where two blocks share an SM.
+FD_TILES = ((1, 1), (1, 4), (8, 8), (4, 4))
+FD_TWO_A_SM = SM_SMEM // 2 - 1024  # 115,712 bytes
+# Registers a thread may take, per tile: __launch_bounds__(256, blocks) of
+# 4 / 4 / 2 / 2 blocks in fp32, 2 / 2 / 1 / 1 in fp64.
+_FD_REGS = {4: (64, 64, 128, 128), 8: (128, 128, 255, 255)}
+
+
+class FwdDchunkPlan(NamedTuple):
+    """How the d-chunked forward tiles K: row tiles x column tiles, one
+    block each, of row_threads x col_threads threads that each take
+    rows_per_thread x cols_per_thread pairs; a block stages ``stage``
+    features of its rows at a time, ``stages`` stages."""
+
+    tile: int  # index into FD_TILES
+    rows_per_thread: int
+    cols_per_thread: int
+    col_threads: int  # TX
+    row_threads: int  # TY
+    row_tile: int  # rows a block: rows_per_thread x TY
+    col_tile: int  # columns a block: cols_per_thread x TX
+    threads: int  # a block: TX x TY rounded up to whole warps
+    stage: int  # features a stage (kc)
+    stages: int
+    smem_bytes: int
+    blocks: int
+    launches: int  # kernel launches per call
+    batch: int = 1
+
+
+def fwd_dchunk_smem(row_tile: int, col_tile: int, kc: int, d: int, elem: int = 4,
+                    xs_raw: bool = False) -> int:
+    """Bytes of dynamic shared memory of a d-chunked forward block
+    (csrc/gram.cu fd_smem): up to three raw stages of the tile's rows as
+    copied (16-byte blocks, at a pitch 32 bytes past a multiple of 64; the
+    row counts rounded up to 4) and up to two transposed stages ([kc][rows],
+    [kc][columns], at pitches 16 bytes past a multiple of 128). ``xs_raw``
+    (a tile of one row a thread, which sums xs from the raw stage): up to
+    four raw stages, and no xs rows transposed."""
+    v = 16 // elem
+
+    def pitch(p, mod, rem):
+        while p * elem % mod != rem:
+            p += v
+        return p
+
+    stages = -(-d // kc)
+    rt4, ct4 = _round_up(row_tile, 4), _round_up(col_tile, 4)
+    pr = pitch((kc + 2 * v - 2) // v * v, 64, 32)
+    ps, px = pitch(rt4, 128, 16), pitch(ct4, 128, 16)
+    return elem * (min(stages, 4 if xs_raw else 3) * (rt4 + ct4) * pr
+                   + min(stages, 2) * kc * ((0 if xs_raw else ps) + px))
+
+
+def _fd_shapes(n: int, m: int, tile: int):
+    """(TX, TY) candidates of thread tile ``tile``: TX the column threads
+    that cover m, or 4 to 64 of them (at most 256 columns a block); TY the
+    row threads that fill 256, 128, 64 or 32 threads with them, at most those
+    that cover n; those that fill at least 2/3 of their warps, if any."""
+    rt, ct = FD_TILES[tile]
+    cover = max(1, -(-m // ct))
+    txs = {min(c, cover) for c in (4, 8, 16, 32, 64)} | ({cover} if cover <= 64 else set())
+    shapes = sorted({(tx, max(1, min(block // tx, -(-n // rt))))
+                     for tx in txs if ct * tx <= 256 for block in (256, 128, 64, 32)})
+    full = [(tx, ty) for tx, ty in shapes if 3 * tx * ty >= 2 * _round_up(tx * ty, 32)]
+    return full or shapes
+
+
+def fwd_dchunk_candidates(n: int, m: int, d: int, sms: int, batch: int = 1, elem: int = 4):
+    """[(estimated cycles, FwdDchunkPlan)] for every thread tile and (TX,
+    TY) of :func:`_fd_shapes` at K of n x m on d features, ``batch`` Grams
+    of ``elem``-byte elements, on ``sms`` multiprocessors.
+
+    The stage: all of d where the tile's rows fit the shared memory a block
+    may take (FD_TWO_A_SM where its registers leave two blocks an SM, else
+    DC_SMEM_MAX), else the fewest stages that fit, of equal widths.
+
+    The estimate, in cycles, per wave of blocks: the longest of a
+    scheduler's issue of its warps' instructions (a thread's: 2 q
+    instructions a feature for q pairs, twice that in fp64, whose pipe
+    issues at half the rate, its shared loads, ~4 an element of its share
+    of the copies and transposes, ~16 a pair of the epilogue), a thread's
+    chain (a feature at least 4 cycles, an FMA's latency) and the SM's
+    copies from L2 (~32 bytes a cycle); plus ~600 cycles a stage (its
+    barrier and transpose) and ~1,500 for the first copies' round trip."""
+    v = 16 // elem
+    fp = 2 if elem == 8 else 1
+    out = []
+    for tile, (rt, ct) in enumerate(FD_TILES):
+        for tx, ty in _fd_shapes(n, m, tile):
+            threads = _round_up(tx * ty, 32)
+            regs = _FD_REGS[elem][tile]
+            by_regs = 65536 // (threads * regs)
+            if by_regs < 1:
+                continue
+            budget = FD_TWO_A_SM if by_regs >= 2 else DC_SMEM_MAX
+            rows, cols = rt * ty, ct * tx
+            for stages in range(1, d + 1):
+                kc = -(-d // stages)
+                smem = fwd_dchunk_smem(rows, cols, kc, d, elem, rt == 1)
+                if smem <= budget:
+                    break
+            if smem > budget or kc < 8 or -(-m // cols) > 65535:
+                continue
+            stages = -(-d // kc)
+            resident = max(1, min(SM_SMEM // (smem + 1024), by_regs, 2048 // threads, 32))
+            blocks = -(-n // rows) * -(-m // cols) * batch
+            waves = -(-blocks // (resident * sms))
+            on_sm = min(resident, -(-blocks // sms))
+            q = rt * ct
+            loads = ((rt // 4) * (elem // 4) if rt >= 4 else 1) + ((ct // 4) * (elem // 4)
+                                                                   if ct >= 4 else 1)
+            staging = (rows + cols) * d * 4 / threads
+            instr = d * (2 * q * fp + loads) + staging + 16 * q
+            issue = on_sm * threads / 32 / 4 * instr
+            chain = d * max(4 * fp, 2 * q * fp + loads) + staging + 16 * q
+            copy = on_sm * (rows + cols) * d * elem / 32
+            est = waves * (max(issue, chain, copy) + 600 * stages + 1500)
+            out.append((est, FwdDchunkPlan(
+                tile=tile, rows_per_thread=rt, cols_per_thread=ct, col_threads=tx,
+                row_threads=ty, row_tile=rows, col_tile=cols, threads=threads, stage=kc,
+                stages=stages, smem_bytes=smem, blocks=blocks,
+                launches=int(n > 0 and m > 0 and batch > 0), batch=batch)))
+    return out
+
+
+def fwd_dchunk_plan(n: int, m: int, d: int, sms: int, batch: int = 1, elem: int = 4,
+                    tile: Optional[int] = None) -> FwdDchunkPlan:
+    """The tiling of the d-chunked forward at K of n x m on d features, for
+    ``batch`` Grams of ``elem``-byte elements on a card with ``sms``
+    multiprocessors: among the candidates (:func:`fwd_dchunk_candidates`)
+    whose grid gives nine SMs in ten a block (all, if none does), the least
+    estimate; within 2% of it, the tile that stages the fewest bytes a pair
+    (the squarest), then the most blocks. ``tile``: only that thread tile
+    (bench_gram --tiles times the others)."""
+    cands = [c for c in fwd_dchunk_candidates(n, m, d, sms, batch, elem)
+             if tile is None or c[1].tile == tile]
+    if not cands:
+        raise ValueError(f"no d-chunked forward tiling fits {n} x {m} x {d} "
+                         f"({elem}-byte elements)")
+    pool = [c for c in cands if 10 * c[1].blocks >= 9 * sms] or cands
+    best = min(est for est, _ in pool)
+    near = [p for est, p in pool if est <= 1.02 * best]
+    return min(near, key=lambda p: ((p.row_tile + p.col_tile) / (p.row_tile * p.col_tile),
+                                    -p.blocks, p.tile, p.col_threads))
 
 
 # ---- plain versions (CPU path, and the kernels' oracle on the card) ---------
@@ -701,7 +868,8 @@ OUT_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 def gram_fwd_cuda(xs, xps, sig, out_dtype=None, diag_add=None):
     """K [n, m] (or [B, n, m]) from the forward kernel, one launch a chunk
-    of :func:`batch_chunks`, tiled by :func:`fwd_plan`, in ``out_dtype``
+    of :func:`batch_chunks`, tiled by :func:`fwd_plan` (past max_unchunked_d
+    the d-chunked kernel, :func:`fwd_dchunk_plan`), in ``out_dtype``
     (None: the inputs' dtype; from float32 inputs also bfloat16 or float16,
     from float64 ones float64 only), with the scalar tensor ``diag_add``
     added where i == j before the one rounding: inside the kernel for a
@@ -729,20 +897,40 @@ def gram_fwd_cuda(xs, xps, sig, out_dtype=None, diag_add=None):
     if not chunks[0][2].launches:  # an empty K
         return out
     in_kernel = diag_add is not None and out_dtype not in DTYPES
-    launch = _entry(lib, "gram_fwd", xs.dtype)
+    diag = diag_add.data_ptr() if in_kernel else None
     bs = [_bstride(t, batch) for t in (xs, xps, sig, out)]
-    with torch.cuda.device(xs.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for start, size, plan in chunks:
-            ptrs = [_at(t, start, b) for t, b in zip((xs, xps, sig, out), bs)]
-            rc = launch(*ptrs[:3], diag_add.data_ptr() if in_kernel else None, ptrs[3],
-                        n, m, d, plan.col_threads, plan.rows_per_thread,
-                        allowed[out_dtype], size, *bs, stream)
-            _raise_if_failed("gram_fwd", rc)
-            LAUNCHES["fwd"] += 1
+    if isinstance(chunks[0][2], FwdDchunkPlan):
+        _launch_fwd_dchunk(lib, chunks, (xs, xps, sig, out), diag, allowed[out_dtype], bs,
+                           n, m, d)
+    else:
+        launch = _entry(lib, "gram_fwd", xs.dtype)
+        with torch.cuda.device(xs.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            for start, size, plan in chunks:
+                ptrs = [_at(t, start, b) for t, b in zip((xs, xps, sig, out), bs)]
+                rc = launch(*ptrs[:3], diag, ptrs[3], n, m, d, plan.col_threads,
+                            plan.rows_per_thread, allowed[out_dtype], size, *bs, stream)
+                _raise_if_failed("gram_fwd", rc)
+                LAUNCHES["fwd"] += 1
     if diag_add is not None and not in_kernel:
         out.diagonal(dim1=-2, dim2=-1).add_(diag_add)
     return out
+
+
+def _launch_fwd_dchunk(lib, chunks, arrays, diag, out_type, bs, n, m, d):
+    """The d-chunked forward over the batch chunks [(first Gram, Grams,
+    FwdDchunkPlan)]: ``arrays`` are (xs, xps, sig, out), ``bs`` their batch
+    strides, ``diag`` the diagonal's pointer (a 2-byte K) or None."""
+    xs = arrays[0]
+    launch = _entry(lib, "gram_fwd_dchunk", xs.dtype)
+    with torch.cuda.device(xs.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for start, size, plan in chunks:
+            ptrs = [_at(t, start, b) for t, b in zip(arrays, bs)]
+            rc = launch(*ptrs[:3], diag, ptrs[3], n, m, d, plan.tile, plan.col_threads,
+                        plan.row_threads, plan.threads, plan.stage, out_type, size, *bs, stream)
+            _raise_if_failed("gram_fwd_dchunk", rc)
+            LAUNCHES["fwd_dchunk"] += 1
 
 
 def _launch_dchunk(lib, cols, chunks, arrays, bs, n, m, d):

@@ -117,6 +117,101 @@ def test_every_dchunk_tiling_matches_plain(dev, dtype, n, m, d):
                 assert torch.equal(a, b), plan
                 assert (a - w).abs().max() <= atol + rtol * w.abs().max(), plan
 
+
+def _wide_inputs(seed, B, n, m, d, dev, dtype, square=False):
+    """xs, xps uniform in [-1, 1] scaled by sqrt(8 / d) (K spans a range at
+    any d), sig [B] (or one value), xps = xs when ``square``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lead = () if B is None else (B,)
+    xs = (torch.rand((*lead, n, d), generator=gen, device=dev, dtype=dtype) * 2 - 1) * (8 / d) ** 0.5
+    xps = xs if square else ((torch.rand((*lead, m, d), generator=gen, device=dev, dtype=dtype)
+                              * 2 - 1) * (8 / d) ** 0.5)
+    sig = (torch.tensor(1.7, device=dev, dtype=dtype) if B is None
+           else 1.7 - 0.1 * torch.arange(B, device=dev, dtype=dtype))
+    return xs, xps, sig
+
+
+def _fwd_dchunk_call(plan, xs, xps, sig, out_dtype=None, diag_add=None):
+    """One launch of the d-chunked forward under ``plan``, unbatched."""
+    n, d = xs.shape
+    m = xps.shape[0]
+    out = torch.empty((n, m), dtype=out_dtype or xs.dtype, device=xs.device)
+    in_kernel = diag_add is not None and out.dtype not in gram_cuda.DTYPES
+    gram_cuda._launch_fwd_dchunk(_build.load_library(), [(0, 1, plan)], (xs, xps, sig, out),
+                                 diag_add.data_ptr() if in_kernel else None,
+                                 gram_cuda.OUT_TYPES.get(out.dtype, 0), [0] * 4, n, m, d)
+    if diag_add is not None and not in_kernel:
+        out.diagonal().add_(diag_add)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,m,d", [(500, 20, 90), (257, 33, 130), (96, 700, 65), (300, 300, 65),
+                                   (1031, 520, 90)])
+def test_every_fwd_dchunk_tile_matches_plain(dev, dtype, n, m, d):
+    """Every candidate tiling of the d-chunked forward (every thread tile,
+    TX x TY and stage width the plan may pick, one stage or several) against
+    the plain version: fp32 at 2e-5 (the plain cross-term form's
+    cancellation), fp64 at 1e-12; one launch each, a second bitwise the
+    first; at a square shape (xps = xs) K exactly symmetric with an exact
+    diagonal; and the plan's own tiling through gram_fwd_cuda."""
+    square = n == m
+    xs, xps, sig = _wide_inputs(n + m + d, None, n, m, d, dev, dtype, square)
+    tol = 2e-5 if dtype == torch.float32 else 1e-12
+    want = gram_cuda.gram_fwd_plain(xs, xps, sig)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cands = gram_cuda.fwd_dchunk_candidates(n, m, d, sms, elem=xs.element_size())
+    assert {p.tile for _, p in cands} == set(range(len(gram_cuda.FD_TILES)))
+    for _, plan in cands:
+        gram_cuda.reset_launches()
+        K = _fwd_dchunk_call(plan, xs, xps, sig)
+        assert gram_cuda.LAUNCHES["fwd_dchunk"] == 1
+        assert torch.equal(K, _fwd_dchunk_call(plan, xs, xps, sig)), plan
+        assert (K - want).abs().max() <= tol, plan
+        if square:
+            assert torch.equal(K, K.T), plan
+            assert torch.equal(torch.diagonal(K), sig.expand(n)), plan
+    gram_cuda.reset_launches()
+    K = gram_cuda.gram_fwd_cuda(xs, xps, sig)
+    assert gram_cuda.LAUNCHES == {"fwd": 0, "bwd_rows": 0, "bwd_cols": 0, "fwd_dchunk": 1}
+    assert (K - want).abs().max() <= tol and K.min() < 0.5 * K.max()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("n,m", [(500, 500), (257, 33), (500, 20)])
+def test_2_byte_fwd_dchunk_is_the_fp32_kernel_rounded(dev, dtype, n, m):
+    """At d = 90, at every candidate tiling: the 2-byte output with the noise
+    diagonal equals the fp32 kernel's output plus the diagonal, rounded once,
+    bit for bit (both store paths: m % 4 == 0 and not)."""
+    xs, xps, sig = _wide_inputs(n + m, None, n, m, 90, dev, torch.float32, n == m)
+    noise = torch.tensor(0.25, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for _, plan in gram_cuda.fwd_dchunk_candidates(n, m, 90, sms):
+        K = _fwd_dchunk_call(plan, xs, xps, sig, diag_add=noise)
+        got = _fwd_dchunk_call(plan, xs, xps, sig, out_dtype=dtype, diag_add=noise)
+        assert got.dtype == dtype and torch.equal(got, K.to(dtype)), plan
+    gram_cuda.reset_launches()
+    got = gram_cuda.gram_fwd_cuda(xs, xps, sig, out_dtype=dtype, diag_add=noise)
+    assert gram_cuda.LAUNCHES["fwd_dchunk"] == 1 and torch.equal(got, K.to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,n,m,d,square", [(3, 9700, 20, 130, False), (4, 300, 300, 90, True),
+                                            (2, 257, 33, 65, False)])
+def test_batched_fwd_dchunk_is_each_batchs_unbatched_call(dev, dtype, B, n, m, d, square):
+    """One launch for the B Grams; batch b's K is bitwise an unbatched call
+    on b's inputs (K's every entry is one sum in a fixed order at any
+    tiling), and within the plain version's tolerance."""
+    xs, xps, sig = _wide_inputs(B + n + d, B, n, m, d, dev, dtype, square)
+    gram_cuda.reset_launches()
+    K = gram_cuda.gram_fwd_cuda(xs, xps, sig)
+    assert gram_cuda.LAUNCHES["fwd_dchunk"] == 1 and K.shape == (B, n, m)
+    for b in range(B):
+        assert torch.equal(K[b], gram_cuda.gram_fwd_cuda(xs[b], xps[b], sig[b])), b
+    tol = 2e-5 if dtype == torch.float32 else 1e-12
+    assert (K - gram_cuda.gram_fwd_plain(xs, xps, sig)).abs().max() <= tol
+
+
 def test_float64_gram_refuses_a_2_byte_output(dev):
     xs = torch.zeros(4, 3, dtype=torch.float64, device=dev)
     with pytest.raises(TypeError):
@@ -192,7 +287,7 @@ def test_gram_kernels_of_empty_grams_launch_nothing(dev):
     assert gram_cuda.gram_bwd_rows_cuda(xs, xps, sig, g)[1].shape == (0,)
     # No rows: the column kernel still writes zeros.
     assert not gram_cuda.gram_bwd_cols_cuda(xs, xps, sig, g).any()
-    assert gram_cuda.LAUNCHES == {"fwd": 0, "bwd_rows": 0, "bwd_cols": 1}
+    assert gram_cuda.LAUNCHES == {"fwd": 0, "bwd_rows": 0, "bwd_cols": 1, "fwd_dchunk": 0}
     # No columns: the row kernel still writes zeros.
     xs, xps, sig, g = _scaled(4, 20, 0, 8, dev)
     d_xs, row = gram_cuda.gram_bwd_rows_cuda(xs, xps, sig, g)
@@ -225,7 +320,7 @@ def test_gram_on_cuda_launches_and_counts(dev):
     gram_cuda.reset_launches()
     u = torch.rand(20, 8, device=dev, requires_grad=True)
     gram(u, u, torch.tensor(0.0, device=dev), torch.zeros(8, device=dev)).sum().backward()
-    assert gram_cuda.LAUNCHES == {"fwd": 1, "bwd_rows": 1, "bwd_cols": 1}
+    assert gram_cuda.LAUNCHES == {"fwd": 1, "bwd_rows": 1, "bwd_cols": 1, "fwd_dchunk": 0}
 
 
 def test_gram_on_cuda_raises_when_the_library_cannot_be_built(dev, monkeypatch):
@@ -374,7 +469,7 @@ def test_fused_objectives_on_cuda_match_the_dense_path_at_n_4096(dev, monkeypatc
     monkeypatch.setattr(objectives, "_FUSED_LOO_MIN_N", 4096)
     gram_cuda.reset_launches()
     got_v, got_g = value_and_grad(loss, p, x, y)
-    assert gram_cuda.LAUNCHES == {"fwd": 1, "bwd_rows": 4, "bwd_cols": 4}
+    assert gram_cuda.LAUNCHES == {"fwd": 1, "bwd_rows": 4, "bwd_cols": 4, "fwd_dchunk": 0}
     assert abs(float(got_v) - float(want_v)) <= 1e-4 * abs(float(want_v))
     for f, want in want_g.items():
         assert (got_g[f] - want).abs().max() <= 1e-3 * want.abs().max(), f
@@ -399,7 +494,7 @@ def test_fold_objectives_on_cuda_match_the_dense_path_at_n_4096(dev, monkeypatch
     monkeypatch.setattr(objectives, "_FUSED_LOO_MIN_N", 4096)
     gram_cuda.reset_launches()
     got_v, got_g = value_and_grad(loss, p, x, y, **kw)
-    assert gram_cuda.LAUNCHES == {"fwd": 1, "bwd_rows": 16, "bwd_cols": 16}
+    assert gram_cuda.LAUNCHES == {"fwd": 1, "bwd_rows": 16, "bwd_cols": 16, "fwd_dchunk": 0}
     assert abs(float(got_v) - float(want_v)) <= 1e-4 * abs(float(want_v))
     for f, want in want_g.items():
         assert (got_g[f] - want).abs().max() <= 1e-3 * want.abs().max(), f
@@ -680,7 +775,7 @@ def test_batched_kernels_are_each_batchs_unbatched_launch(dev, B, n, m, d, squar
     same = [True, rows, rows, tiled_alike(gram_cuda.bwd_cols_plan)]
     gram_cuda.reset_launches()
     got = _all_three(xs, xps, sig, g)
-    assert gram_cuda.LAUNCHES == {"fwd": 1, "bwd_rows": 1, "bwd_cols": 1}
+    assert gram_cuda.LAUNCHES == {"fwd": 1, "bwd_rows": 1, "bwd_cols": 1, "fwd_dchunk": 0}
     assert all(torch.equal(a, b) for a, b in zip(got, _all_three(xs, xps, sig, g)))
     if B == 1:
         assert all(same)

@@ -21,6 +21,7 @@ import torch
 
 from gpscore.ops.gram_pallas import _bwd as jax_gram_bwd
 from gpscore.ops.gram_pallas import _pallas_gram_scaled
+from gpscore.ops.kernels import ard_gram as jax_ard_gram
 from gpscore_torch.ops import _build, gram_cuda
 from gpscore_torch.ops.gram_cuda import (COLS_STAGE_ROWS, COLS_TILE, FWD_COL_THREADS,
                                          FWD_COLS_PER_THREAD, ROWS_CHUNK_MIN_COLS,
@@ -683,3 +684,271 @@ def test_dchunk_reduction_matches_plain_and_jax(dtype, n, m, d, batch, sms):
             jx, jxp, jsig, _ = (np.asarray(a) for a in jax_gram_bwd(res, jnp.asarray(pick(g))))
             for got, ref in ((pick(d_xs), jx), (pick(d_xps), jxp), (pick(row).sum(), jsig)):
                 assert np.abs(got - ref).max() <= 1e-5 + 1e-4 * np.abs(ref).max()
+
+
+# ---- the d-chunked backward's thread tiles (the plan's estimate) -------------
+
+
+# The thread tile the plan takes at every d-chunked shape that chip_smoke.py and
+# bench_gram time, rows and columns, fp32 and fp64 (True: wide). Each was timed
+# against the other tile's best plan (bench_gram --chunked --tiles, NVIDIA H100
+# 80GB HBM3): the rows at 9700 x 20 x 385 and both halves at fp64 20 x 20 x 90
+# take one pair a thread (173 against 203 us, 20 against 27), every other
+# choice is the one measured faster.
+DCHUNK_TILES = {
+    (4, (500, 500, 65)): (True, True), (4, (9700, 20, 130)): (True, True),
+    (4, (9700, 20, 385)): (False, True), (4, (2048, 4096, 90)): (True, True),
+    (4, (500, 20, 90)): (False, False), (4, (20, 20, 90)): (False, False),
+    (4, (2048, 30720, 90)): (True, True),
+    (8, (500, 500, 65)): (True, True), (8, (9700, 20, 130)): (True, True),
+    (8, (9700, 20, 385)): (True, True), (8, (2048, 4096, 90)): (True, True),
+    (8, (500, 20, 90)): (False, False), (8, (20, 20, 90)): (False, False),
+    (8, (2048, 30720, 90)): (True, True), (8, (500, 500, 40)): (True, True),
+}
+
+
+@pytest.mark.parametrize("elem,shape", sorted(DCHUNK_TILES))
+def test_dchunk_plan_takes_the_measured_faster_thread_tile(elem, shape):
+    """The plan's thread tile (rows, columns) at each timed d-chunked shape.
+    The estimate counts a scheduler left with under a warp (a wide tile's few
+    threads on an SM) at a dependent chain's latency, ~4 cycles an
+    instruction: the two misses of the first estimate now take one pair a
+    thread, with the one-pair plan that was timed (16 x 16 threads)."""
+    got = tuple(gram_cuda.dchunk_plan(cols, *shape, H100_SMS, elem=elem).wide
+                for cols in (False, True))
+    assert got == DCHUNK_TILES[(elem, shape)]
+    for cols, wide in zip((False, True), got):
+        if not wide and shape[2] > 0 and (elem, shape) in ((4, (9700, 20, 385)),
+                                                           (8, (20, 20, 90))):
+            plan = gram_cuda.dchunk_plan(cols, *shape, H100_SMS, elem=elem)
+            assert (plan.walk_threads, plan.own_threads) == (16, 16)
+
+
+# ---- the d-chunked forward (past max_unchunked_d) -------------------------------
+
+
+def _fd_case(n, m, d, elem=4, batch=1, sms=H100_SMS):
+    plan = gram_cuda.fwd_dchunk_plan(n, m, d, sms, batch, elem)
+    assert gram_cuda.fwd_plan(n, m, d, sms, batch, elem=elem) == plan
+    return plan
+
+
+def _fd_thread_cells(plan):
+    """(row, column) in the block's tile of each (thread, row i, column j) of
+    the kernel's thread tile, as csrc/gram.cu gram_fwd_kernel_dchunk indexes
+    them: rows in groups of min(RT, 4) neighbours, group g of thread ty at
+    g * 4 * TY + 4 * ty (columns likewise); [TY, TX, RT, CT] arrays."""
+    rt, ct = plan.rows_per_thread, plan.cols_per_thread
+    rw, cw = min(rt, 4), min(ct, 4)
+    ty = np.arange(plan.row_threads)[:, None, None, None]
+    tx = np.arange(plan.col_threads)[None, :, None, None]
+    i = np.arange(rt)[None, None, :, None]
+    j = np.arange(ct)[None, None, None, :]
+    ri = (i // rw) * rw * plan.row_threads + rw * ty + i % rw
+    cj = (j // cw) * cw * plan.col_threads + cw * tx + j % cw
+    return np.broadcast_arrays(ri, cj)
+
+
+@pytest.mark.parametrize("elem,d", [(4, 65), (4, 90), (4, 130), (4, 385), (8, 33), (8, 65),
+                                    (8, 90), (8, 130), (8, 385)])
+@pytest.mark.parametrize("n,m,batch", [(500, 20, 1), (20, 20, 1), (500, 500, 1), (9700, 20, 1),
+                                       (2048, 4096, 1), (257, 33, 3), (9700, 20, 3),
+                                       (1031, 520, 1)])
+def test_fwd_dchunk_plan_covers_every_element_once(elem, d, n, m, batch):
+    """Every candidate tiling of the d-chunked forward (the plan's among
+    them) covers K once: a block's threads write each cell of its row_tile x
+    col_tile tile once, and row tiles x column tiles x batch cover K; the
+    stages cover d; shared memory as csrc/gram.cu fd_smem counts it, within
+    what two blocks an SM may take where the registers allow two (else a
+    block's limit); the block whole warps."""
+    plan = _fd_case(n, m, d, elem, batch)
+    cands = [p for _, p in gram_cuda.fwd_dchunk_candidates(n, m, d, H100_SMS, batch, elem)]
+    assert plan in cands and {p.tile for p in cands} == set(range(len(gram_cuda.FD_TILES)))
+    for p in cands:
+        rt, ct = gram_cuda.FD_TILES[p.tile]
+        assert (p.rows_per_thread, p.cols_per_thread) == (rt, ct)
+        assert (p.row_tile, p.col_tile) == (rt * p.row_threads, ct * p.col_threads)
+        ri, cj = _fd_thread_cells(p)
+        hits = np.zeros((p.row_tile, p.col_tile), dtype=int)
+        np.add.at(hits, (ri.ravel(), cj.ravel()), 1)
+        assert (hits == 1).all(), p
+        assert p.threads == -(-p.col_threads * p.row_threads // 32) * 32 <= THREADS
+        assert p.blocks == -(-n // p.row_tile) * -(-m // p.col_tile) * batch
+        assert -(-m // p.col_tile) <= 65535  # the column tiles on the grid's y axis
+        assert p.stage * (p.stages - 1) < d <= p.stage * p.stages and p.stage >= 8
+        assert p.smem_bytes == gram_cuda.fwd_dchunk_smem(p.row_tile, p.col_tile, p.stage, d, elem,
+                                                         p.rows_per_thread == 1)
+        two = 65536 // (p.threads * gram_cuda._FD_REGS[elem][p.tile]) >= 2
+        assert p.smem_bytes <= (gram_cuda.FD_TWO_A_SM if two else gram_cuda.DC_SMEM_MAX)
+        assert p.launches == 1 and p.batch == batch
+
+
+@pytest.mark.parametrize("n,m", [(0, 20), (20, 0), (0, 0)])
+def test_fwd_dchunk_plan_of_an_empty_gram_launches_nothing(n, m):
+    for elem in (4, 8):
+        assert _fd_case(n, m, 90, elem).launches == 0
+
+
+@pytest.mark.parametrize("elem", [4, 8])
+def test_fwd_dchunk_plan_fills_the_card_where_the_work_allows(elem):
+    """Past 64 features (32 doubles), each Gram the port launches: all of K
+    at n = 30,720 and its evaluation K(x, x*), a large-n block, the exact
+    K_ff, the pool's FITC K_fu, the FITC-20 K_fu give every SM a block (nine
+    in ten at the FITC-20 K_fu); the large Grams take the 8 x 8 tile at 16 x
+    16 threads (xps staged n / 128 times), in stages that leave two blocks an
+    SM in fp32; the small ones tiles of one row a thread."""
+    for shape in ((30720, 30720, 90), (30720, 2048, 90), (2048, 4096, 90), (500, 500, 65),
+                  (9700, 20, 130), (9700, 20, 385), (500, 20, 90)):
+        plan = _fd_case(*shape, elem)
+        assert 10 * plan.blocks >= 9 * H100_SMS, (shape, plan)
+    for shape in ((30720, 30720, 90), (30720, 2048, 90), (2048, 4096, 90)):
+        plan = _fd_case(*shape, elem)
+        assert (plan.tile, plan.col_threads, plan.row_threads) == (2, 16, 16), (shape, plan)
+        if elem == 4:
+            assert plan.smem_bytes <= gram_cuda.FD_TWO_A_SM
+    for shape in ((500, 500, 65), (9700, 20, 130), (500, 20, 90), (20, 20, 90)):
+        plan = _fd_case(*shape, elem)
+        assert plan.rows_per_thread < 8, (shape, plan)
+        assert plan.stages == 1 or elem == 8, (shape, plan)  # all of d in one stage
+    pool = _fd_case(9700, 20, 130, elem)
+    assert pool.col_tile == 20  # five threads of four columns: none idle
+
+
+# The d-chunked forward's thread tile at each timed shape (bench_gram --chunked
+# --tiles, the plan's tile beside each other tile's best plan; NVIDIA H100 80GB
+# HBM3). The plan takes the fastest tile at each but fp32 9700 x 20 x 385 (4 x 4
+# at ~33 us, where 1 x 4 took ~28), fp64 9700 x 20 x 130 (1 x 4 at ~26 us, 4 x 4
+# ~23) and, within 2%, fp32 9700 x 20 x 130.
+FWD_DCHUNK_TILES = {
+    (4, (500, 500, 65)): (4, 4), (4, (9700, 20, 130)): (1, 4), (4, (9700, 20, 385)): (4, 4),
+    (4, (2048, 4096, 90)): (8, 8), (4, (500, 20, 90)): (1, 1), (4, (20, 20, 90)): (1, 1),
+    (4, (2048, 30720, 90)): (8, 8), (4, (30720, 30720, 90)): (8, 8),
+    (4, (30720, 2048, 90)): (8, 8),
+    (8, (500, 500, 65)): (4, 4), (8, (9700, 20, 130)): (1, 4), (8, (9700, 20, 385)): (4, 4),
+    (8, (2048, 4096, 90)): (8, 8), (8, (500, 20, 90)): (1, 1), (8, (20, 20, 90)): (1, 1),
+    (8, (2048, 30720, 90)): (8, 8), (8, (30720, 30720, 90)): (8, 8),
+    (8, (30720, 2048, 90)): (8, 8), (8, (500, 500, 40)): (4, 4),
+}
+
+
+@pytest.mark.parametrize("elem,shape", sorted(FWD_DCHUNK_TILES))
+def test_fwd_dchunk_plan_takes_the_timed_thread_tile(elem, shape):
+    plan = _fd_case(*shape, elem)
+    assert gram_cuda.FD_TILES[plan.tile] == FWD_DCHUNK_TILES[(elem, shape)]
+
+
+def test_fwd_dchunk_plan_constants_match_the_kernel_source():
+    src = (_build.CSRC_DIR / "gram.cu").read_text()
+    rows = re.search(r"constexpr int kFdRows\[kFdTiles\] = \{([^}]*)\};", src).group(1)
+    cols = re.search(r"constexpr int kFdCols\[kFdTiles\] = \{([^}]*)\};", src).group(1)
+    assert tuple(zip(map(int, rows.split(",")), map(int, cols.split(",")))) == gram_cuda.FD_TILES
+    assert int(re.search(r"constexpr int kFdTiles = (\d+);", src).group(1)) == len(
+        gram_cuda.FD_TILES)
+    # The shared memory the plan counts is the kernel's layout.
+    body = src[src.index("__host__ __device__ inline FdSmem fd_smem("):]
+    body = body[:body.index("\n}\n")]
+    for line in ("const int stages = (d + kc - 1) / kc;",
+                 "s.nb = (kc + 2 * V - 2) / V;", "s.pr = s.nb * V;",
+                 "while (s.pr * E % 64 != 32) s.pr += V;", "s.ps = (rt + 3) / 4 * 4;",
+                 "while (s.ps * E % 128 != 16) s.ps += V;", "s.px = (ct + 3) / 4 * 4;",
+                 "while (s.px * E % 128 != 16) s.px += V;",
+                 "const int ring = xs_raw ? 4 : 3;", "s.nraw = stages < ring ? stages : ring;",
+                 "s.ntr = stages < 2 ? stages : 2;",
+                 "s.raw = ((rt + 3) / 4 + (ct + 3) / 4) * 4 * s.pr;",
+                 "s.tr = kc * ((xs_raw ? 0 : s.ps) + s.px);",
+                 "s.total = s.nraw * s.raw + s.ntr * s.tr;"):
+        assert line in body, line
+    # The thread tile's cells, as _fd_thread_cells emulates them.
+    kernel = src[src.index("gram_fwd_kernel_dchunk(const T* __restrict__ xs"):]
+    kernel = kernel[:kernel.index("\n}\n")]
+    for line in ("const int ri = (i / RW) * RW * ty_n + RW * ty + i % RW;",
+                 "const int c0 = h * CW * tx_n + CW * tx;",
+                 "const int i0 = blockIdx.x * rt;", "const int j0 = blockIdx.y * ct;",
+                 "load_w<RW>(xt + k * lay.ps + g * RW * ty_n, a + g * RW);",
+                 "if constexpr (kXsRaw) a[0] = xt[k];", "constexpr bool kXsRaw = RT == 1;",
+                 "load_w<CW>(pt + k * lay.px + h * CW * tx_n, b + h * CW);",
+                 "const T t = a[i] - b[j];", "d2[i][j] = fma_t(t, t, d2[i][j]);"):
+        assert line in kernel, line
+    # The register budget the plan's residency assumes: 4 / 4 / 2 blocks of
+    # 256 threads an SM in fp32, 2 / 2 / 1 in fp64.
+    assert ("__launch_bounds__(kThreads, (sizeof(T) == 4 ? 2 : 1) * (RT * CT >= 16 ? 1 : 2))"
+            in src)
+    assert "const size_t smem = fd_smem<T>(rt, ct, kc, d, RT == 1).total * sizeof(T);" in src
+    for elem, regs in gram_cuda._FD_REGS.items():
+        for (rt, ct), r in zip(gram_cuda.FD_TILES, regs):
+            blocks = (2 if elem == 4 else 1) * (1 if rt * ct >= 16 else 2)
+            assert r == min(255, 65536 // (THREADS * blocks))
+    assert gram_cuda.FD_TWO_A_SM == (gram_cuda.SM_SMEM - 2 * 1024) // 2
+    # The entry points' arguments, as _build declares them.
+    for name in ("gram_fwd_dchunk", "gram_fwd_dchunk_f64"):
+        entry = src[src.index(f"int {name}(const"):]
+        entry = entry[:entry.index(")")]
+        assert entry.count(",") + 1 == len(_build.SIGNATURES[name])
+    # gram_fwd's own build takes d up to the chunk only.
+    assert "d > Elem<float>::kDChunk" in src and "d > Elem<double>::kDChunk" in src
+    assert "kChunk" not in src.replace("kDChunk", "")
+
+
+def _fwd_dchunk_emulated(xs, xps, sig, plan):
+    """The d-chunked forward in plain PyTorch: each pair's squared distance
+    summed over the stages in order and, in a stage, over its features in
+    ascending k, each term an fma of the difference (the product exact in
+    float64, the sum rounded once to the inputs' type); K = sig * exp(-d2 /
+    2); each block's tile written through the kernel's thread cells."""
+    n, d = xs.shape
+    m = xps.shape[0]
+    d2 = torch.zeros((n, m), dtype=xs.dtype)
+    for c in range(plan.stages):
+        for k in range(c * plan.stage, min(d, (c + 1) * plan.stage)):
+            t = (xs[:, k:k + 1] - xps[:, k][None, :]).double()
+            d2 = (t * t + d2.double()).to(xs.dtype)
+    val = sig * torch.exp(-0.5 * d2)
+    K = torch.full((n, m), float("nan"), dtype=xs.dtype)
+    ri, cj = (torch.as_tensor(a.ravel()) for a in _fd_thread_cells(plan))
+    for i0 in range(0, n, plan.row_tile):
+        for j0 in range(0, m, plan.col_tile):
+            keep = (i0 + ri < n) & (j0 + cj < m)
+            r, c = i0 + ri[keep], j0 + cj[keep]
+            K[r, c] = val[r, c]
+    return K
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n,m,d,sms", [(96, 20, 90, H100_SMS), (300, 300, 65, H100_SMS),
+                                       (257, 33, 130, 8), (40, 70, 385, H100_SMS),
+                                       (20, 20, 90, H100_SMS)])
+def test_fwd_dchunk_emulation_matches_plain_and_jax(dtype, n, m, d, sms):
+    """The d-chunked forward's sums under the plan and every candidate
+    tiling, against gram_fwd_plain (fp32 at 2e-5, chip_smoke.py's FWD_ATOL:
+    the plain cross-term form's cancellation; fp64 1e-12) and JAX's
+    ard_gram and the Pallas Gram in interpret mode on the pre-scaled inputs
+    (zero log lengths), as JAX's own tests run them, at 2e-5 (the Pallas
+    Gram computes in float32); at a square shape (xps = xs) exactly
+    symmetric with an exact diagonal."""
+    rng = np.random.default_rng(n + m + d)
+    scale = np.sqrt(8.0 / d)
+    xs = (rng.uniform(-1, 1, (n, d)) * scale).astype(dtype)
+    xps = xs.copy() if n == m else (rng.uniform(-1, 1, (m, d)) * scale).astype(dtype)
+    sig = np.asarray(np.e, dtype)
+    tx = [torch.tensor(a) for a in (xs, xps, sig)]
+    elem = np.dtype(dtype).itemsize
+    want = gram_cuda.gram_fwd_plain(*tx)
+    assert want.min() < 0.5 * want.max()  # K spans a range at this width
+    tol = 2e-5 if dtype == np.float32 else 1e-12
+    with jax.enable_x64(dtype == np.float64):
+        jx = np.asarray(jax_ard_gram(jnp.asarray(xs), jnp.asarray(xps), jnp.log(sig),
+                                     jnp.zeros(d, dtype)))
+    pallas = np.asarray(_pallas_gram_scaled(jnp.asarray(xs.astype(np.float32)),
+                                            jnp.asarray(xps.astype(np.float32)),
+                                            jnp.float32(sig), interpret=True))
+    plans = {p for _, p in gram_cuda.fwd_dchunk_candidates(n, m, d, sms, elem=elem)}
+    assert gram_cuda.fwd_dchunk_plan(n, m, d, sms, elem=elem) in plans
+    for plan in sorted(plans):
+        got = _fwd_dchunk_emulated(*tx, plan)
+        assert torch.isfinite(got).all(), plan  # every cell written
+        assert (got - want).abs().max() <= tol, plan
+        assert np.abs(got.numpy() - jx).max() <= 2e-5, plan
+        assert np.abs(got.numpy().astype(np.float32) - pallas).max() <= 2e-5, plan
+        if n == m:
+            assert torch.equal(got, got.T)
+            assert torch.equal(torch.diagonal(got), torch.full((n,), float(sig), dtype=got.dtype))
