@@ -1,0 +1,7 @@
+"""Device milliseconds a step in GEMMs (cuBLAS) of the large-n cores."""
+
+from gpbench.metrics._exact import kind_ms_per_step
+
+
+def read(data):
+    return kind_ms_per_step(data, "gemm")
