@@ -46,6 +46,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from gpscore_torch.ops import gram_cuda
+from gpscore_torch.utils import profiling
 from gpscore_torch.utils.params import GPParams, batch_size
 from gpscore_torch.utils.precision import get_matmul_mode, matmul_mode
 
@@ -172,7 +173,7 @@ def _replay(step: Callable[[], None], iters: int, device, generator) -> None:
         side = _capture_stream(device)
         side.wait_stream(current)
         warm = min(GRAPH_WARMUP, iters)
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), profiling.span("fit.eager", device, steps=warm):
             for _ in range(warm):
                 step()
         current.wait_stream(side)
@@ -187,7 +188,7 @@ def _replay(step: Callable[[], None], iters: int, device, generator) -> None:
         # context: on its way in that one synchronizes the device and empties
         # the allocator's cache (and may collect garbage), which every fit of
         # a sweep would pay again, itself and in the allocations after it.
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), profiling.span("fit.capture"):
             graph.capture_begin()
             try:
                 step()
@@ -199,19 +200,28 @@ def _replay(step: Callable[[], None], iters: int, device, generator) -> None:
         gram_cuda.add_launches(per_step, replays - 1)
 
 
-def _run(step: Callable[[], None], iters: int, device, graph: Optional[bool], generator) -> None:
-    """``iters`` calls of ``step``, replayed from a CUDA graph or eager.
-    ``graph=None``: replayed when ``device`` is a card and ``iters`` reaches
-    GRAPH_MIN_ITERS."""
+def _fit_attrs(loss_fn, batch: Optional[int] = None) -> dict:
+    """The ``fit`` span's attributes that the caller knows: the objective's
+    name and the batch of restarts."""
+    return {"objective": getattr(loss_fn, "__name__", type(loss_fn).__name__), "batch": batch}
+
+
+def _run(step: Callable[[], None], iters: int, device, graph: Optional[bool], generator,
+         attrs: dict) -> None:
+    """``iters`` calls of ``step``, replayed from a CUDA graph or eager, as one
+    ``fit`` span with ``attrs`` (:func:`_fit_attrs`). ``graph=None``: replayed
+    when ``device`` is a card and ``iters`` reaches GRAPH_MIN_ITERS."""
     if graph is None:
         graph = device.type == "cuda" and iters >= GRAPH_MIN_ITERS
     elif graph and device.type != "cuda":
         raise ValueError(f"graph=True replays a CUDA graph; the data is on {device}")
-    if graph:
-        _replay(step, iters, device, generator)
-    else:
-        for _ in range(iters):
-            step()
+    with profiling.span("fit", iters=iters, graph=graph, **attrs):
+        if graph:
+            _replay(step, iters, device, generator)
+        else:
+            with profiling.span("fit.eager", device, steps=iters):
+                for _ in range(iters):
+                    step()
 
 
 def fit_gd(
@@ -323,7 +333,7 @@ def _gd(loss_fn, params, x, y, iters, lr, lr_inducing, generator, skip_nonfinite
                 upd = t - rates[f] * g
                 t.copy_(torch.where(buf.per_leaf(finite, t), upd, t) if skip_nonfinite else upd)
 
-    _run(step, iters, x.device, graph, generator)
+    _run(step, iters, x.device, graph, generator, _fit_attrs(loss_fn, batch))
     param_history = None if buf.history is None else params.replace(**buf.history)
     ok = torch.any(torch.isfinite(buf.losses), dim=-1)
     return FitResult(buf.final(params), buf.losses, ok, param_history, stall)
@@ -494,7 +504,7 @@ def fit_optim(
             t.grad = g
         opt.step()
 
-    _run(step, iters, x.device, graph, generator)
+    _run(step, iters, x.device, graph, generator, _fit_attrs(loss_fn))
     for t in leaves:
         t.grad = None
     ok = torch.any(torch.isfinite(buf.losses))

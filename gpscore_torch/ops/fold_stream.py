@@ -66,6 +66,7 @@ from __future__ import annotations
 import torch
 
 from gpscore_torch.ops import linalg, loo_fused
+from gpscore_torch.utils import profiling
 from gpscore_torch.utils.precision import TWO_BYTE, matmul, matmul_acc32, upcast
 
 
@@ -191,19 +192,22 @@ class ArdFoldStatsStream(torch.autograd.Function):
     def forward(ctx, log_signal_sq, log_length, log_noise_sq, x, y, fold_k, want_inv_diag,
                 block):
         nb = _check_folds(x.shape[0], fold_k)
-        saved, _ = loo_fused._forward(ctx, log_signal_sq, log_length, log_noise_sq, x, y, block)
-        Kinv, a = saved[:2]
-        e = a.new_empty((fold_k, nb))
-        hld = a.new_empty((fold_k,))
-        inv_diag = a.new_zeros((fold_k, nb))
-        for f in range(fold_k):
-            s = slice(f * nb, (f + 1) * nb)
-            e[f], hld[f], d = _fold_stats(upcast(Kinv[s, s]), a[s], want_inv_diag)
-            if want_inv_diag:
-                inv_diag[f] = d
-        ctx.fold_k, ctx.want_inv_diag = fold_k, want_inv_diag
-        ctx.save_for_backward(*saved, e)
-        return e, hld, inv_diag, a
+        with profiling.span("core.forward", x.device, core="fold_stats", n=x.shape[0],
+                            block=block):
+            saved, _ = loo_fused._forward(ctx, log_signal_sq, log_length, log_noise_sq, x, y,
+                                          block)
+            Kinv, a = saved[:2]
+            e = a.new_empty((fold_k, nb))
+            hld = a.new_empty((fold_k,))
+            inv_diag = a.new_zeros((fold_k, nb))
+            for f in range(fold_k):
+                s = slice(f * nb, (f + 1) * nb)
+                e[f], hld[f], d = _fold_stats(upcast(Kinv[s, s]), a[s], want_inv_diag)
+                if want_inv_diag:
+                    inv_diag[f] = d
+            ctx.fold_k, ctx.want_inv_diag = fold_k, want_inv_diag
+            ctx.save_for_backward(*saved, e)
+            return e, hld, inv_diag, a
 
     @staticmethod
     def backward(ctx, e_bar, hld_bar, d_bar, a_bar):
@@ -213,7 +217,8 @@ class ArdFoldStatsStream(torch.autograd.Function):
             return _stats_fold_cot(A, e[f], e_bar[f], hld_bar[f],
                                    d_bar[f] if ctx.want_inv_diag else None, ctx.block)
 
-        s_bar, l_bar, n_bar, w = _stream_folds(ctx, a_bar.clone(), fold_cot)
+        with profiling.span("core.backward", e.device, core="fold_stats", passes=ctx.fold_k):
+            s_bar, l_bar, n_bar, w = _stream_folds(ctx, a_bar.clone(), fold_cot)
         return s_bar, l_bar, n_bar, None, w, None, None, None
 
 
@@ -224,18 +229,20 @@ class ArdFoldEsStream(torch.autograd.Function):
     def forward(ctx, log_signal_sq, log_length, log_noise_sq, x, y, eps, fold_k, num_sim, beta,
                 block):
         nb = _check_folds(x.shape[0], fold_k)
-        saved, _ = loo_fused._forward(ctx, log_signal_sq, log_length, log_noise_sq, x, y, block)
-        Kinv, a = saved[:2]
-        if Kinv.dtype in TWO_BYTE:
-            eps = eps.to(Kinv.dtype).to(eps.dtype)  # the normals in the storage dtype
-        e = a.new_empty((fold_k, nb))
-        scores = a.new_empty((fold_k,))
-        for f in range(fold_k):
-            s = slice(f * nb, (f + 1) * nb)
-            scores[f], e[f] = _fold_es(upcast(Kinv[s, s]), a[s], eps[f], num_sim, beta)
-        ctx.fold_k, ctx.num_sim, ctx.beta = fold_k, num_sim, beta
-        ctx.save_for_backward(*saved, e, eps)
-        return scores
+        with profiling.span("core.forward", x.device, core="fold_es", n=x.shape[0], block=block):
+            saved, _ = loo_fused._forward(ctx, log_signal_sq, log_length, log_noise_sq, x, y,
+                                          block)
+            Kinv, a = saved[:2]
+            if Kinv.dtype in TWO_BYTE:
+                eps = eps.to(Kinv.dtype).to(eps.dtype)  # the normals in the storage dtype
+            e = a.new_empty((fold_k, nb))
+            scores = a.new_empty((fold_k,))
+            for f in range(fold_k):
+                s = slice(f * nb, (f + 1) * nb)
+                scores[f], e[f] = _fold_es(upcast(Kinv[s, s]), a[s], eps[f], num_sim, beta)
+            ctx.fold_k, ctx.num_sim, ctx.beta = fold_k, num_sim, beta
+            ctx.save_for_backward(*saved, e, eps)
+            return scores
 
     @staticmethod
     def backward(ctx, s_bar):
@@ -244,7 +251,8 @@ class ArdFoldEsStream(torch.autograd.Function):
         def fold_cot(f, A):
             return _es_fold_cot(A, e[f], eps[f], s_bar[f], ctx.num_sim, ctx.beta)
 
-        s_bar_, l_bar, n_bar, w = _stream_folds(ctx, torch.zeros_like(a), fold_cot)
+        with profiling.span("core.backward", a.device, core="fold_es", passes=ctx.fold_k):
+            s_bar_, l_bar, n_bar, w = _stream_folds(ctx, torch.zeros_like(a), fold_cot)
         return s_bar_, l_bar, n_bar, None, w, None, None, None, None, None
 
 

@@ -47,6 +47,7 @@ import math
 import torch
 
 from gpscore_torch.ops import gram_cuda, linalg, potri_inplace
+from gpscore_torch.utils import profiling
 from gpscore_torch.utils.precision import (TWO_BYTE, matmul, matmul_acc32, storage_dtype,
                                            upcast)
 
@@ -176,22 +177,24 @@ class ArdLooSolveDiag(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, log_signal_sq, log_length, log_noise_sq, x, y, block):
-        saved, _ = _forward(ctx, log_signal_sq, log_length, log_noise_sq, x, y, block)
-        ctx.save_for_backward(*saved)
-        Kinv, a = saved[:2]
-        return a, upcast(torch.diagonal(Kinv)).clone()
+        with profiling.span("core.forward", x.device, core="loo", n=x.shape[0], block=block):
+            saved, _ = _forward(ctx, log_signal_sq, log_length, log_noise_sq, x, y, block)
+            ctx.save_for_backward(*saved)
+            Kinv, a = saved[:2]
+            return a, upcast(torch.diagonal(Kinv)).clone()
 
     @staticmethod
     def backward(ctx, a_bar, d_bar):
         Kinv = ctx.saved_tensors[0]
-        w = _w(Kinv, a_bar)
 
         def extra_rows(Kinv_b):  # rows of -K^-1 diag(d_bar) K^-1
             # The left factor in K^-1's dtype: a 2-byte one rounded once, no fp32 block.
             M = torch.mul(Kinv_b, d_bar[None, :], out=torch.empty_like(Kinv_b))
             return matmul_acc32(M, Kinv).neg_()
 
-        s_bar, l_bar, n_bar = _backward(ctx, w, extra_rows)
+        with profiling.span("core.backward", Kinv.device, core="loo", passes=1):
+            w = _w(Kinv, a_bar)
+            s_bar, l_bar, n_bar = _backward(ctx, w, extra_rows)
         return s_bar, l_bar, n_bar, None, w, None
 
 
@@ -205,17 +208,17 @@ class ArdKfoldSolveBlocks(torch.autograd.Function):
         n = x.shape[0]
         if n % fold_k:
             raise ValueError(f"n={n} not divisible by fold_k={fold_k}")
-        saved, _ = _forward(ctx, log_signal_sq, log_length, log_noise_sq, x, y, block)
-        ctx.save_for_backward(*saved)
-        ctx.fold_k = fold_k
-        Kinv, a = saved[:2]
-        return a, upcast(linalg._fold_blocks(Kinv, fold_k)).contiguous()
+        with profiling.span("core.forward", x.device, core="kfold", n=x.shape[0], block=block):
+            saved, _ = _forward(ctx, log_signal_sq, log_length, log_noise_sq, x, y, block)
+            ctx.save_for_backward(*saved)
+            ctx.fold_k = fold_k
+            Kinv, a = saved[:2]
+            return a, upcast(linalg._fold_blocks(Kinv, fold_k)).contiguous()
 
     @staticmethod
     def backward(ctx, a_bar, A_bar):
         Kinv = ctx.saved_tensors[0]
         n, k = Kinv.shape[0], ctx.fold_k
-        w = _w(Kinv, a_bar)
         st = Kinv.dtype
         A_st = A_bar.to(st)
 
@@ -230,7 +233,9 @@ class ArdKfoldSolveBlocks(torch.autograd.Function):
                            for f in range(k)], dim=1)
             return matmul_acc32(M.to(st), Kinv).neg_()
 
-        s_bar, l_bar, n_bar = _backward(ctx, w, extra_rows)
+        with profiling.span("core.backward", Kinv.device, core="kfold", passes=1):
+            w = _w(Kinv, a_bar)
+            s_bar, l_bar, n_bar = _backward(ctx, w, extra_rows)
         return s_bar, l_bar, n_bar, None, w, None, None
 
 
@@ -241,10 +246,12 @@ class ArdNlml(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, log_signal_sq, log_length, log_noise_sq, x, y, block):
-        saved, hld = _forward(ctx, log_signal_sq, log_length, log_noise_sq, x, y, block,
-                              half_logdet=True)
-        ctx.save_for_backward(*saved)
-        return 0.5 * x.shape[0] * math.log(2.0 * math.pi) + hld + 0.5 * torch.dot(y, saved[1])
+        with profiling.span("core.forward", x.device, core="nlml", n=x.shape[0], block=block):
+            saved, hld = _forward(ctx, log_signal_sq, log_length, log_noise_sq, x, y, block,
+                                  half_logdet=True)
+            ctx.save_for_backward(*saved)
+            return (0.5 * x.shape[0] * math.log(2.0 * math.pi) + hld
+                    + 0.5 * torch.dot(y, saved[1]))
 
     @staticmethod
     def backward(ctx, v_bar):
@@ -256,7 +263,8 @@ class ArdNlml(torch.autograd.Function):
                 return Kinv_b.float().mul_(half)
             return half * Kinv_b
 
-        s_bar, l_bar, n_bar = _backward(ctx, half * a, extra_rows)
+        with profiling.span("core.backward", a.device, core="nlml", passes=1):
+            s_bar, l_bar, n_bar = _backward(ctx, half * a, extra_rows)
         return s_bar, l_bar, n_bar, None, v_bar * a, None
 
 

@@ -17,7 +17,7 @@ from gpscore_torch.utils.precision import (
     matmul_crit,
     set_matmul_mode,
 )
-from gpscore_torch.utils.profiling import timed, trace
+from gpscore_torch.utils.profiling import trace
 
 __all__ = [
     "load_metrics",
@@ -38,6 +38,5 @@ __all__ = [
     "set_matmul_mode",
     "matmul",
     "matmul_crit",
-    "timed",
     "trace",
 ]

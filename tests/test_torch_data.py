@@ -161,21 +161,6 @@ def test_init_json_is_plain_float32_values():
     assert raw["log_signal_sq"] == raw["log_noise_sq"] == 1.0
 
 
-def test_timed_gives_seconds_per_call_and_the_last_result():
-    from gpscore_torch.utils import timed
-
-    calls = []
-
-    def fn(a, b):
-        calls.append(a)
-        return a @ b
-
-    a = torch.ones(8, 8)
-    seconds, out = timed(fn, a, a, warmup=2, repeats=3)
-    assert len(calls) == 5 and seconds > 0.0
-    assert torch.equal(out, a @ a)
-
-
 def test_trace_writes_a_chrome_trace_and_yields_the_profiler(tmp_path):
     from gpscore_torch.utils import trace
     from gpscore_torch.utils.profiling import device_events
