@@ -423,15 +423,22 @@ SMALL_LARGE = [(2048, 512), (2000, 512)]  # (n, block) against the CPU; 2000 is 
 LARGE_LOSS_RTOL = 1e-4
 # Gradients, relative to each leaf's largest entry, per leaf. The log-signal
 # gradient of crps is -8.1e-4 at step 0, beside a log-noise gradient of 0.19:
-# the error of an fp32 K_hat^-1 is 7.1e-3 (fused) and 6.1e-3 (dense) of that
-# small leaf, 3e-5 of the log-noise one. Its O(n) closed form
-# (closed_form_log_signal) reads no nearer, 8.2e-3: it subtracts the
-# log-noise gradient. The other
-# leaves read <= 2.4e-4.
+# the error of an fp32 K_hat^-1 is 6.1e-3 (dense) of that small leaf, 3e-5 of
+# the log-noise one; the sharded fused step reads up to 7.0e-3. Its O(n)
+# closed form (closed_form_log_signal) reads 2.5e-3: it subtracts the
+# log-noise gradient. The other leaves read <= 2.4e-4.
 F64_GRAD_RTOL = {"log_signal_sq": 1e-2, "log_length": 1e-3, "log_noise_sq": 1e-3}
-# Fused against dense: that shared log-signal error leaves them 1.0e-3 apart
-# for crps (2.4e-4 for nlml); the float64 check above is the accuracy check.
+# The single-device fused step sums its backward products in chunks of the
+# inner dimension (precision.matmul_split_k): its crps log-signal gradient
+# reads 1.4e-3 off float64. The dense path is held to F64_GRAD_RTOL.
+FUSED_F64_GRAD_RTOL = {**F64_GRAD_RTOL, "log_signal_sq": 3e-3}
+# Fused against dense: loss, and gradient on these leaves. crps's log-signal
+# leaf is left to the float64 checks, which bound both paths on it: the fused
+# step reads 1.4e-3 there and the dense 6.1e-3, 4.6e-3 apart; its other
+# leaves read 8.5e-4 apart, nlml's 2.4e-4.
 LARGE_GRAD_RTOL = 2e-3
+LARGE_GRAD_LEAVES = {"crps": ("log_length", "log_noise_sq"),
+                     "nlml": ("log_signal_sq", "log_length", "log_noise_sq")}
 # The Cholesky factor of K_hat against float64: cuSOLVER's potrf reads
 # 4.6e-6, the in-place one 4.9e-6 (6.8e-5 when its left update was one GEMM
 # over all earlier columns).
@@ -1336,25 +1343,30 @@ def phase_large_n(dev):
         with fused_from(n + 1):  # the dense path: K, the Cholesky and K^-1 materialized
             (vd, gd), peak_d = peak_of(lambda: vg(loss, p0, x, y))
         (vf, gf), peak_f = peak_of(lambda: vg(loss, p0, x, y))
-        rel, g_rel = abs(float(vf) - float(vd)) / abs(float(vd)), grad_rel(gf, gd)
-        log(f"[large_n] {rule} step 0: fused {float(vf):.7g} vs dense {float(vd):.7g}, loss rel "
-            f"{rel:.3g} (tol {LARGE_LOSS_RTOL}), grad rel {g_rel:.3g} (tol {LARGE_GRAD_RTOL}); "
-            f"peak memory of the step, n^2 * 4 B: fused {peak_f / n2:.3f}, dense {peak_d / n2:.3f}")
         torch.cuda.empty_cache()
         v64, g64 = f64_step0(rule, x, y, p0)
         near = {k: (abs(float(v) - v64) / abs(v64),
                     {f: grad_rel({f: g[f]}, {f: g64[f]}) for f in g64})
                 for k, v, g in (("fused", vf, gf), ("dense", vd, gd))}
+        leaves = LARGE_GRAD_LEAVES[rule]
+        rel = abs(float(vf) - float(vd)) / abs(float(vd))
+        g_rel = grad_rel({f: gf[f] for f in leaves}, {f: gd[f] for f in leaves})
+        log(f"[large_n] {rule} step 0: fused {float(vf):.7g} vs dense {float(vd):.7g}, loss rel "
+            f"{rel:.3g} (tol {LARGE_LOSS_RTOL}), grad rel over {', '.join(leaves)} {g_rel:.3g} "
+            f"(tol {LARGE_GRAD_RTOL}); peak memory of the step, n^2 * 4 B: fused "
+            f"{peak_f / n2:.3f}, dense {peak_d / n2:.3f}")
         log(f"[large_n] {rule} step 0 against float64 (loss {v64:.10g}, log-signal gradient "
             f"{float(g64['log_signal_sq']):.6g}, log-noise {float(g64['log_noise_sq']):.6g}): "
             + "; ".join(
             f"{k} loss rel {lr_:.3g}, grad rel by leaf "
             + ", ".join(f"{f} {e:.3g}" for f, e in ge.items()) for k, (lr_, ge) in near.items())
-            + f" (tol {LARGE_LOSS_RTOL}, {F64_GRAD_RTOL} for fused)")
+            + f" (tol {LARGE_LOSS_RTOL}; grads {FUSED_F64_GRAD_RTOL} fused, {F64_GRAD_RTOL} "
+            f"dense)")
         assert rel <= LARGE_LOSS_RTOL and g_rel <= LARGE_GRAD_RTOL, (rule, rel, g_rel)
-        lr_, ge = near["fused"]
-        assert lr_ <= LARGE_LOSS_RTOL and all(e <= F64_GRAD_RTOL[f] for f, e in ge.items()), \
-            (rule, lr_, ge)
+        for k, tol in (("fused", FUSED_F64_GRAD_RTOL), ("dense", F64_GRAD_RTOL)):
+            lr_, ge = near[k]
+            assert lr_ <= LARGE_LOSS_RTOL and all(e <= tol[f] for f, e in ge.items()), \
+                (rule, k, lr_, ge)
         if rule == "crps":
             assert peak_f <= PEAK_LIMIT_N2 * n2, (peak_f / n2, PEAK_LIMIT_N2)
         streamed[rule], g64s[rule] = gf, g64

@@ -82,7 +82,9 @@ def step_flop(rule: str, n: int, fold_k: int = 4) -> float:
     and for a fold rule 2 n^3 (1 + 1/k): per fold and row block a
     [b, nb] x [nb, nb] and a [b, nb] x [nb, n] GEMM (the folds' own
     factorizations, O(n^3 / k^2), are left out). The NLML backward has no
-    n^3 term."""
+    n^3 term. The count is that of full rows: the backward streams the lower
+    block-triangle (``ops/loo_fused.py``), so its second GEMM executes
+    ~n^3 (1 + b/n) of the 2 n^3 counted."""
     n3 = float(n) ** 3
     if rule == "nlml":
         return n3

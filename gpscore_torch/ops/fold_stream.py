@@ -22,9 +22,10 @@ at a time off the n x n inverse, in a Python loop over fold numbers:
       K_hat_bar = -w a^T - sum_f K^-1[:, f] A_bar_f K^-1[f, :],   w = K^-1 a_bar
 
   through :func:`~gpscore_torch.ops.loo_fused._stream_param_grads`: per row
-  block two GEMMs ([b, nb] x [nb, nb], then [b, nb] x [nb, n], the second
-  operand a view of the symmetric K^-1's rows) and the two Gram backward
-  kernels. A_bar_f is freed before the next fold. a_bar is complete only
+  block [r0, r1) two GEMMs ([b, nb] x [nb, nb], then [b, nb] x [nb, r1], the
+  second operand a view of the symmetric K^-1's rows: the lower
+  block-triangle, as in the LOO core) and the two Gram backward kernels.
+  A_bar_f is freed before the next fold. a_bar is complete only
   after the last fold's u (below), so the rank-1 term -w a^T rides the last
   fold's pass. The Gram backward kernels run once per fold and row block:
   k times the LOO family's launches, the price of not holding k cotangents.
@@ -40,8 +41,12 @@ e_bar, hld_bar, d_bar of the outputs (`gpscore/ops/fold_core.py:332-427`):
 
 Z_bar and e_bar of the es core come from autograd of the O(nb S) score
 arithmetic alone. The contraction reads only the symmetric part of A_bar
-(dK_hat/dtheta is symmetric), so neither u e^T nor T is symmetrized, as the
-JAX module does for its stored cotangent.
+(dK_hat/dtheta is symmetric). The single-device backward streams the lower
+block-triangle, which reads that part alone, so its fold cotangents are made
+symmetric first: u e^T enters as (u e^T + e u^T) / 2, and the es core's
+A_bar is symmetrized in place, one [b, b] tile pair at a time. The sharded
+backward (:mod:`gpscore_torch.parallel.sharded_fold_stream`) streams full
+rows and takes the cotangents as they are.
 
 Blocks of nb^2 live beside K^-1, at most: the forward holds one (the factor;
 two with ``want_inv_diag``), the dss backward two while it forms A^-1, the kc
@@ -137,6 +142,18 @@ def _fold_es(A, a_f, eps_f, num_sim: int, beta: float):
     return _es_from_cols(zT, e, num_sim, beta), e
 
 
+def _symmetrize_(S, tile: int):
+    """S <- (S + S^T) / 2 in place, one [tile, tile] transient at a time."""
+    m = S.shape[0]
+    for i0 in range(0, m, tile):
+        for j0 in range(0, i0 + 1, tile):
+            lo, up = S[i0:i0 + tile, j0:j0 + tile], S[j0:j0 + tile, i0:i0 + tile]
+            t = torch.add(lo, up.mT).mul_(0.5)
+            lo.copy_(t)
+            up.copy_(t.mT)
+    return S
+
+
 def _es_fold_cot(A, e_f, eps_f, s_bar_f, num_sim: int, beta: float):
     """(-A_bar_f, u) of one fold of the es core (module docstring) from its
     fp32 block A and the forward's e_f and normals."""
@@ -174,13 +191,13 @@ def _stream_folds(ctx, a_bar, fold_cot):
         if f == k - 1:  # a_bar is complete: the rank-1 term rides this pass
             w = loo_fused._w(Kinv, a_bar)
 
-        def extra_rows(Kinv_b):  # rows of -K^-1[:, f] A_bar_f K^-1[f, :]
-            return matmul_acc32(matmul_acc32(Kinv_b[:, s], S).to(st), Kinv[s])
+        def rows_of(r0, r1):  # rows of -K^-1[:, f] A_bar_f K^-1[f, :], columns [0, r1)
+            return matmul_acc32(matmul_acc32(Kinv[r0:r1, s], S).to(st),
+                                loo_fused.lower_cols(Kinv, r1, s))
 
-        part = loo_fused._stream_param_grads(lambda r0, r1: extra_rows(Kinv[r0:r1]), w, a, xs,
-                                             sig, ctx.block)
+        part = loo_fused._stream_param_grads(rows_of, w, a, xs, sig, ctx.block)
         sums = part if sums is None else tuple(p + q for p, q in zip(sums, part))
-        del S, extra_rows  # one cotangent block live at a time
+        del S, rows_of  # one cotangent block live at a time
     return (*loo_fused._param_grads(sums, sig, log_length, log_noise_sq), w)
 
 
@@ -213,11 +230,13 @@ class ArdFoldStatsStream(torch.autograd.Function):
     def backward(ctx, e_bar, hld_bar, d_bar, a_bar):
         e = ctx.saved_tensors[6]
 
-        def fold_cot(f, A):
-            return _stats_fold_cot(A, e[f], e_bar[f], hld_bar[f],
+        def fold_cot(f, A):  # made symmetric: u e^T becomes (u e^T + e u^T) / 2
+            S, u = _stats_fold_cot(A, e[f], e_bar[f], hld_bar[f],
                                    d_bar[f] if ctx.want_inv_diag else None, ctx.block)
+            return S.addr_(u, e[f], alpha=-0.5).addr_(e[f], u, alpha=0.5), u
 
-        with profiling.span("core.backward", e.device, core="fold_stats", passes=ctx.fold_k):
+        with profiling.span("core.backward", e.device, core="fold_stats", passes=ctx.fold_k,
+                            cols="lower"):
             s_bar, l_bar, n_bar, w = _stream_folds(ctx, a_bar.clone(), fold_cot)
         return s_bar, l_bar, n_bar, None, w, None, None, None
 
@@ -248,10 +267,12 @@ class ArdFoldEsStream(torch.autograd.Function):
     def backward(ctx, s_bar):
         a, e, eps = ctx.saved_tensors[1], ctx.saved_tensors[6], ctx.saved_tensors[7]
 
-        def fold_cot(f, A):
-            return _es_fold_cot(A, e[f], eps[f], s_bar[f], ctx.num_sim, ctx.beta)
+        def fold_cot(f, A):  # made symmetric
+            S, u = _es_fold_cot(A, e[f], eps[f], s_bar[f], ctx.num_sim, ctx.beta)
+            return _symmetrize_(S, ctx.block), u
 
-        with profiling.span("core.backward", a.device, core="fold_es", passes=ctx.fold_k):
+        with profiling.span("core.backward", a.device, core="fold_es", passes=ctx.fold_k,
+                            cols="lower"):
             s_bar_, l_bar, n_bar, w = _stream_folds(ctx, torch.zeros_like(a), fold_cot)
         return s_bar_, l_bar, n_bar, None, w, None, None, None, None, None
 

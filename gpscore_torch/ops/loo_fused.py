@@ -13,17 +13,22 @@ chosen by hand:
       theta_bar = sum_ij K_hat_bar_ij dK_hat_ij / dtheta,
       K_hat_bar = -(K^-1 a_bar) a^T - K^-1 S(cot) K^-1
   with S = diag(d_bar) for LOO and blockdiag(A_bar) for k-fold, and
-  K_hat_bar = v_bar (K^-1 - a a^T) / 2 for NLML. It streams over row blocks
-  of K^-1: each block forms its rows of K_hat_bar (one [b, n] GEMM) and hands
-  them to the Gram backward kernels (``gram_bwd_rows``, ``gram_bwd_cols``)
-  as the cotangent of K(x_b, x), so neither K nor K_hat_bar exists at n x n.
-  Peak: n^2 plus a few [b, n] blocks.
+  K_hat_bar = v_bar (K^-1 - a a^T) / 2 for NLML. dK_hat/dtheta is
+  symmetric, so only the symmetric part of K_hat_bar counts: S is taken
+  symmetric and the rank-1 term as -(w a^T + a w^T) / 2. The backward
+  streams over row blocks [r0, r1) of K^-1: each block forms the lower
+  block-triangle of its rows, the columns [0, r1) (one [b, n] x [n, r1]
+  GEMM), weights the columns left of its diagonal block twice and hands the
+  [b, r1] rows to the Gram backward kernels (``gram_bwd_rows``,
+  ``gram_bwd_cols``) as the cotangent of K(x_b, x[:r1]), so neither K nor
+  K_hat_bar exists at n x n. Over all blocks the GEMM is ~n^3 (1 + b/n),
+  against 2 n^3 for full rows. Peak: n^2 plus a few [b, n] blocks.
 
 With xs = x / l the scaled inputs and, per block, (d_xs_b, rowsum_b) and
 d_xps_b the kernels' outputs (as in :class:`~gpscore_torch.ops.gram_cuda.ArdGram`):
 
     log_signal_bar = sum_b sum rowsum_b                    (= sum K_hat_bar o K)
-    log_length_bar = -sum_b (sum_i d_xs_b * xs_b + sum_j d_xps_b * xs)
+    log_length_bar = -sum_b (sum_i d_xs_b * xs_b + sum_j d_xps_b * xs[:r1])
     log_noise_bar  = exp(log_noise_sq) * trace(K_hat_bar)
 
 The gradients go to the three log-parameters and to y; x gets none, as in
@@ -33,11 +38,12 @@ Precision (:mod:`gpscore_torch.utils.precision`): the forward runs at
 ``storage_dtype()``, so in the "bf16"/"f16" modes K^-1 is a 2-byte n x n
 buffer (`loo_fused.py:127-141`). Everything of size O(n) stays fp32: a =
 matmul_acc32(K^-1, y rounded to the storage dtype), the diagonal upcast. The
-backward's [b, n] products read K^-1 through ``matmul_acc32`` with the
+backward's [b, r1] products read K^-1 through ``matmul_acc32`` with the
 left operand rounded to the storage dtype (`:380-384`), so the cotangent
 rows that reach the Gram backward kernels are fp32 in every mode
 (`:169-172`). In "high"/"fast" the products are the modes' TF32 passes on the
-fp32 K^-1, split one [n, 1024] column panel of K^-1 at a time.
+fp32 K^-1, split one [n, 1024] column panel of K^-1 at a time; in "highest"
+their inner dimension is summed in chunks (``matmul_split_k``).
 """
 
 from __future__ import annotations
@@ -48,13 +54,18 @@ import torch
 
 from gpscore_torch.ops import gram_cuda, linalg, potri_inplace
 from gpscore_torch.utils import profiling
-from gpscore_torch.utils.precision import (TWO_BYTE, matmul, matmul_acc32, storage_dtype,
-                                           upcast)
+from gpscore_torch.utils.precision import (TWO_BYTE, acc_dtype, matmul_acc32, matmul_split_k,
+                                           storage_dtype, upcast)
 
 # ~4 fp32 [n, block] temporaries are live at the backward's peak (the K^-1
 # row block scaled by the cotangent, its product with K^-1, and the kernels'
 # inputs), next to the n^2 inverse.
 _STREAM_TEMP_ROWS = 4
+
+# Row blocks the streamed passes have handed to the Gram backward, by path:
+# "lower" the single-device cores' columns [0, r1), "full" the sharded
+# backward's rows over a rank's columns (:func:`_stream_param_grads`).
+STREAM_BLOCKS = {"lower": 0, "full": 0}
 
 # The JAX package also keeps a second, non-in-place forward below its
 # _INPLACE_MIN_N = 8192 (`loo_fused.py:68`), chosen by a TPU measurement. The
@@ -98,31 +109,45 @@ def _resolve_block(x, block) -> int:
 
 def _stream_param_grads(rows_of, w, a, xs, sig, block: int, xs_cols=None, col0: int = 0):
     """(log_signal_bar, log_length_bar [d], trace(K_hat_bar)) of one streamed
-    pass: the rows of K_hat_bar for a row block [r0, r1) are
-    ``rows_of(r0, r1)`` (a fresh tensor, updated in place), minus
-    ``w[r0:r1] a^T`` unless ``w`` is None, and go through the Gram backward
-    kernels with the block's scaled inputs. The columns are all of them
-    (``xs_cols`` None), or those of the scaled inputs ``xs_cols`` from column
-    ``col0`` on, ``a`` then being a's entries there: a rank's columns in the
-    sharded backward, whose partial sums the caller all-reduces. A backward
-    of several passes (one per fold) adds their sums."""
+    pass over row blocks [r0, r1). ``rows_of(r0, r1)`` gives the block's rows
+    of a symmetric term of K_hat_bar (a fresh tensor, updated in place); the
+    pass adds the rank-1 term -w a^T unless ``w`` is None, and hands the rows
+    to the Gram backward kernels with the block's scaled inputs.
+
+    On one device (``xs_cols`` None) ``rows_of`` gives the columns [0, r1)
+    alone: the lower block-triangle. dK_hat/dtheta is symmetric, so the
+    contraction reads only the symmetric part of K_hat_bar; the pass enters
+    the rank-1 term as -(w a^T + a w^T) / 2 and weights the columns left of
+    the diagonal block twice. Otherwise the columns are those of the scaled
+    inputs ``xs_cols`` from column ``col0`` on, ``a`` then being a's entries
+    there: a rank's full rows in the sharded backward, whose partial sums the
+    caller all-reduces. A backward of several passes (one per fold) adds
+    their sums; ``STREAM_BLOCKS`` counts the blocks by path."""
     n = xs.shape[0]
-    xs_cols = xs if xs_cols is None else xs_cols
+    lower = xs_cols is None
     sig_bar = a.new_zeros(())
     len_bar = xs.new_zeros((xs.shape[1],))
     trace = a.new_zeros(())
     for r0 in range(0, n, block):
         r1 = min(r0 + block, n)
         g = rows_of(r0, r1)
-        if w is not None:
-            g.addr_(w[r0:r1], a, alpha=-1.0)
-        if col0 <= r0 < col0 + xs_cols.shape[0]:  # the diagonal block is among the columns
-            trace = trace + torch.sum(torch.diagonal(g[:, r0 - col0:r1 - col0]))
+        if lower:
+            cols, c0 = xs[:r1], 0
+            if w is not None:
+                g.addr_(w[r0:r1], a[:r1], alpha=-0.5).addr_(a[r0:r1], w[:r1], alpha=-0.5)
+            g[:, :r0].mul_(2.0)
+        else:
+            cols, c0 = xs_cols, col0
+            if w is not None:
+                g.addr_(w[r0:r1], a, alpha=-1.0)
+        if c0 <= r0 < c0 + cols.shape[0]:  # the diagonal block is among the columns
+            trace = trace + torch.sum(torch.diagonal(g[:, r0 - c0:r1 - c0]))
+        STREAM_BLOCKS["lower" if lower else "full"] += 1
         xs_b = xs[r0:r1]
-        d_xs, d_xps, row = gram_cuda.gram_bwd(xs_b, xs_cols, sig, g.contiguous())
+        d_xs, d_xps, row = gram_cuda.gram_bwd(xs_b, cols, sig, g.contiguous())
         del g  # before the next block's rows exist
         sig_bar = sig_bar + torch.sum(row)
-        len_bar = len_bar - torch.sum(d_xs * xs_b, dim=0) - torch.sum(d_xps * xs_cols, dim=0)
+        len_bar = len_bar - torch.sum(d_xs * xs_b, dim=0) - torch.sum(d_xps * cols, dim=0)
     return sig_bar, len_bar, trace
 
 
@@ -163,11 +188,18 @@ def _param_grads(sums, sig, log_length, log_noise_sq):
             torch.exp(log_noise_sq) * trace)
 
 
-def _backward(ctx, w, extra_rows):
-    """One streamed pass and the parameter gradients of it."""
+def lower_cols(Kinv, r1: int, rows=slice(None)):
+    """K^-1[rows, :r1], the right operand of a row block's product, read as
+    K^-1[:r1, rows]^T (K^-1 is symmetric): r1 rows of K^-1, each contiguous
+    over ``rows``; ~1% faster than the strided view on an NVIDIA H100."""
+    return Kinv[:r1, rows].T
+
+
+def _backward(ctx, w, rows_of):
+    """One streamed pass and the parameter gradients of it: ``rows_of(r0,
+    r1)`` gives the rows [r0, r1) of the symmetric term over columns [0, r1)."""
     Kinv, a, xs, sig, log_noise_sq, log_length = ctx.saved_tensors[:6]
-    sums = _stream_param_grads(lambda r0, r1: extra_rows(Kinv[r0:r1]), w, a, xs, sig,
-                               ctx.block)
+    sums = _stream_param_grads(rows_of, w, a, xs, sig, ctx.block)
     return _param_grads(sums, sig, log_length, log_noise_sq)
 
 
@@ -187,14 +219,15 @@ class ArdLooSolveDiag(torch.autograd.Function):
     def backward(ctx, a_bar, d_bar):
         Kinv = ctx.saved_tensors[0]
 
-        def extra_rows(Kinv_b):  # rows of -K^-1 diag(d_bar) K^-1
+        def rows_of(r0, r1):  # rows of -K^-1 diag(d_bar) K^-1, columns [0, r1)
             # The left factor in K^-1's dtype: a 2-byte one rounded once, no fp32 block.
+            Kinv_b = Kinv[r0:r1]
             M = torch.mul(Kinv_b, d_bar[None, :], out=torch.empty_like(Kinv_b))
-            return matmul_acc32(M, Kinv).neg_()
+            return matmul_split_k(M, lower_cols(Kinv, r1)).neg_()
 
-        with profiling.span("core.backward", Kinv.device, core="loo", passes=1):
+        with profiling.span("core.backward", Kinv.device, core="loo", passes=1, cols="lower"):
             w = _w(Kinv, a_bar)
-            s_bar, l_bar, n_bar = _backward(ctx, w, extra_rows)
+            s_bar, l_bar, n_bar = _backward(ctx, w, rows_of)
         return s_bar, l_bar, n_bar, None, w, None
 
 
@@ -219,23 +252,26 @@ class ArdKfoldSolveBlocks(torch.autograd.Function):
     def backward(ctx, a_bar, A_bar):
         Kinv = ctx.saved_tensors[0]
         n, k = Kinv.shape[0], ctx.fold_k
-        st = Kinv.dtype
-        A_st = A_bar.to(st)
+        nb, st = n // k, Kinv.dtype
 
-        def extra_rows(Kinv_b):  # rows of -K^-1 blockdiag(A_bar) K^-1
-            size = Kinv_b.shape[0]
-            if st not in TWO_BYTE:
-                M = torch.einsum("sfi,fij->sfj", Kinv_b.reshape(size, k, n // k), A_bar)
-                return matmul(M.reshape(size, n), Kinv).neg_()
-            # Fold by fold, rounded once to the storage dtype (`loo_fused.py:359-384`).
-            nb = n // k
-            M = torch.cat([matmul_acc32(Kinv_b[:, f * nb:(f + 1) * nb], A_st[f])
-                           for f in range(k)], dim=1)
-            return matmul_acc32(M.to(st), Kinv).neg_()
+        def rows_of(r0, r1):  # rows of -K^-1 blockdiag(sym A_bar) K^-1, columns [0, r1)
+            # Fold by fold, each fold's symmetric part one nb^2 transient; a
+            # 2-byte one rounded once to the storage dtype (`loo_fused.py:359-384`).
+            Kinv_b = Kinv[r0:r1]
+            M = Kinv_b.new_empty(Kinv_b.shape, dtype=acc_dtype(st))
+            for f in range(k):
+                fs = slice(f * nb, (f + 1) * nb)
+                S = (A_bar[f] + A_bar[f].mT).mul_(0.5)
+                if st in TWO_BYTE:
+                    M[:, fs] = matmul_acc32(Kinv_b[:, fs], S.to(st))
+                else:
+                    M[:, fs] = torch.matmul(Kinv_b[:, fs], S)
+                del S
+            return matmul_split_k(M.to(st), lower_cols(Kinv, r1)).neg_()
 
-        with profiling.span("core.backward", Kinv.device, core="kfold", passes=1):
+        with profiling.span("core.backward", Kinv.device, core="kfold", passes=1, cols="lower"):
             w = _w(Kinv, a_bar)
-            s_bar, l_bar, n_bar = _backward(ctx, w, extra_rows)
+            s_bar, l_bar, n_bar = _backward(ctx, w, rows_of)
         return s_bar, l_bar, n_bar, None, w, None, None
 
 
@@ -256,15 +292,16 @@ class ArdNlml(torch.autograd.Function):
     @staticmethod
     def backward(ctx, v_bar):
         half = 0.5 * v_bar
-        a = ctx.saved_tensors[1]
+        Kinv, a = ctx.saved_tensors[:2]
 
-        def extra_rows(Kinv_b):
+        def rows_of(r0, r1):  # rows of v_bar K^-1 / 2, columns [0, r1)
+            Kinv_b = Kinv[r0:r1, :r1]
             if Kinv_b.dtype in TWO_BYTE:
                 return Kinv_b.float().mul_(half)
             return half * Kinv_b
 
-        with profiling.span("core.backward", a.device, core="nlml", passes=1):
-            s_bar, l_bar, n_bar = _backward(ctx, half * a, extra_rows)
+        with profiling.span("core.backward", a.device, core="nlml", passes=1, cols="lower"):
+            s_bar, l_bar, n_bar = _backward(ctx, half * a, rows_of)
         return s_bar, l_bar, n_bar, None, v_bar * a, None
 
 

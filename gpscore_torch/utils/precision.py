@@ -46,7 +46,7 @@ less exact than IEEE fp32's, and its error enters K_hat^-1 itself. With the
 pipeline at 3 x TF32 too, the nlml step's log-length gradient read 1.08e-3
 off float64 at n = 30,720, over "highest"'s limit of 1e-3 (the pipeline
 IEEE: 2.4e-4), for a step 11% shorter. The long products of the backward
-([b, n] x [n, n], the fold sandwich) take the three passes: there the crps
+([b, n] x [n, r1], the fold sandwich) take the three passes: there the crps
 log-signal gradient reads 4.0e-3 off float64, under "highest"'s own 7.1e-3.
 
 Why the critical products stay IEEE in "high" and "fast" (JAX floors them at
@@ -314,6 +314,30 @@ def matmul_acc32(a, b):
     dtype: two stored 2-byte operands of one dtype take one native pass (no
     n^2 upcast); fp32 operands take :func:`matmul`."""
     return matmul(a, b)
+
+
+def matmul_split_k(a, b):
+    """:func:`matmul_acc32` for 2-D operands with a long inner dimension:
+    where the mode multiplies them in IEEE fp32 ("highest", or "high" below
+    its split), the inner dimension is summed one _SPLIT_K chunk at a time,
+    each chunk's sum added to the fp32 result by the product's epilogue. Every
+    other case is :func:`matmul_acc32`'s (the TF32 passes chunk themselves;
+    2-byte operands take one native pass).
+
+    Why: cuBLAS runs one chain of fp32 sums over the whole inner dimension,
+    and the chain's rounding drifts with its length. On an NVIDIA H100 (700 W)
+    the large-n backward's [2048, 30720] x [30720, r1] products read the
+    trace of their diagonal blocks 3.2e-5 off float64 at r1 = 30720 and
+    8.5e-5 over the narrower r1 of the lower block-triangle (another kernel's
+    chain), and 8.0e-6 in chunks of 2048, whose pass takes 625 ms against one
+    chain's 609."""
+    if (a.dtype in TWO_BYTE or b.dtype in TWO_BYTE or a.shape[1] <= _SPLIT_K
+            or _passes(False, a.shape[1]) is not None):
+        return matmul_acc32(a, b)
+    out = torch.mm(a[:, :_SPLIT_K], b[:_SPLIT_K])
+    for k0 in range(_SPLIT_K, a.shape[1], _SPLIT_K):
+        out.addmm_(a[:, k0:k0 + _SPLIT_K], b[k0:k0 + _SPLIT_K])
+    return out
 
 
 def addmm_(C, A, B, alpha=1.0, beta=1.0, crit: bool = False):

@@ -37,6 +37,7 @@ from gpscore_torch.fit import SCHEDULES, fit_gd, make_objective
 from gpscore_torch.fit import objectives as tobjectives
 from gpscore_torch.models import exact as texact
 from gpscore_torch.ops import fold_stream as tfold
+from gpscore_torch.ops import gram_cuda as tgram
 from gpscore_torch.ops import loo_fused as tloo
 from gpscore_torch.ops import potri_inplace as tpotri
 from torch_parity import close, jax_params, t, torch_params
@@ -446,3 +447,195 @@ def test_bench_ceiling_takes_the_precision_modes_on_the_cpu(monkeypatch):
     assert recs["f16"]["loss"] == pytest.approx(recs["highest"]["loss"], rel=2e-2)
     with pytest.raises(SystemExit):
         bench_ceiling.main(["--ceiling", "64", "32", "--device", "cpu"])
+
+
+# ---- the streamed backward's lower block-triangle -----------------------------
+
+STREAM_CORES = ["loo", "kfold", "nlml", "dss", "kc", "es"]
+FOLD_RULES = ("dss", "kc", "es")
+
+
+def _full_row_pass(rows, w, a, xs, sig, block):
+    """The streamed pass as the cores ran it on full rows: each row block's
+    rows of K_hat_bar over all n columns, minus w[r0:r1] a^T, through the
+    Gram backward; (log_signal_bar, log_length_bar, trace)."""
+    n = xs.shape[0]
+    sig_bar, len_bar, trace = 0.0, xs.new_zeros(xs.shape[1]), 0.0
+    for r0 in range(0, n, block):
+        r1 = min(r0 + block, n)
+        g = rows(r0, r1)
+        if w is not None:
+            g = g - torch.outer(w[r0:r1], a)
+        trace = trace + torch.sum(torch.diagonal(g[:, r0:r1]))
+        d_xs, d_xps, row = tgram.gram_bwd(xs[r0:r1], xs, sig, g.contiguous())
+        sig_bar = sig_bar + torch.sum(row)
+        len_bar = len_bar - torch.sum(d_xs * xs[r0:r1], dim=0) - torch.sum(d_xps * xs, dim=0)
+    return sig_bar, len_bar, trace
+
+
+def _full_row_fold_cot(rule, Kinv, a, f, nb, cot, eps, num_sim):
+    """(-A_bar_f, u) of fold f as the fold cores formed it for full rows:
+    u e^T and the es core's T left unsymmetrized."""
+    s = slice(f * nb, (f + 1) * nb)
+    La = torch.linalg.cholesky(Kinv[s, s])
+    e_f = torch.cholesky_solve(a[s, None], La)[:, 0]
+    if rule != "es":
+        e_bar, hld_bar, d_bar, _ = cot
+        Ainv = torch.cholesky_inverse(La)
+        u = Ainv @ e_bar[f]
+        S = -0.5 * hld_bar[f] * Ainv
+        if rule == "kc":
+            S = S + Ainv @ torch.diag(d_bar[f]) @ Ainv
+        return S + torch.outer(u, e_f), u
+    with torch.enable_grad():
+        zT = torch.linalg.solve_triangular(La.mT, eps[f], upper=True).requires_grad_()
+        e_ = e_f.detach().requires_grad_()
+        score = tfold._es_from_cols(zT, e_, num_sim, 1.0)
+        zT_bar, e_bar = torch.autograd.grad(score, (zT, e_), cot[0][f])
+    u = torch.cholesky_solve(e_bar[:, None], La)[:, 0]
+    H = (eps[f] @ torch.linalg.solve_triangular(La, zT_bar, upper=False).T).tril()
+    H.diagonal().mul_(0.5)
+    T = torch.linalg.solve_triangular(La.mT, H, upper=True)
+    T = torch.linalg.solve_triangular(La, T, upper=False, left=False)
+    return T + torch.outer(u, e_f), u
+
+
+def _full_row_grads(core, args, x, y, cot, block, fold_k, eps, num_sim):
+    """The oracle: (log_signal_bar, log_length_bar, log_noise_bar, y_bar) of a
+    core by the full-row arithmetic, from the forward's own K_hat^-1."""
+    s, ell, nu = (v.detach() for v in args)
+    Kinv = tpotri.ard_gram_inverse_inplace(s, ell, nu, x, block)
+    a = Kinv @ y
+    xs, sig = tgram.scale_inputs(x, ell), torch.exp(s)
+    n, nb = x.shape[0], x.shape[0] // fold_k
+    if core == "nlml":
+        half = 0.5 * cot[0]
+        sums = _full_row_pass(lambda r0, r1: half * Kinv[r0:r1], half * a, a, xs, sig, block)
+        y_bar = cot[0] * a
+    elif core in ("loo", "kfold"):
+        y_bar = Kinv @ cot[0]
+
+        def rows(r0, r1):
+            if core == "loo":
+                return -(Kinv[r0:r1] * cot[1][None, :]) @ Kinv
+            M = torch.einsum("sfi,fij->sfj", Kinv[r0:r1].reshape(r1 - r0, fold_k, nb), cot[1])
+            return -M.reshape(r1 - r0, n) @ Kinv
+
+        sums = _full_row_pass(rows, y_bar, a, xs, sig, block)
+    else:
+        a_bar = cot[3].clone() if core != "es" else torch.zeros_like(a)
+        sums, y_bar = (0.0, 0.0, 0.0), None
+        for f in range(fold_k):
+            fs = slice(f * nb, (f + 1) * nb)
+            S, u = _full_row_fold_cot(core, Kinv, a, f, nb, cot, eps, num_sim)
+            a_bar[fs] += u
+            if f == fold_k - 1:
+                y_bar = Kinv @ a_bar
+            part = _full_row_pass(lambda r0, r1: Kinv[r0:r1, fs] @ S @ Kinv[fs],
+                                  y_bar, a, xs, sig, block)
+            sums = tuple(p + q for p, q in zip(sums, part))
+    sig_bar, len_bar, trace = sums
+    return sig_bar, len_bar.reshape(ell.shape), torch.exp(nu) * trace, y_bar
+
+
+def _stream_core(core, args, x, y, block, fold_k, eps, num_sim):
+    """The single-device core's outputs and a float64 cotangent for each."""
+    g = torch.Generator().manual_seed(21)
+    n, nb = x.shape[0], x.shape[0] // fold_k
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, dtype=torch.float64)
+
+    if core == "loo":
+        return tloo.ard_loo_solve_diag(*args, x, y, block), (randn(n), randn(n))
+    if core == "kfold":
+        return (tloo.ard_kfold_solve_blocks(*args, x, y, fold_k, block),
+                (randn(n), randn(fold_k, nb, nb)))  # A_bar not symmetric
+    if core == "nlml":
+        return (tloo.ArdNlml.apply(*args, x, y, block),), (randn(1).abs()[0] + 0.5,)
+    if core == "es":
+        return ((tfold.ard_fold_es_stream(*args, x, y, fold_k, num_sim, 1.0, block, eps=eps),),
+                (randn(fold_k),))
+    outs = tfold.ard_fold_stats_stream(*args, x, y, fold_k, core == "kc", block)
+    return outs, (randn(fold_k, nb), randn(fold_k), randn(fold_k, nb), randn(n))
+
+
+def _sharded_p1_step(core, args, x, y, fold_k, eps, num_sim, tmp_path):
+    """One step of the sharded counterpart on a gloo group of one rank, block
+    13 (the sharded path needs n / p to divide by it)."""
+    import torch.distributed as dist
+
+    from gpscore_torch.parallel import init_distributed, make_mesh
+    from gpscore_torch.parallel.sharded_fold_stream import make_sharded_streamed_kfold_fit_step
+    from gpscore_torch.parallel.sharded_loo import (make_sharded_fused_loo_fit_step,
+                                                    make_sharded_fused_nlml_fit_step)
+    from gpscore_torch.parallel.sharded_potri import make_streamed_ard_bwd
+    from gpscore_torch.utils.params import GPParams
+
+    joined = not dist.is_initialized()
+    init_distributed("cpu", init_method=f"file://{tmp_path / 'store'}", world_size=1, rank=0)
+    try:
+        mesh, block = make_mesh(data=1), 13
+        params = GPParams(*args, inducing=None)
+        if core == "loo":
+            make_sharded_fused_loo_fit_step(mesh, block=block)(params, x, y)
+        elif core == "nlml":
+            make_sharded_fused_nlml_fit_step(mesh, block=block)(params, x, y)
+        elif core == "kfold":
+            Kinv = tpotri.ard_gram_inverse_inplace(*args, x, block)
+            n, nb = x.shape[0], x.shape[0] // fold_k
+            cot = (torch.ones(n, dtype=x.dtype), torch.ones((fold_k, nb, nb), dtype=x.dtype))
+            make_streamed_ard_bwd(mesh, "kfold", fold_k=fold_k, block=block)(
+                Kinv, Kinv @ y, x, *args, cot)
+        else:
+            make_sharded_streamed_kfold_fit_step(mesh, core, fold_k, block=block,
+                                                 num_sim=num_sim)(params, x, y, eps=eps)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("core", STREAM_CORES)
+def test_streamed_backward_takes_the_lower_block_triangle(core, monkeypatch, tmp_path):
+    """Each single-device core streams only the lower block-triangle of the
+    symmetric K_hat_bar (columns [0, r1) of row block [r0, r1)); its
+    gradients equal the full-row arithmetic's within 1e-10 in float64 at a
+    ragged n (block 16, n = 52). ``STREAM_BLOCKS`` counts only "lower"
+    blocks; the Gram backward sees one call a row block with r1 columns; the
+    sharded step at p = 1 keeps full rows and counts only "full" blocks."""
+    n, block, fold_k, num_sim = 52, 16, 4, 8
+    f64 = torch.float64
+    x_np, y_np, p = _problem(23, n)
+    x, y = t(x_np).to(f64), t(y_np).to(f64).requires_grad_()
+    args = [a.to(f64).requires_grad_() for a in _torch_args(p)]
+    eps = torch.randn((fold_k, n // fold_k, 2 * num_sim), dtype=f64,
+                      generator=torch.Generator().manual_seed(5))
+    passes = fold_k if core in FOLD_RULES else 1
+    calls = []
+    gram_bwd = tgram.gram_bwd
+
+    def spy(xs_b, xps, sig, g):
+        calls.append((xs_b.shape[0], xps.shape[0], tuple(g.shape)))
+        return gram_bwd(xs_b, xps, sig, g)
+
+    before = dict(tloo.STREAM_BLOCKS)
+    outs, cot = _stream_core(core, args, x, y, block, fold_k, eps, num_sim)
+    with monkeypatch.context() as m:
+        m.setattr(tgram, "gram_bwd", spy)
+        got = torch.autograd.grad(outs, args + [y], cot)
+    blocks = -(-n // block)
+    assert {k: tloo.STREAM_BLOCKS[k] - before[k] for k in before} == \
+        {"lower": passes * blocks, "full": 0}
+    want_calls = [(min(block, n - r0), min(r0 + block, n), (min(block, n - r0), min(r0 + block, n)))
+                  for r0 in range(0, n, block)] * passes
+    assert calls == want_calls
+    want = _full_row_grads(core, args, x, y.detach(), cot, block, fold_k, eps, num_sim)
+    for name, g, w in zip(("log_signal_sq", "log_length", "log_noise_sq", "y"), got, want):
+        rel = float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w))
+        assert rel <= 1e-10, (name, rel)
+
+    before = dict(tloo.STREAM_BLOCKS)
+    _sharded_p1_step(core, [a.detach() for a in args], x, y.detach(), fold_k, eps, num_sim,
+                     tmp_path)
+    assert {k: tloo.STREAM_BLOCKS[k] - before[k] for k in before} == \
+        {"lower": 0, "full": passes * n // 13}

@@ -181,6 +181,31 @@ def test_split_panels_and_matvecs(monkeypatch):
         assert torch.equal(precision.matmul(a.T[:1], a), torch.matmul(a.T[:1], a))
 
 
+@pytest.mark.parametrize("mode", precision.MODES)
+def test_matmul_split_k_chunks_only_ieee_products(monkeypatch, mode):
+    """matmul_split_k: where the mode's product of fp32 operands is IEEE
+    ("highest"; "high" below its split), the inner dimension summed one
+    _SPLIT_K chunk at a time, bitwise the chunks added in turn and within
+    1e-6 of float64; in every other case bitwise matmul_acc32."""
+    monkeypatch.setattr(precision, "_SPLIT_K", 16)
+    a, b = _operands(6, (20, 70), (70, 30))
+    with precision.matmul_mode(mode):
+        st = precision.storage_dtype()
+        a_, b_ = (a.to(st), b.to(st)) if st in precision.TWO_BYTE else (a, b)
+        got = precision.matmul_split_k(a_, b_)
+        if mode not in ("highest", "high"):
+            assert torch.equal(got, precision.matmul_acc32(a_, b_))
+            return
+        want = a[:, :16] @ b[:16]
+        for k0 in range(16, 70, 16):
+            want.addmm_(a[:, k0:k0 + 16], b[k0:k0 + 16])
+        assert torch.equal(got, want)
+        assert _err_vs_f64(got, a, b) <= 1e-6
+        monkeypatch.setattr(precision, "_SPLIT_MIN_K", 70)
+        if mode == "high":  # from the split on, the 3 x TF32 product chunks itself
+            assert torch.equal(precision.matmul_split_k(a, b), precision.matmul_acc32(a, b))
+
+
 @pytest.mark.parametrize("mode", ["bf16", "f16"])
 def test_matmul_acc32_reads_2_byte_operands(mode):
     """fp32 out and accumulation off 2-byte operands, against the JAX

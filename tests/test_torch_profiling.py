@@ -107,7 +107,7 @@ def test_fused_cores_record_forward_and_backward_under_one_root(core, name, pass
     recs = _new(before)
     (fwd,), (bwd,) = _by_name(recs, "core.forward"), _by_name(recs, "core.backward")
     assert fwd.attrs == {"core": name, "n": 64, "block": 16}
-    assert bwd.attrs == {"core": name, "passes": passes}
+    assert bwd.attrs == {"core": name, "passes": passes, "cols": "lower"}
     assert fwd.root == bwd.root == fit.id and fwd.parent == fit.id
     assert fwd.end_ns <= bwd.start_ns
     assert fwd.device_ms is None and bwd.device_ms is None
