@@ -35,7 +35,10 @@ cross-term form of `gpscore/ops/kernels.py:28-40,54-64`, so CPU results track
 the JAX package), a CUDA tensor launches the kernel or raises. ``LAUNCHES``
 counts kernel launches, so a run can show that it went through the kernels;
 a loop that replays a captured CUDA graph adds its replays with
-:func:`add_launches`.
+:func:`add_launches`. While torch.profiler records, each call of the two
+dispatchers, :func:`gram_fwd` and :func:`gram_bwd`, is a span of its own
+(``gram.fwd``, ``gram.bwd``; :func:`gpscore_torch.utils.profiling.span`), on
+the CPU too, timed by CUDA events on a card.
 
 A leading batch axis, the counterpart of a ``pl.pallas_call`` under
 ``jax.vmap`` (which gets an extra grid axis from Pallas's batching rule):
@@ -60,6 +63,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from gpscore_torch.ops import _build
+from gpscore_torch.utils import profiling
 
 # Kernel launches by kernel: a wrapper adds one where it launches, and
 # add_launches adds the replays of a graph that captured such launches.
@@ -1033,19 +1037,37 @@ def gram_bwd_cuda(xs, xps, sig, g):
     return d_xs, gram_bwd_cols_cuda(xs, xps, sig, g), row
 
 
+def _span(name, xs, xps, g=None):
+    """The span of one dispatcher call. Attributes: ``kernel``, the
+    ``LAUNCHES`` keys the call adds on a card ("fwd" or "fwd_dchunk"; the
+    backward ("bwd_rows", "bwd_cols")); the shape ``n``, ``m``, ``d`` and
+    ``batch`` (None unbatched); ``chunked``, d past :func:`max_unchunked_d`."""
+    n, d = xs.shape[-2:]
+    chunked = d > max_unchunked_d(xs.element_size())
+    if g is None:
+        kernel = "fwd_dchunk" if chunked else "fwd"
+    else:
+        kernel = ("bwd_rows", "bwd_cols")
+    batch = next((t.shape[0] for t in (xs, xps, g) if t is not None and t.dim() == 3), None)
+    return profiling.span(name, xs.device, kernel=kernel, n=n, m=xps.shape[-2], d=d,
+                          batch=batch, chunked=chunked)
+
+
 def gram_fwd(xs, xps, sig, out_dtype=None, diag_add=None):
     """K of pre-scaled inputs (in ``out_dtype``, with ``diag_add`` on the
     diagonal): the kernel on CUDA, the plain version on CPU."""
-    if xs.device.type == "cpu":
-        return gram_fwd_plain(xs, xps, sig, out_dtype, diag_add)
-    return gram_fwd_cuda(xs, xps, sig, out_dtype, diag_add)
+    with _span("gram.fwd", xs, xps):
+        if xs.device.type == "cpu":
+            return gram_fwd_plain(xs, xps, sig, out_dtype, diag_add)
+        return gram_fwd_cuda(xs, xps, sig, out_dtype, diag_add)
 
 
 def gram_bwd(xs, xps, sig, g):
     """(d_xs, d_xps, rowsum): the kernels on CUDA, the plain version on CPU."""
-    if xs.device.type == "cpu":
-        return gram_bwd_plain(xs, xps, sig, g)
-    return gram_bwd_cuda(xs, xps, sig, g)
+    with _span("gram.bwd", xs, xps, g):
+        if xs.device.type == "cpu":
+            return gram_bwd_plain(xs, xps, sig, g)
+        return gram_bwd_cuda(xs, xps, sig, g)
 
 
 def _inv_len(log_length):

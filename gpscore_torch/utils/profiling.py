@@ -2,7 +2,8 @@
 spans.
 
 - :func:`span`: a span around a phase of the program (a fit, the GD loop's
-  eager steps and capture, the large-n cores' forward and backward). It
+  eager steps and capture, the large-n cores' forward and backward, each
+  call of the Gram kernels' dispatchers). It
   records only while torch.profiler records in the process; otherwise it
   costs one flag read. A finished span goes into a bounded in-memory log
   that :func:`spans` reads.
