@@ -7,9 +7,10 @@ Phases, none of whose failures is caught:
 1. Device: exits non-zero without CUDA; prints the card's name and power limit.
 2. Build: compiles gpscore_torch/csrc/ with nvcc (first use) and prints the
    compiler's register/spill report and the build time; fails unless the
-   report shows 0 spill bytes for every instantiation of the four kernels
-   (the forward, its d-chunked build gram_fwd_kernel_dchunk, the backward's
-   two halves).
+   report shows 0 spill bytes for every instantiation of the six kernels
+   (the Gram forward, its d-chunked build gram_fwd_kernel_dchunk, the
+   backward's two halves; the small factor-and-solve pair
+   chol_small_fwd_kernel and chol_small_bwd_kernel, fp32 and fp64).
 3. Kernels against their plain PyTorch versions, on the card, at the main
    path's shapes (500x20x8, 20x20x8), the evaluation's (500x500x8), the full
    pool's (9700x20x8), the size at which the exact GP hands over to the
@@ -243,6 +244,17 @@ Phases, none of whose failures is caught:
    device time by kind, the Gram backward's milliseconds and the forward's
    (experiments/bench_wide.py), and the forward at the step's shape timed
    alone by CUDA events.
+18. The small factor-and-solve pair (linalg.CholSolveSmall, csrc/chol_small.cu)
+   alone against the library chain it replaces in the FITC model (chol_factor
+   and the triangular solves, with autograd's backward), forward and backward
+   with given cotangents, each captured in a CUDA graph and replayed: device
+   microseconds a replay by CUDA events (chain, pair, pair, chain) and
+   torch.profiler's device ops, at CHOL_SMALL_TIMED (FITC-20's 20x20x500 at
+   R = 1 and 64, its k-fold 4x20x20x1 and 64x4x20x20x1, and m = 32, the
+   kernels' largest, linalg.CHOL_SMALL_MAX_M); the pair's gradients within
+   CHOL_SMALL_GRAD_RTOL of the chain's; one ``{"chol_small": ...}`` JSON line.
+   To run it alone: ``import chip_smoke; chip_smoke.phase_chol_small(
+   torch.device("cuda", 0))`` from a script in the repository root.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit;
 before it, one JSON line describes every kernel: ``ms``, ``plain_ms``,
@@ -385,9 +397,10 @@ GRAM_PROFILE_NAMES = {"fwd": "gram_fwd_kernel<", "fwd_dchunk": "gram_fwd_kernel_
 # fp64, each with its wide and its one-pair thread tile. The kernels'
 # symbols, as nvcc mangles them: gram_fwd_kernelI... (not ..._dchunkI...).
 INSTANTIATIONS = {"gram_fwd": 32, "gram_bwd_rows": 22, "gram_bwd_cols": 22,
-                  "gram_fwd_dchunk": 32}
+                  "gram_fwd_dchunk": 32, "chol_small_fwd": 8, "chol_small_bwd": 8}
 SYMBOLS = {"gram_fwd": "gram_fwd_kernelI", "gram_bwd_rows": "gram_bwd_rows_kernel",
-           "gram_bwd_cols": "gram_bwd_cols_kernel", "gram_fwd_dchunk": "gram_fwd_kernel_dchunkI"}
+           "gram_bwd_cols": "gram_bwd_cols_kernel", "gram_fwd_dchunk": "gram_fwd_kernel_dchunkI",
+           "chol_small_fwd": "chol_small_fwd_kernel", "chol_small_bwd": "chol_small_bwd_kernel"}
 # The plain forward uses the cross-term form, whose cancellation leaves
 # ~1e-7 * |xs|^2 in the exponent; K <= sig = e here.
 FWD_ATOL = 2e-5
@@ -566,6 +579,13 @@ F64_WITNESS = {}
 FUSED_RULES = ["crps", "logs", "nlml", "dss", "kc", "es"]
 FUSED_F16_RULES = ["crps", "dss"]
 FUSED_WIDE_BLOCK = 2048  # the crps step timed once more at JAX's widest panel
+# Phase 18: the small factor-and-solve pair (csrc/chol_small.cu) alone
+# against the library chain, (leading dimensions, m, k, full): FITC-20's
+# L_uu and L_M solves at R = 1 and R = 64 restarts, its k-fold mean solve at
+# R = 1 and R = 64, and m = 32, the kernels' largest (linalg.CHOL_SMALL_MAX_M).
+CHOL_SMALL_TIMED = [((), 20, 500, False), ((64,), 20, 500, False), ((4,), 20, 1, True),
+                    ((64, 4), 20, 1, True), ((), 32, 500, False), ((64,), 32, 500, False)]
+CHOL_SMALL_GRAD_RTOL = 1e-4  # the pair's gradients against the chain's, of max|chain|
 
 
 def log(*a):
@@ -589,13 +609,15 @@ def spills(report):
 
 
 def check_spills(report):
+    """Every instantiation of every kernel (the Gram kernels and the small
+    factor-and-solve pair, fp32 and fp64) builds with 0 spill bytes."""
     found = spills(report)
-    for name, _ in KERNELS:
+    for name, count in INSTANTIATIONS.items():
         mine = {sym: v for sym, v in found.items() if SYMBOLS[name] in sym}
-        assert len(mine) == INSTANTIATIONS[name], (name, sorted(mine))
+        assert len(mine) == count, (name, sorted(mine))
         assert all(v == (0, 0) for v in mine.values()), (name, mine)
     log("[build] ptxas: 0 spill bytes in every instantiation: "
-        + ", ".join(f"{name} {INSTANTIATIONS[name]}" for name, _ in KERNELS))
+        + ", ".join(f"{name} {count}" for name, count in INSTANTIATIONS.items()))
 
 
 def fwd_inputs(n, m, d, dev, seed):
@@ -3306,6 +3328,76 @@ def phase_wide(dev):
     return launches, launches_large
 
 
+def chol_small_pair(A, B, cL, cX, full, fused):
+    """One (factor, solve) pair forward and backward, as a FITC step runs it:
+    the kernels (linalg.CholSolveSmall) or the library chain and autograd's
+    nodes of it; the cotangents cL (or None) and cX given. Returns (A_bar,
+    B_bar)."""
+    A, B = A.detach().requires_grad_(), B.detach().requires_grad_()
+    if fused:
+        L, X = linalg.CholSolveSmall.apply(A, B, full)
+    else:
+        L = linalg.chol_factor(A)
+        X = linalg.chol_solve_from_factor(L, B) if full else linalg.tri_solve(L, B)
+    if cL is None:  # L reaches no loss, as L_uu's and (crps) L_M's in a FITC step
+        return torch.autograd.grad(X, (A, B), grad_outputs=cX)
+    return torch.autograd.grad((L, X), (A, B), grad_outputs=(cL, cX))
+
+
+def replayed_us(fn, reps=200):
+    """``fn`` captured in a CUDA graph (after three warm calls on the
+    capture's stream): the device microseconds a replay by CUDA events over
+    ``reps`` replays, and torch.profiler's device time and device ops a
+    replay (None, None where it lost the events)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        fn()
+    us = cuda_ms(graph.replay, reps=reps, warmup=20) * 1e3
+    dev, ops = device_ms(graph.replay)
+    return us, None if dev is None else dev * 1e3, ops
+
+
+def phase_chol_small(dev):
+    """Phase 18: the kernel pair against the library chain at CHOL_SMALL_TIMED,
+    each a captured forward and backward replayed, in turns chain, pair,
+    pair, chain; the pair's gradients against the chain's within
+    CHOL_SMALL_GRAD_RTOL."""
+    out = {}
+    for s, (lead, m, k, full) in enumerate(CHOL_SMALL_TIMED):
+        gen = torch.Generator(device=dev).manual_seed(1800 + s)
+        v = torch.randn((*lead, m, m), generator=gen, device=dev)
+        A = v @ v.mT / m + torch.eye(m, device=dev)
+        B, cX = (torch.randn((*lead, m, k), generator=gen, device=dev) for _ in range(2))
+        # The folds' L_Mf reaches the loss (log det); L_uu and L_M need not.
+        cL = torch.randn((*lead, m, m), generator=gen, device=dev).tril() if full else None
+        got, want = (chol_small_pair(A, B, cL, cX, full, fused) for fused in (True, False))
+        errs = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(got, want)]
+        assert max(errs) <= CHOL_SMALL_GRAD_RTOL, (lead, m, k, full, errs)
+        runs = {fused: [] for fused in (False, True)}
+        for fused in (False, True, True, False):
+            runs[fused].append(replayed_us(lambda: chol_small_pair(A, B, cL, cX, full, fused)))
+        key = "x".join(map(str, (*lead, m, m, k))) + ("/full" if full else "")
+        rec = {}
+        for fused, name in ((True, "pair"), (False, "chain")):
+            us = [r[0] for r in runs[fused]]
+            rec[name] = {"us": sum(us) / 2, "us_runs": us, "device_us": runs[fused][0][1],
+                         "device_ops": runs[fused][0][2]}
+        rec["grad_rel"] = errs
+        out[key] = rec
+        log(f"[chol_small] {key}: the pair {rec['pair']['us']:.2f} us a replay "
+            f"({rec['pair']['device_ops']} device ops) against the chain "
+            f"{rec['chain']['us']:.2f} us ({rec['chain']['device_ops']} ops); A_bar, B_bar "
+            f"{errs[0]:.2e}, {errs[1]:.2e} of the chain's (tol {CHOL_SMALL_GRAD_RTOL})")
+    print(json.dumps({"chol_small": out}), flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs a CUDA card")
@@ -3342,7 +3434,8 @@ def main():
     launches["sharded_fused"], _ = phase(15, phase_sharded_fused, dev)
     launches["results_parity"], err16, ptimes = phase(16, phase_results_parity, dev)
     launches["wide"], launches["wide_large_n"] = phase(17, phase_wide, dev)
-    log(f"[phases] 1-17 in {time.perf_counter() - t0:.1f} s")
+    phase(18, phase_chol_small, dev)
+    log(f"[phases] 1-18 in {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, key in KERNELS:
         # The timings are keyed by the wrapper, gram_fwd for both forward

@@ -57,16 +57,18 @@ def fitc_terms(x, params, *, kind: str = "ard") -> FITCTerms:
     K_uu = gram(u, u, params.log_signal_sq, params.log_length, kind=kind)
     K_uu = K_uu + KUU_JITTER * _eye(m, K_uu)
     K_fu = gram(x, u, params.log_signal_sq, params.log_length, kind=kind)
-    L_uu = linalg.chol_factor(K_uu)
-    V = linalg.tri_solve(L_uu, K_fu.mT).mT  # [..., n, m]
+    # Each (factor, solve) pair is one op: on a card, at small m, two kernels
+    # (linalg.chol_solve_small).
+    L_uu, Vt = linalg.chol_solve_small(K_uu, K_fu.mT)
+    V = Vt.mT  # [..., n, m]
     kff_diag = kernel_diag(x, params.log_signal_sq)
     qff_diag = torch.sum(V * V, dim=-1)
     g = kff_diag - qff_diag + per_batch(params.noise_sq, 1)
     Vg = V / g[..., None]
     M = _eye(m, V) + matmul(V.mT, Vg)
-    L_M = linalg.chol_factor(M)
     # W^T = L_M^-1 (G^-1 V)^T  =>  W = G^-1 V L_M^-T, so W W^T = G^-1 V M^-1 V^T G^-1.
-    W = linalg.tri_solve(L_M, Vg.mT).mT  # [..., n, m]
+    L_M, Wt = linalg.chol_solve_small(M, Vg.mT)
+    W = Wt.mT  # [..., n, m]
     return FITCTerms(V=V, g=g, kff_diag=kff_diag, L_uu=L_uu, L_M=L_M, W=W)
 
 
@@ -202,8 +204,8 @@ def kfold_fitc_lowrank(
     m = W_b.shape[-1]
     GW = W_b * g_b[..., None]  # D^-1 W
     Mf = _eye(m, W_b) - matmul(W_b.mT, GW)  # [k, m, m]
-    L_Mf = linalg.chol_factor(Mf)
-    w = linalg.chol_solve_from_factor(L_Mf, matmul(GW.mT, b_y_b[..., None]))  # [k, m, 1]
+    # w = M_f^-1 (GW)^T b_y [k, m, 1], with the factor, as one op.
+    L_Mf, w = linalg.chol_solve_small(Mf, matmul(GW.mT, b_y_b[..., None]), full=True)
     ainv_v = g_b * b_y_b + matmul(GW, w)[..., 0]
     mean = y_b - ainv_v
     return LowRankPrecisionGaussian(mean=mean, g=g_b, W=W_b, L_Mf=L_Mf)

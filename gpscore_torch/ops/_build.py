@@ -52,6 +52,10 @@ SIGNATURES = {
     # the plan (tx, ty, chunk, groups, group width, threads).
     "gram_bwd_dchunk": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                         _I, _I, _L, _L, _L, _L, _L, _L, _P],
+    # csrc/chol_small.cu: the arrays (A, Bt, L, Xt; the backward's L, Xt,
+    # Lbar, Xbart, Abar, Bbart), then m, k, full, tile rows, the batch, the stream.
+    "chol_small_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "chol_small_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 # The fp64 entry points take the same arguments as their fp32 namesakes.
 SIGNATURES.update({f"{name}_f64": args for name, args in list(SIGNATURES.items())})

@@ -15,12 +15,22 @@ The exact GP's two solve cores, :class:`LooSolveDiag` and
 :class:`KfoldSolveBlocks` (`gpscore/ops/linalg.py:112-225`), are
 ``torch.autograd.Function``s with the closed-form adjoints of the JAX custom
 VJPs: each saves only K^-1 and a = K^-1 y, never the factor chain.
+
+The FITC model's small factor-and-solve pairs go through
+:func:`chol_solve_small`: on a card, for m up to CHOL_SMALL_MAX_M, one
+hand-written kernel for the factor and the solve and one for their
+closed-form VJP (:class:`CholSolveSmall`, ``csrc/chol_small.cu``); elsewhere
+the library chain of :func:`chol_factor` and the triangular solves.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from gpscore_torch.ops import _build, gram_cuda
+from gpscore_torch.utils import profiling
 from gpscore_torch.utils.precision import matmul
 
 _JITTER_LADDER = (0.0, 1e-6, 1e-4, 1e-2)
@@ -50,6 +60,162 @@ def tri_solve(L, B, *, lower: bool = True, trans: bool = False):
 def chol_solve_from_factor(L, B):
     """A^{-1} B given A = L L^T."""
     return tri_solve(L, tri_solve(L, B), trans=True)
+
+
+# The fused small factor-and-solve (csrc/chol_small.cu), in blocks of
+# CHOL_SMALL_THREADS threads (kCsThreads). CHOL_SMALL_MAX_M is the largest m
+# the kernels take (kCsMaxM: a warp's lanes hold the factor's rows) and the
+# largest that chol_solve_small sends them: on an NVIDIA H100 80GB HBM3 the
+# pair beat the library chain at m = 20 and 32, and a shared-memory build
+# that took m = 64 lost to it there (PERF.md, the pair alone).
+CHOL_SMALL_MAX_M = 32
+CHOL_SMALL_THREADS = 256
+# chol_solve_small's calls by path: "fused" (the kernels), "library" (the chain).
+CHOL_SMALL = {"fused": 0, "library": 0}
+
+
+def chol_small_tile_rows(k: int) -> int:
+    """Columns of B a tile of the kernels takes, one a thread: the block, or
+    the whole warps that k needs."""
+    return min(CHOL_SMALL_THREADS, max(32, -(-k // 32) * 32))
+
+
+def _chol_small_launch(name, arrays, m, k, full):
+    """Launch the kernel ``name`` on ``arrays`` ([batch, ., m] tensors or
+    None, in the entry point's order), one launch a chunk of
+    :func:`gram_cuda.batch_chunks`."""
+    first = arrays[0]
+    if first.dtype not in gram_cuda.DTYPES or any(
+            a is not None and (a.dtype != first.dtype or a.device != first.device)
+            for a in arrays):
+        raise TypeError(f"{name} takes float32 or float64 CUDA tensors of one dtype")
+    if not 1 <= m <= CHOL_SMALL_MAX_M:
+        raise ValueError(f"{name} takes 1 <= m <= {CHOL_SMALL_MAX_M}, got m = {m}")
+    lib = _build.load_library()
+    launch = gram_cuda._entry(lib, name, first.dtype)
+    rows = chol_small_tile_rows(k)
+    with torch.cuda.device(first.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for start, size in gram_cuda.batch_chunks(first.shape[0]):
+            ptrs = [None if a is None else gram_cuda._at(a, start, a.stride(0)) for a in arrays]
+            gram_cuda._raise_if_failed(name, launch(*ptrs, m, k, int(full), rows, size, stream))
+
+
+def _chol_small_fwd_cuda(A, Bt, full):
+    """(L, X^T) from the forward kernel; A [..., m, m], Bt = B^T [..., k, m]."""
+    *lead, k, m = Bt.shape
+    if A.shape != (*lead, m, m):
+        raise ValueError(f"chol_small takes A [..., m, m] and B [..., m, k] of the same leading "
+                         f"dimensions, got {tuple(A.shape)} and {tuple(Bt.mT.shape)}")
+    A3 = A.reshape(-1, m, m).contiguous()
+    Bt3 = Bt.reshape(-1, k, m).contiguous()
+    L, Xt = torch.empty_like(A3), torch.empty_like(Bt3)
+    _chol_small_launch("chol_small_fwd", (A3, Bt3, L, Xt), m, k, full)
+    return L.reshape(*lead, m, m), Xt.reshape(*lead, k, m)
+
+
+def _chol_small_bwd_cuda(L, Xt, L_bar, Xbar_t, full):
+    """(A_bar, B_bar^T or None) from the backward kernel."""
+    *lead, k, m = Xt.shape
+    L3, Xt3 = L.reshape(-1, m, m), Xt.reshape(-1, k, m)
+    Lb = None if L_bar is None else L_bar.reshape(-1, m, m).contiguous()
+    Xb = None if Xbar_t is None else Xbar_t.reshape(-1, k, m).contiguous()
+    A_bar = torch.empty_like(L3)
+    Bb = None if Xb is None else torch.empty_like(Xt3)
+    _chol_small_launch("chol_small_bwd", (L3, Xt3, Lb, Xb, A_bar, Bb), m, k, full)
+    return A_bar.reshape(*lead, m, m), None if Bb is None else Bb.reshape(*lead, k, m)
+
+
+def _chol_small_bwd_plain(L, Xt, L_bar, Xbar_t, full):
+    """The backward kernel's formulas in plain torch (csrc/chol_small.cu):
+    B_bar = L^-T X_bar (full: L^-T L^-1 X_bar), S = B_bar X^T,
+    G = tril(L_bar) - tril(S) (full: tril(L_bar)),
+    Y = L^-T Phi(tril(L^T G)) L^-1 (Phi halves the diagonal),
+    A_bar = (Y + Y^T) / 2 (full: minus (S + S^T) / 2)."""
+    G = torch.zeros_like(L) if L_bar is None else L_bar.tril()
+    S = Bbar_t = None
+    if Xbar_t is not None:
+        X_bar = Xbar_t.mT
+        B_bar = tri_solve(L, tri_solve(L, X_bar) if full else X_bar, trans=True)
+        S = matmul(B_bar, Xt)
+        Bbar_t = B_bar.mT
+        if not full:
+            G = G - S.tril()
+    P = matmul(L.mT, G).tril()
+    P = P - 0.5 * torch.diag_embed(torch.diagonal(P, dim1=-2, dim2=-1))
+    Z = tri_solve(L, P.mT, trans=True).mT  # P L^-1
+    Y = tri_solve(L, Z, trans=True)
+    A_bar = 0.5 * (Y + Y.mT)
+    if full and S is not None:
+        A_bar = A_bar - 0.5 * (S + S.mT)
+    return A_bar, Bbar_t
+
+
+class CholSolveSmall(torch.autograd.Function):
+    """(L, X) = (chol(A), L^-1 B), or with ``full`` (chol(A), A^-1 B), for
+    SPD A [..., m, m] (its lower triangle read) and B [..., m, k] of the same
+    leading dimensions, with the closed-form backward of
+    :func:`_chol_small_bwd_plain`. Only L and X are saved. On a card both
+    directions are one kernel launch each (csrc/chol_small.cu); on the CPU
+    the forward is :func:`chol_factor` and the triangular solves, and the
+    backward the kernel's formulas in torch, the kernels' oracle.
+
+    On a card X is the transpose of a contiguous [..., k, m] (so X^T, the
+    FITC model's V and W, is contiguous). A non-SPD A gives what
+    :func:`chol_factor` gives: NaN on and below the diagonal, 0 above, X and
+    the gradient NaN. A cotangent that does not reach the loss is not
+    materialized (None)."""
+
+    @staticmethod
+    def forward(ctx, A, B, full: bool = False):
+        ctx.set_materialize_grads(False)
+        ctx.full = full
+        if A.device.type == "cuda":
+            L, Xt = _chol_small_fwd_cuda(A, B.mT, full)
+            X = Xt.mT
+        else:
+            L = chol_factor(A)
+            X = chol_solve_from_factor(L, B) if full else tri_solve(L, B)
+        ctx.save_for_backward(L, X)
+        return L, X
+
+    @staticmethod
+    def backward(ctx, L_bar, X_bar):
+        L, X = ctx.saved_tensors
+        Xbar_t = None if X_bar is None else X_bar.mT
+        bwd = _chol_small_bwd_cuda if L.device.type == "cuda" else _chol_small_bwd_plain
+        A_bar, Bbar_t = bwd(L, X.mT, L_bar, Xbar_t, ctx.full)
+        return A_bar, None if Bbar_t is None else Bbar_t.mT, None
+
+
+def chol_small_path(A, B) -> str:
+    """"fused" for a CUDA float32 or float64 A with m <= CHOL_SMALL_MAX_M and
+    B of its dtype and leading dimensions, else "library"."""
+    fused = (A.device.type == "cuda" and A.dtype in gram_cuda.DTYPES and B.dtype == A.dtype
+             and A.shape[-1] <= CHOL_SMALL_MAX_M and A.shape[:-2] == B.shape[:-2])
+    return "fused" if fused else "library"
+
+
+def chol_solve_small(A, B, *, full: bool = False):
+    """(L, X) for SPD A [..., m, m] and B [..., m, k]: L = chol(A) and
+    X = L^-1 B, or with ``full`` X = A^-1 B.
+
+    The fused kernels (:class:`CholSolveSmall`) take the calls that
+    :func:`chol_small_path` names; every other call takes the library chain,
+    :func:`chol_factor` and :func:`tri_solve` (:func:`chol_solve_from_factor`),
+    which also broadcasts leading dimensions. ``CHOL_SMALL`` counts the calls
+    by path; each call is a ``chol.small`` span (path, m, k, batch: A's
+    leading dimensions' product or None, full)."""
+    m, k = A.shape[-1], B.shape[-1]
+    path = chol_small_path(A, B)
+    CHOL_SMALL[path] += 1
+    lead = A.shape[:-2]
+    with profiling.span("chol.small", A.device, path=path, m=m, k=k,
+                        batch=math.prod(lead) if lead else None, full=full):
+        if path == "fused":
+            return CholSolveSmall.apply(A, B, full)
+        L = chol_factor(A)
+        return L, chol_solve_from_factor(L, B) if full else tri_solve(L, B)
 
 
 def chol_solve(B, A):

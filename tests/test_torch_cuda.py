@@ -911,3 +911,123 @@ def test_parity_report_passes_on_cuda_in_float32_and_refuses_float64(dev):
 
     assert parity_report.main([]) == 0
     assert parity_report.main(["--dtype", "float64"]) == 0
+
+
+# ---- the small factor-and-solve (csrc/chol_small.cu) -----------------------------
+
+
+def _chol_small_inputs(m, k, lead, dev, dtype, seed):
+    """A well-conditioned SPD A (eigenvalues in [1, ~5]) and B, drawn in
+    float64 on the CPU and cast: the fp32 and fp64 kernels see one problem."""
+    g = torch.Generator().manual_seed(seed)
+    v = torch.randn((*lead, m, m), generator=g, dtype=torch.float64)
+    A = v @ v.mT / m + torch.eye(m, dtype=torch.float64)
+    B = torch.randn((*lead, m, k), generator=g, dtype=torch.float64)
+    return A.to(dev, dtype), B.to(dev, dtype)
+
+
+def _chol_small_vjp(A, B, full, cL, cX):
+    """(L, X, A_bar, B_bar) of CholSolveSmall (the kernels on a card, the
+    emulation on the CPU) under the cotangents cL and cX."""
+    A, B = A.detach().requires_grad_(), B.detach().requires_grad_()
+    L, X = linalg.CholSolveSmall.apply(A, B, full)
+    gA, gB = torch.autograd.grad((L * cL).sum() + (X * cX).sum(), (A, B))
+    return L.detach(), X.detach(), gA, gB
+
+
+CHOL_SMALL_SHAPES = ([(m, k, lead) for m in (1, 2, 20, linalg.CHOL_SMALL_MAX_M)
+                      for k in (1, 125, 500) for lead in ((), (4,), (3, 4))]
+                     + [(20, 500, (64,)), (20, 1, (64, 4)), (20, 9700, ()),
+                        (linalg.CHOL_SMALL_MAX_M, 500, (64,))])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("full", [False, True])
+@pytest.mark.parametrize("m,k,lead", CHOL_SMALL_SHAPES)
+def test_chol_small_kernels_match_the_emulation_and_float64(dev, dtype, full, m, k, lead):
+    """L, X and both gradients of the kernel pair against the CPU emulation
+    in float64 and against the emulation's formulas on the card in the
+    kernels' dtype: fp32 to 2e-5 (values) and 1e-4 (gradients: S sums k
+    products) of the largest reference entry, fp64 to 1e-11. A second call is
+    bitwise the first and A_bar is exactly symmetric."""
+    A, B = _chol_small_inputs(m, k, lead, dev, dtype, seed=100 * m + k)
+    g = torch.Generator().manual_seed(m + k)
+    cL = torch.randn(A.shape, generator=g, dtype=torch.float64)
+    cX = torch.randn(B.shape, generator=g, dtype=torch.float64)
+    got = _chol_small_vjp(A, B, full, cL.to(dev, dtype), cX.to(dev, dtype))
+    again = _chol_small_vjp(A, B, full, cL.to(dev, dtype), cX.to(dev, dtype))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(got[2], got[2].mT)
+    f64 = _chol_small_vjp(A.cpu().double(), B.cpu().double(), full, cL, cX)
+    L = linalg.chol_factor(A)
+    X = linalg.chol_solve_from_factor(L, B) if full else linalg.tri_solve(L, B)
+    A_bar, Bbar_t = linalg._chol_small_bwd_plain(L, X.mT, cL.to(dev, dtype),
+                                                 cX.to(dev, dtype).mT, full)
+    plain = (L, X, A_bar, Bbar_t.mT)
+    v_tol, g_tol = (2e-5, 1e-4) if dtype == torch.float32 else (1e-11, 1e-11)
+    for i, (a, want64, want) in enumerate(zip(got, f64, plain)):
+        tol = (v_tol if i < 2 else g_tol) * float(want64.abs().max())
+        assert a.dtype == dtype and torch.isfinite(a).all()
+        assert (a.double().cpu() - want64).abs().max() <= tol, (i, "float64")
+        assert (a - want).abs().max() <= 2 * tol, (i, "emulation")
+
+
+@pytest.mark.parametrize("full", [False, True])
+def test_chol_solve_small_past_the_kernels_m_is_the_library_chain(dev, full):
+    """m = 33 (past CHOL_SMALL_MAX_M, the kernels' 32): the dispatcher takes
+    the library chain, bit for bit, and counts it; the kernels refuse it."""
+    A, B = _chol_small_inputs(33, 125, (3, 4), dev, torch.float32, seed=33)
+    before = dict(linalg.CHOL_SMALL)
+    L, X = linalg.chol_solve_small(A, B, full=full)
+    assert linalg.CHOL_SMALL == {"fused": before["fused"], "library": before["library"] + 1}
+    Lw = linalg.chol_factor(A)
+    Xw = linalg.chol_solve_from_factor(Lw, B) if full else linalg.tri_solve(Lw, B)
+    assert torch.equal(L, Lw) and torch.equal(X, Xw)
+    with pytest.raises(ValueError, match="m <= 32"):
+        linalg.CholSolveSmall.apply(A, B, full)
+    # B of other leading dimensions than A's: the chain, which broadcasts; the
+    # kernels refuse it.
+    A, B = _chol_small_inputs(20, 125, (4,), dev, torch.float32, seed=20)
+    assert linalg.chol_small_path(A[0], B) == "library"
+    with pytest.raises(ValueError, match="same leading dimensions"):
+        linalg.CholSolveSmall.apply(A[0], B, full)
+
+
+@pytest.mark.parametrize("full", [False, True])
+def test_chol_small_kernels_fail_one_matrix_as_chol_factor(dev, full):
+    """A non-SPD matrix in a batch: its factor NaN on and below the diagonal
+    and 0 above, its X and gradients NaN; its neighbours finite and equal to
+    their own unbatched launches."""
+    A, B = _chol_small_inputs(20, 500, (4,), dev, torch.float32, seed=3)
+    A[2, 5, 5] = -3.0
+    A.requires_grad_()
+    B.requires_grad_()
+    L, X = linalg.CholSolveSmall.apply(A, B, full)
+    tri = torch.ones(20, 20, dtype=torch.bool, device=dev).tril()
+    assert torch.isnan(L[2][tri]).all() and (L[2][~tri] == 0).all() and torch.isnan(X[2]).all()
+    gA, gB = torch.autograd.grad(linalg.half_logdet(L).sum() + X.sum(), (A, B))
+    assert torch.isnan(gA[2]).all() and torch.isnan(gB[2]).all()
+    for i in (0, 1, 3):
+        L1, X1 = linalg.CholSolveSmall.apply(A[i].detach(), B[i].detach(), full)
+        assert torch.equal(L[i], L1) and torch.equal(X[i], X1)
+        assert torch.isfinite(gA[i]).all() and torch.isfinite(gB[i]).all()
+
+
+@pytest.mark.parametrize("rule", ["crps", "nlml", "logs", "dss", "kc"])
+def test_a_fitc_step_replayed_equals_its_eager_step_through_chol_small(dev, rule):
+    """Each FITC-20 rule's fit, replayed against eager, bit for bit (the
+    replays run the captured kernel pairs); an eager step makes 2 fused
+    calls (crps, nlml, logs: L_uu and L_M) or 3 (dss, kc: and the folds'
+    L_Mf), and none takes the library chain."""
+    fit = _graph_case(dev, "fitc", rule)
+    fit(3, False)  # warm
+    before = dict(linalg.CHOL_SMALL)
+    eager = fit(20, False)
+    assert linalg.CHOL_SMALL["library"] == before["library"]
+    per_step = (linalg.CHOL_SMALL["fused"] - before["fused"]) / 20
+    assert per_step == (3 if rule in ("dss", "kc") else 2)
+    replayed = fit(20, True)
+    assert torch.isfinite(eager.loss_history).all()
+    assert torch.equal(replayed.loss_history, eager.loss_history)
+    for f, want in eager.params.leaves().items():
+        assert torch.equal(replayed.params.leaves()[f], want), f

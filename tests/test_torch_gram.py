@@ -255,7 +255,7 @@ def test_build_raises_without_nvcc(monkeypatch):
 def test_build_key_covers_the_sources():
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR
-    assert [p.name for p in _build._sources()] == ["gram.cu"]
+    assert [p.name for p in _build._sources()] == ["chol_small.cu", "gram.cu"]
 
 
 # ---- the batch axis ----------------------------------------------------------

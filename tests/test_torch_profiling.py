@@ -67,8 +67,9 @@ def test_fit_gd_records_the_fit_and_its_eager_steps_on_the_cpu():
     assert fit.thread == eager.thread == threading.get_native_id()
     assert fit.start_ns <= eager.start_ns <= eager.end_ns <= fit.end_ns
     assert fit.device_ms is None and eager.device_ms is None  # no card: host only
-    # FITC takes no fused core; its Gram calls are spans of their own
-    assert {r.name for r in recs} == {"fit", "fit.eager", "gram.fwd", "gram.bwd"}
+    # FITC takes no fused core; its Gram calls and its small factor-and-solve
+    # pairs are spans of their own
+    assert {r.name for r in recs} == {"fit", "fit.eager", "gram.fwd", "gram.bwd", "chol.small"}
 
 
 def test_fit_optim_and_a_batched_fit_record_their_fits():
