@@ -717,8 +717,8 @@ def check_fwd_dchunk(dev, err):
                 outs = []
                 for _ in range(2):
                     out = torch.empty((n, m), dtype=dt, device=dev)
-                    gram_cuda._launch_fwd_dchunk(lib, [(0, 1, plan)], (xs, xps, sig, out), None,
-                                                 0, [0] * 4, n, m, d)
+                    gram_cuda._launch_plan(lib, torch.cuda.current_stream().cuda_stream, [plan],
+                                           (xs, xps, sig, None, out), [0] * 4, n, m, d)
                     outs.append(out)
                 e = float((outs[0] - want).abs().max())
                 assert torch.equal(*outs) and e <= f_tol, (n, m, d, dt, plan, e)
@@ -2724,8 +2724,8 @@ def analysis_surfaces(dev, err):
     parts = [gram_cuda.gram_fwd_cuda(*(a[s:s + half * BIG_GRID] for a in args[:3]))
              for s in (0, half * BIG_GRID)]
     assert bits_equal(K, torch.cat(parts)), "the chunked Gram is not its halves' Grams"
-    log(f"[analysis] {BIG_GRID}x{BIG_GRID} grid ({B} Grams, past {gram_cuda.MAX_BATCH}): two "
-        f"gram_fwd launches a surface ({gram_cuda.batch_chunks(B)}); all four surfaces finite and "
+    log(f"[analysis] {BIG_GRID}x{BIG_GRID} grid ({B} Grams, past {_build.MAX_BATCH}): two "
+        f"gram_fwd launches a surface ({_build.batch_chunks(B)}); all four surfaces finite and "
         f"bitwise the same grid in two calls of {half * BIG_GRID}, and so is the Gram")
     key = f"{B}x{N_CONTOUR}x{N_CONTOUR}x1"
     times[key] = check_and_time(key, ["gram_fwd"], args, (B, N_CONTOUR, N_CONTOUR, 1), err,

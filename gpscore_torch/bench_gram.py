@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from gpscore_torch.ops import gram_cuda
+from gpscore_torch.utils.profiling import device_events
 
 DEFAULT_SHAPES = [(500, 20, 8), (20, 20, 8), (500, 500, 8), (9700, 20, 8), (120, 120, 1),
                   (8192, 8192, 8)]
@@ -91,7 +92,6 @@ def device_ms(fn, reps=50, warmup=5, floor_ms=0.0):
     events (seen for a few minutes at a time there), the device time is not
     measured: (None, None), and the caller keeps its CUDA-event time alone,
     as at 30720², where the profiler drops that kernel's events."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -102,7 +102,7 @@ def device_ms(fn, reps=50, warmup=5, floor_ms=0.0):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        dev = device_events(prof)
         per_call = max(1, round(len(dev) / reps))
         calls_seen = len(dev) / per_call
         busy = sum(e.time_range.elapsed_us() for e in dev) / max(calls_seen, 1.0) / 1e3
@@ -188,8 +188,9 @@ def dchunk_call(cols, plan, xs, xps, sig, g):
     m = xps.shape[0]
     out = torch.empty((m if cols else n, d), dtype=xs.dtype, device=xs.device)
     row = None if cols else torch.empty(n, dtype=xs.dtype, device=xs.device)
-    gram_cuda._launch_dchunk(gram_cuda._build.load_library(), cols, [(0, plan)],
-                             (xs, xps, sig, g, out, row), [0] * 6, n, m, d)
+    gram_cuda._launch_plan(gram_cuda._build.load_library(),
+                           torch.cuda.current_stream().cuda_stream, [plan],
+                           (xs, xps, sig, g, out, row), [0] * 6, n, m, d)
     return out if cols else (out, row)
 
 
@@ -262,8 +263,8 @@ def time_fwd_tiles(shapes, dev, dtype=torch.float32, seed=99, log=print):
             out = torch.empty((n, m), dtype=dtype, device=dev)
 
             def fn(p=p, out=out):
-                gram_cuda._launch_fwd_dchunk(lib, [(0, 1, p)], (xs, xps, sig, out), None, 0,
-                                             [0] * 4, n, m, d)
+                gram_cuda._launch_plan(lib, torch.cuda.current_stream().cuda_stream, [p],
+                                       (xs, xps, sig, None, out), [0] * 4, n, m, d)
                 return out
 
             err = float((fn() - want).abs().max())

@@ -59,6 +59,7 @@ from gpscore_torch.fit import make_objective, objectives
 from gpscore_torch.ops.loo_fused import auto_block
 from gpscore_torch.utils.params import GPParams
 from gpscore_torch.utils.precision import MODES, matmul_mode
+from gpscore_torch.utils.profiling import device_events
 
 RULES = ("crps", "logs", "interval", "nlml", "dss", "kc", "es")
 FOLD_RULES = ("dss", "kc", "es")
@@ -130,7 +131,6 @@ def device_profile(fn):
     """One call of ``fn`` under torch.profiler: (device seconds summed over
     its CUDA events, {kind: seconds}, [(kernel name, seconds)] largest
     first, the call's host-clock seconds between device synchronizations)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -140,9 +140,8 @@ def device_profile(fn):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e6
+    for e in device_events(prof):
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e6
     by_kind = {kind: 0.0 for kind, _ in KERNEL_KINDS + (("other", ()),)}
     for name, sec in by_name.items():
         by_kind[kernel_kind(name)] += sec

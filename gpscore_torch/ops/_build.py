@@ -13,6 +13,9 @@ shared memory and spills of every kernel) is kept beside it as ``<lib>.log``.
 
 Nothing here runs on import: the CPU tests import every module, and the CPU
 has no ``nvcc``. A build that fails raises; there is no fallback.
+
+The one boundary to C: every kernel's Python side calls its entry point
+(:func:`entry`) through :func:`launch`.
 """
 
 from __future__ import annotations
@@ -24,6 +27,9 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import NamedTuple
+
+import torch
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
@@ -59,6 +65,9 @@ SIGNATURES = {
 }
 # The fp64 entry points take the same arguments as their fp32 namesakes.
 SIGNATURES.update({f"{name}_f64": args for name, args in list(SIGNATURES.items())})
+
+DTYPES = (torch.float32, torch.float64)  # the entry points' element types (entry)
+MAX_BATCH = 65535  # batch entries a launch: the grid's z extent (csrc/*.cu reject more)
 
 _loaded = {}  # "lib" -> ctypes.CDLL, "path" -> Path
 
@@ -130,3 +139,40 @@ def build_report() -> str:
     load_library()
     log = Path(f"{_loaded['path']}.log")
     return log.read_text() if log.exists() else ""
+
+
+def entry(lib, name: str, dtype):
+    """The C entry point ``name`` of ``lib`` for ``dtype``: the fp64 builds are ``<name>_f64``."""
+    return getattr(lib, name if dtype == torch.float32 else f"{name}_f64")
+
+
+def batch_chunks(batch: int):
+    """The launches of a call of ``batch`` entries, as (first entry, entries):
+    one launch up to MAX_BATCH, else consecutive launches of MAX_BATCH and one
+    of the rest. A call of no entries is one empty chunk."""
+    if batch <= MAX_BATCH:
+        return [(0, batch)]
+    return [(s, min(MAX_BATCH, batch - s)) for s in range(0, batch, MAX_BATCH)]
+
+
+class Batched(NamedTuple):
+    """An array argument of a launch, ``stride`` elements a batch entry (0: shared)."""
+
+    tensor: torch.Tensor
+    stride: int
+
+
+def launch(fn, batch: int, args, stream) -> int:
+    """Call the entry point ``fn`` as ``fn(*args(size), stream)`` once a chunk
+    of :func:`batch_chunks` (``batch``), ``size`` its entries, a
+    :class:`Batched` array in ``args(size)`` as its pointer at the chunk's
+    first entry; raise with ``fn``'s name on a nonzero return (a CUDA error).
+    Returns the launches. The caller gives ``fn`` and its stream: nothing
+    here touches CUDA."""
+    chunks = batch_chunks(batch)
+    for start, size in chunks:
+        rc = fn(*[a.tensor.data_ptr() + start * a.stride * a.tensor.element_size()
+                  if isinstance(a, Batched) else a for a in args(size)], stream)
+        if rc != 0:
+            raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error {rc}")
+    return len(chunks)

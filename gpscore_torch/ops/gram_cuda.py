@@ -47,11 +47,15 @@ launch, each batch's Gram independent of the others and bitwise what an
 unbatched launch on its inputs gives. An input may also come unbatched
 beside batched ones (xs [n, d], sig one value): every batch shares it, at a
 batch stride of 0. A call with no 3-D input is the unbatched call. The
-kernels take at most MAX_BATCH Grams a launch (the grid's z extent); a call
-of more launches them in consecutive chunks (:func:`batch_chunks`), each
-planned as a call of its own size, so a call of at most MAX_BATCH is one
-launch and every Gram of a larger call is computed as in a call of its
-chunk alone.
+kernels take at most ``_build.MAX_BATCH`` Grams a launch (the grid's z
+extent); a call of more launches them in consecutive chunks
+(:func:`_build.batch_chunks`), each planned as a call of its own size, so a
+call of at most MAX_BATCH is one launch and every Gram of a larger call is
+computed as in a call of its chunk alone.
+
+Each plan type names its C entry point (``entry``), its ``LAUNCHES`` key and
+the workspace it needs, and gives the entry's arguments in the order of
+``_build.SIGNATURES`` (``args``); :func:`_launch_plan` launches any plan.
 """
 
 from __future__ import annotations
@@ -73,7 +77,7 @@ LAUNCHES = {"fwd": 0, "bwd_rows": 0, "bwd_cols": 0, "fwd_dchunk": 0}
 # The widest d of the unchunked fp32 backward (csrc/gram.cu kMaxD), and the
 # d-chunk of the chunked builds: 256 bytes, 64 floats or 32 doubles.
 MAX_D = 64
-DTYPES = (torch.float32, torch.float64)
+DTYPES = _build.DTYPES
 THREADS = 256  # threads per block of every kernel (kThreads)
 COLS_TILE = 32  # gram_bwd_cols: columns per block (csrc/gram.cu kColsTile)
 COLS_STAGE_ROWS = 64  # gram_bwd_cols: rows per shared-memory stage (kColsStageRows)
@@ -85,7 +89,6 @@ ROWS_CHUNK_MIN_COLS = 1024  # gram_bwd_rows: fewest columns of a chunk, when the
 FWD_COLS_PER_THREAD = 4  # gram_fwd: one float4 of a row per thread (kFwdColsPerThread)
 FWD_COL_THREADS = (8, 16, 32, 64)  # gram_fwd: the column-thread counts it takes
 FWD_ROWS_PER_THREAD = (8, 4, 2, 1)  # gram_fwd: its instantiations, most rows first
-MAX_BATCH = 65535  # Grams a launch: the grid's z extent (csrc/gram.cu bad_batch)
 
 # The card's peaks for the roofline bound (NVIDIA's H100 SXM data sheet, dense,
 # at the 700 W limit): device memory bandwidth; fp32 outside the tensor cores
@@ -102,6 +105,12 @@ def max_unchunked_d(elem: int = 4) -> int:
     and the d-chunk of the chunked builds; gram_fwd's unchunked build takes
     the same d."""
     return MAX_D * 4 // elem
+
+
+def chunked(d: int, elem: int = 4) -> bool:
+    """Whether a call on d features of ``elem``-byte elements takes the
+    kernels' d-chunked builds: d past :func:`max_unchunked_d`."""
+    return d > max_unchunked_d(elem)
 
 
 def reset_launches() -> None:
@@ -173,6 +182,12 @@ class FwdPlan(NamedTuple):
     col_threads: int
     rows_per_thread: int
     launches: int  # kernel launches per call
+    batch: int = 1
+
+    entry, key, workspace = "gram_fwd", "fwd", None
+
+    def args(self, ptrs, ws, n, m, d, size, strides, out_type):
+        return (*ptrs, n, m, d, self.col_threads, self.rows_per_thread, out_type, size, *strides)
 
 
 def fwd_plan(n: int, m: int, d: int, sms: int, batch: int = 1, elem: int = 4) -> FwdPlan:
@@ -189,7 +204,7 @@ def fwd_plan(n: int, m: int, d: int, sms: int, batch: int = 1, elem: int = 4) ->
     most rows per thread that still gives every SM two blocks, counting the
     tiles of every batch: 8 where K is megabytes (32 x 256 outputs, 32 KB, a
     block), 1 at the main path's small Grams, whose time is the launch's."""
-    if d > max_unchunked_d(elem):
+    if chunked(d, elem):
         return fwd_dchunk_plan(n, m, d, sms, batch, elem)
     col_threads = next((c for c in FWD_COL_THREADS if FWD_COLS_PER_THREAD * c >= m),
                        FWD_COL_THREADS[-1])
@@ -201,7 +216,7 @@ def fwd_plan(n: int, m: int, d: int, sms: int, batch: int = 1, elem: int = 4) ->
         if blocks >= 2 * sms:
             break
     return FwdPlan(col_threads=col_threads, rows_per_thread=rt,
-                   launches=int(n > 0 and m > 0 and batch > 0))
+                   launches=int(n > 0 and m > 0 and batch > 0), batch=batch)
 
 
 class BwdRowsPlan(NamedTuple):
@@ -220,6 +235,13 @@ class BwdRowsPlan(NamedTuple):
     scratch_shape: Optional[Tuple[int, int, int]]
     launches: int  # kernel launches per call
     batch: int = 1  # Grams in the call: tickets and scratch are per batch
+
+    entry, key = "gram_bwd_rows", "bwd_rows"
+    workspace = property(lambda self: (self.row_tiles, self.scratch_shape))
+
+    def args(self, ptrs, ws, n, m, d, size, strides, out_type):
+        return (*ptrs, *ws, n, m, d, self.lanes_per_row, self.slices, self.stage_cols,
+                self.chunk_cols, size, *strides)
 
 
 def _round_up(v: int, k: int) -> int:
@@ -254,7 +276,7 @@ def bwd_rows_plan(n: int, m: int, d: int, sms: int, batch: int = 1,
     build takes one block an SM. Past ``max_unchunked_d(elem)`` the
     d-chunked kernel runs, under :func:`dchunk_plan`'s tiling (a
     :class:`DchunkPlan`)."""
-    if d > max_unchunked_d(elem):
+    if chunked(d, elem):
         return dchunk_plan(False, n, m, d, sms, batch, elem)
     resident = sms * THREADS * (2 if d <= 16 and elem == 4 else 1)
     step = min(ROWS_MAX_STEP, 1 << max(m - 1, 0).bit_length())
@@ -296,6 +318,13 @@ class BwdColsPlan(NamedTuple):
     launches: int  # kernel launches per call
     batch: int = 1  # Grams in the call: tickets and scratch are per batch
 
+    entry, key = "gram_bwd_cols", "bwd_cols"
+    workspace = property(lambda self: (self.col_tiles, self.scratch_shape))
+
+    def args(self, ptrs, ws, n, m, d, size, strides, out_type):
+        # The backward's arrays but the row sums, which this kernel does not take.
+        return (*ptrs[:5], *ws, n, m, d, self.chunk_rows, size, *strides[:5])
+
 
 def bwd_cols_plan(n: int, m: int, d: int, sms: int, batch: int = 1,
                   elem: int = 4) -> BwdColsPlan:
@@ -312,7 +341,7 @@ def bwd_cols_plan(n: int, m: int, d: int, sms: int, batch: int = 1,
     double-buffered, when there is work for that many blocks several times
     over. The chunks are summed inside the same launch, so a call is always
     one launch."""
-    if d > max_unchunked_d(elem):
+    if chunked(d, elem):
         return dchunk_plan(True, n, m, d, sms, batch, elem)
     col_tiles = -(-m // COLS_TILE)
     stages = max(1, -(-n // COLS_STAGE_ROWS))
@@ -372,6 +401,16 @@ class DchunkPlan(NamedTuple):
     scratch_shape: Optional[Tuple[int, int, int]]
     launches: int  # kernel launches per call
     batch: int = 1  # Grams in the call: tickets and scratch are per batch
+    cols: bool = False  # the column half (owned rows of xps); its launches count as bwd_cols
+
+    entry = "gram_bwd_dchunk"
+    key = property(lambda self: "bwd_cols" if self.cols else "bwd_rows")
+    workspace = property(lambda self: (self.tickets, self.scratch_shape))
+
+    def args(self, ptrs, ws, n, m, d, size, strides, out_type):
+        return (int(self.cols), int(self.wide), *ptrs, *ws, n, m, d, self.walk_threads,
+                self.own_threads, self.chunk, self.groups, self.group_width, self.threads,
+                size, *strides)
 
 
 def dchunk_sum_groups(n_chunks: int) -> int:
@@ -528,7 +567,7 @@ def dchunk_candidates(cols: bool, n: int, m: int, d: int, sms: int, batch: int =
             smem_bytes=smem, blocks=blocks,
             scratch_shape=((n_chunks + (n_sum if n_sum > 1 else 0), own, width)
                            if n_chunks > 1 else None),
-            launches=int(own > 0 and batch > 0), batch=batch)))
+            launches=int(own > 0 and batch > 0), batch=batch, cols=cols)))
     return out
 
 
@@ -586,6 +625,12 @@ class FwdDchunkPlan(NamedTuple):
     blocks: int
     launches: int  # kernel launches per call
     batch: int = 1
+
+    entry, key, workspace = "gram_fwd_dchunk", "fwd_dchunk", None
+
+    def args(self, ptrs, ws, n, m, d, size, strides, out_type):
+        return (*ptrs, n, m, d, self.tile, self.col_threads, self.row_threads, self.threads,
+                self.stage, out_type, size, *strides)
 
 
 def fwd_dchunk_smem(row_tile: int, col_tile: int, kc: int, d: int, elem: int = 4,
@@ -754,21 +799,6 @@ def gram_bwd_plain(xs, xps, sig, g):
 # ---- kernel wrappers ---------------------------------------------------------
 
 
-def batch_chunks(batch: int):
-    """The launches of a call of ``batch`` Grams, as (first Gram, Grams): one
-    launch up to MAX_BATCH, else consecutive launches of MAX_BATCH and one of
-    the rest. A call of no Grams is one empty chunk."""
-    if batch <= MAX_BATCH:
-        return [(0, batch)]
-    return [(s, min(MAX_BATCH, batch - s)) for s in range(0, batch, MAX_BATCH)]
-
-
-def _at(t, start: int, bstride: int) -> int:
-    """``t``'s data pointer at Gram ``start`` of its batch (batch stride
-    ``bstride`` elements; 0 for a shared input, which every chunk reads whole)."""
-    return t.data_ptr() + start * bstride * t.element_size()
-
-
 def _check(xs, xps, sig, g=None) -> Optional[int]:
     """Raise on what the kernels do not take: float32 or float64, every input
     of xs's dtype, row-major contiguous, [n, d] / [m, d] with d >= 1, one sig
@@ -817,22 +847,13 @@ def _require_cuda(t):
         raise ValueError(f"gram kernel takes CUDA tensors, got {t.device}")
 
 
-def _raise_if_failed(name, rc):
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-
-
 @functools.lru_cache(maxsize=1024)
-def _device_plan(plan, device, n, m, d, batch=1, elem=4):
+def _device_plans(device, n, m, d, batch, elem, plan):
     """``plan`` (:func:`fwd_plan`, :func:`bwd_rows_plan`, :func:`bwd_cols_plan`)
-    for the card ``device``, looked up once per shape, batch and element size."""
-    return plan(n, m, d, torch.cuda.get_device_properties(device).multi_processor_count, batch,
-                elem=elem)
-
-
-def _entry(lib, name, dtype):
-    """The C entry point ``name`` for ``dtype``: the fp64 builds are ``<name>_f64``."""
-    return getattr(lib, name if dtype == torch.float32 else f"{name}_f64")
+    of each chunk of :func:`_build.batch_chunks` (``batch``) for the card
+    ``device``, looked up once per shape, batch and element size."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return tuple(plan(n, m, d, sms, size, elem=elem) for _, size in _build.batch_chunks(batch))
 
 
 # The backward kernels' workspace by (device, stream, dtype), shared by both: the
@@ -870,15 +891,39 @@ def _workspace(device, stream, tiles, scratch_shape, batch=1, dtype=torch.float3
 OUT_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
+def _launch_plan(lib, stream, plans, arrays, strides, n, m, d, out_type=0):
+    """Launch ``plans`` (one for each chunk of :func:`_build.batch_chunks` of
+    their Grams; ``[plan]`` to force one) on ``stream`` through
+    :func:`_build.launch`. ``arrays``: the entry's, each a tensor at the next
+    of ``strides`` (its batch stride, which the entry also takes), a raw
+    pointer or None. Sizes a backward plan's workspace for every chunk first;
+    counts the launches under the plan's ``LAUNCHES`` key."""
+    first = plans[0]
+    if not first.launches:  # an empty K, or no rows or no columns
+        return
+    x = arrays[0]
+    ws = ()
+    for plan in plans:  # one workspace, sized for the largest chunk
+        if plan.workspace is not None:
+            ticket, scratch = _workspace(x.device, stream, *plan.workspace, plan.batch, x.dtype)
+            ws = (scratch.data_ptr(), ticket.data_ptr())
+    it = iter(strides)
+    ptrs = [_build.Batched(a, next(it)) if isinstance(a, torch.Tensor) else a for a in arrays]
+    by_size = {plan.batch: plan for plan in plans}
+    LAUNCHES[first.key] += _build.launch(
+        _build.entry(lib, first.entry, x.dtype), sum(plan.batch for plan in plans),
+        lambda size: by_size[size].args(ptrs, ws, n, m, d, size, strides, out_type), stream)
+
+
 def gram_fwd_cuda(xs, xps, sig, out_dtype=None, diag_add=None):
     """K [n, m] (or [B, n, m]) from the forward kernel, one launch a chunk
-    of :func:`batch_chunks`, tiled by :func:`fwd_plan` (past max_unchunked_d
-    the d-chunked kernel, :func:`fwd_dchunk_plan`), in ``out_dtype``
-    (None: the inputs' dtype; from float32 inputs also bfloat16 or float16,
-    from float64 ones float64 only), with the scalar tensor ``diag_add``
-    added where i == j before the one rounding: inside the kernel for a
-    2-byte K, by one add after it for an fp32 or fp64 K (those kernels carry
-    no diagonal code)."""
+    of :func:`_build.batch_chunks`, tiled by :func:`fwd_plan` (past
+    max_unchunked_d the d-chunked kernel, :func:`fwd_dchunk_plan`), in
+    ``out_dtype`` (None: the inputs' dtype; from float32 inputs also bfloat16
+    or float16, from float64 ones float64 only), with the scalar tensor
+    ``diag_add`` added where i == j before the one rounding: inside the
+    kernel for a 2-byte K, by one add after it for an fp32 or fp64 K (those
+    kernels carry no diagonal code)."""
     _require_cuda(xs)
     batch = _check(xs, xps, sig)
     out_dtype = xs.dtype if out_dtype is None else out_dtype
@@ -890,167 +935,78 @@ def gram_fwd_cuda(xs, xps, sig, out_dtype=None, diag_add=None):
         raise ValueError(f"diag_add must hold one value, got shape {tuple(diag_add.shape)}")
     if diag_add is not None:
         _check(xs, xps, diag_add)
-    lib = _build.load_library()
     n, d = xs.shape[-2:]
     m = xps.shape[-2]
-    shape = (n, m) if batch is None else (batch, n, m)
-    out = torch.empty(shape, dtype=out_dtype, device=xs.device)
-    elem = xs.element_size()
-    chunks = [(start, size, _device_plan(fwd_plan, xs.device, n, m, d, size, elem))
-              for start, size in batch_chunks(batch or 1)]
-    if not chunks[0][2].launches:  # an empty K
-        return out
+    out = torch.empty((n, m) if batch is None else (batch, n, m), dtype=out_dtype, device=xs.device)
     in_kernel = diag_add is not None and out_dtype not in DTYPES
     diag = diag_add.data_ptr() if in_kernel else None
     bs = [_bstride(t, batch) for t in (xs, xps, sig, out)]
-    if isinstance(chunks[0][2], FwdDchunkPlan):
-        _launch_fwd_dchunk(lib, chunks, (xs, xps, sig, out), diag, allowed[out_dtype], bs,
-                           n, m, d)
-    else:
-        launch = _entry(lib, "gram_fwd", xs.dtype)
-        with torch.cuda.device(xs.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            for start, size, plan in chunks:
-                ptrs = [_at(t, start, b) for t, b in zip((xs, xps, sig, out), bs)]
-                rc = launch(*ptrs[:3], diag, ptrs[3], n, m, d, plan.col_threads,
-                            plan.rows_per_thread, allowed[out_dtype], size, *bs, stream)
-                _raise_if_failed("gram_fwd", rc)
-                LAUNCHES["fwd"] += 1
+    with torch.cuda.device(xs.device):
+        _launch_plan(_build.load_library(), torch.cuda.current_stream().cuda_stream,
+                     _device_plans(xs.device, n, m, d, batch or 1, xs.element_size(), fwd_plan),
+                     (xs, xps, sig, diag, out), bs, n, m, d, allowed[out_dtype])
     if diag_add is not None and not in_kernel:
         out.diagonal(dim1=-2, dim2=-1).add_(diag_add)
     return out
 
 
-def _launch_fwd_dchunk(lib, chunks, arrays, diag, out_type, bs, n, m, d):
-    """The d-chunked forward over the batch chunks [(first Gram, Grams,
-    FwdDchunkPlan)]: ``arrays`` are (xs, xps, sig, out), ``bs`` their batch
-    strides, ``diag`` the diagonal's pointer (a 2-byte K) or None."""
-    xs = arrays[0]
-    launch = _entry(lib, "gram_fwd_dchunk", xs.dtype)
+def _gram_bwd(xs, xps, sig, g, rows=True, cols=True):
+    """(d_xs, d_xps, rowsum) from the row kernel (without ``rows`` None, None)
+    and the column kernel (without ``cols`` None), after one check, library
+    load and stream lookup: tiled by :func:`bwd_rows_plan` and
+    :func:`bwd_cols_plan`; [B, n, d], [B, m, d] and [B, n] batched."""
+    _require_cuda(xs)
+    batch = _check(xs, xps, sig, g)
+    lib = _build.load_library()
+    n, d = xs.shape[-2:]
+    m = xps.shape[-2]
+    lead = () if batch is None else (batch,)
+    new = functools.partial(torch.empty, dtype=xs.dtype, device=xs.device)
+    shared = [_bstride(t, batch) for t in (xs, xps, sig, g)]
+    plans = functools.partial(_device_plans, xs.device, n, m, d, batch or 1, xs.element_size())
+    d_xs = row = d_xps = None
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream().cuda_stream
-        for start, size, plan in chunks:
-            ptrs = [_at(t, start, b) for t, b in zip(arrays, bs)]
-            rc = launch(*ptrs[:3], diag, ptrs[3], n, m, d, plan.tile, plan.col_threads,
-                        plan.row_threads, plan.threads, plan.stage, out_type, size, *bs, stream)
-            _raise_if_failed("gram_fwd_dchunk", rc)
-            LAUNCHES["fwd_dchunk"] += 1
-
-
-def _launch_dchunk(lib, cols, chunks, arrays, bs, n, m, d):
-    """The d-chunked kernel (the column half when ``cols``) over the batch
-    chunks [(first Gram, DchunkPlan)]: ``arrays`` are (xs, xps, sig, g, out,
-    rowsum or None), ``bs`` their batch strides."""
-    xs = arrays[0]
-    launch = _entry(lib, "gram_bwd_dchunk", xs.dtype)
-    name = "bwd_cols" if cols else "bwd_rows"
-    with torch.cuda.device(xs.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for _, plan in chunks:  # one workspace, sized for the largest chunk
-            ticket, scratch = _workspace(xs.device, stream, plan.tickets, plan.scratch_shape,
-                                         plan.batch, xs.dtype)
-        for start, plan in chunks:
-            ptrs = [None if t is None else _at(t, start, b) for t, b in zip(arrays, bs)]
-            rc = launch(int(cols), int(plan.wide), *ptrs, scratch.data_ptr(), ticket.data_ptr(),
-                        n, m, d,
-                        plan.walk_threads, plan.own_threads, plan.chunk, plan.groups,
-                        plan.group_width, plan.threads, plan.batch, *bs, stream)
-            _raise_if_failed(f"gram_{name}", rc)
-            LAUNCHES[name] += 1
+        if rows:
+            d_xs, row = new((*lead, n, d)), new((*lead, n))
+            _launch_plan(lib, stream, plans(bwd_rows_plan), (xs, xps, sig, g, d_xs, row),
+                         shared + [_bstride(d_xs, batch), 0 if batch is None else n], n, m, d)
+        if cols:
+            d_xps = new((*lead, m, d))
+            _launch_plan(lib, stream, plans(bwd_cols_plan), (xs, xps, sig, g, d_xps, None),
+                         shared + [_bstride(d_xps, batch), 0], n, m, d)
+    return d_xs, d_xps, row
 
 
 def gram_bwd_rows_cuda(xs, xps, sig, g):
-    """(d_xs, rowsum) from the row kernel of the backward: one launch a
-    chunk of :func:`batch_chunks`, tiled by :func:`bwd_rows_plan` (past
-    max_unchunked_d the d-chunked kernel, :func:`dchunk_plan`); [B, n, d]
-    and [B, n] for a batched call."""
-    _require_cuda(xs)
-    batch = _check(xs, xps, sig, g)
-    lib = _build.load_library()
-    n, d = xs.shape[-2:]
-    m = xps.shape[-2]
-    lead = () if batch is None else (batch,)
-    d_xs = torch.empty((*lead, n, d), dtype=xs.dtype, device=xs.device)
-    row = torch.empty((*lead, n), dtype=xs.dtype, device=xs.device)
-    chunks = [(start, _device_plan(bwd_rows_plan, xs.device, n, m, d, size, xs.element_size()))
-              for start, size in batch_chunks(batch or 1)]
-    if not chunks[0][1].launches:  # no rows
-        return d_xs, row
-    bs = [_bstride(t, batch) for t in (xs, xps, sig, g, d_xs)] + [0 if batch is None else n]
-    if isinstance(chunks[0][1], DchunkPlan):
-        _launch_dchunk(lib, False, chunks, (xs, xps, sig, g, d_xs, row), bs, n, m, d)
-        return d_xs, row
-    launch = _entry(lib, "gram_bwd_rows", xs.dtype)
-    with torch.cuda.device(xs.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for _, plan in chunks:  # one workspace, sized for the largest chunk
-            ticket, scratch = _workspace(xs.device, stream, plan.row_tiles, plan.scratch_shape,
-                                         plan.batch, xs.dtype)
-        for start, plan in chunks:
-            ptrs = [_at(t, start, b) for t, b in zip((xs, xps, sig, g, d_xs, row), bs)]
-            rc = launch(*ptrs, scratch.data_ptr(), ticket.data_ptr(), n, m, d,
-                        plan.lanes_per_row, plan.slices, plan.stage_cols,
-                        plan.chunk_cols, plan.batch, *bs, stream)
-            _raise_if_failed("gram_bwd_rows", rc)
-            LAUNCHES["bwd_rows"] += 1
-    return d_xs, row
+    """(d_xs, rowsum) from the row kernel of the backward (:func:`_gram_bwd`)."""
+    return _gram_bwd(xs, xps, sig, g, cols=False)[::2]
 
 
 def gram_bwd_cols_cuda(xs, xps, sig, g):
-    """d_xps from the column kernel of the backward: one launch a chunk of
-    :func:`batch_chunks`, cut by :func:`bwd_cols_plan` (past max_unchunked_d
-    the d-chunked kernel, :func:`dchunk_plan`); [B, m, d] for a batched
-    call."""
-    _require_cuda(xs)
-    batch = _check(xs, xps, sig, g)
-    lib = _build.load_library()
-    n, d = xs.shape[-2:]
-    m = xps.shape[-2]
-    lead = () if batch is None else (batch,)
-    d_xps = torch.empty((*lead, m, d), dtype=xs.dtype, device=xs.device)
-    chunks = [(start, _device_plan(bwd_cols_plan, xs.device, n, m, d, size, xs.element_size()))
-              for start, size in batch_chunks(batch or 1)]
-    if not chunks[0][1].launches:  # no columns
-        return d_xps
-    bs = [_bstride(t, batch) for t in (xs, xps, sig, g, d_xps)]
-    if isinstance(chunks[0][1], DchunkPlan):
-        _launch_dchunk(lib, True, chunks, (xs, xps, sig, g, d_xps, None), bs + [0], n, m, d)
-        return d_xps
-    launch = _entry(lib, "gram_bwd_cols", xs.dtype)
-    with torch.cuda.device(xs.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for _, plan in chunks:  # one workspace, sized for the largest chunk
-            ticket, scratch = _workspace(xs.device, stream, plan.col_tiles, plan.scratch_shape,
-                                         plan.batch, xs.dtype)
-        for start, plan in chunks:
-            ptrs = [_at(t, start, b) for t, b in zip((xs, xps, sig, g, d_xps), bs)]
-            rc = launch(*ptrs, scratch.data_ptr(), ticket.data_ptr(), n, m, d,
-                        plan.chunk_rows, plan.batch, *bs, stream)
-            _raise_if_failed("gram_bwd_cols", rc)
-            LAUNCHES["bwd_cols"] += 1
-    return d_xps
+    """d_xps from the column kernel of the backward (:func:`_gram_bwd`)."""
+    return _gram_bwd(xs, xps, sig, g, rows=False)[1]
 
 
 def gram_bwd_cuda(xs, xps, sig, g):
-    """(d_xs, d_xps, rowsum) from the two backward kernels."""
-    d_xs, row = gram_bwd_rows_cuda(xs, xps, sig, g)
-    return d_xs, gram_bwd_cols_cuda(xs, xps, sig, g), row
+    """(d_xs, d_xps, rowsum) from the two backward kernels (:func:`_gram_bwd`)."""
+    return _gram_bwd(xs, xps, sig, g)
 
 
 def _span(name, xs, xps, g=None):
     """The span of one dispatcher call. Attributes: ``kernel``, the
     ``LAUNCHES`` keys the call adds on a card ("fwd" or "fwd_dchunk"; the
     backward ("bwd_rows", "bwd_cols")); the shape ``n``, ``m``, ``d`` and
-    ``batch`` (None unbatched); ``chunked``, d past :func:`max_unchunked_d`."""
+    ``batch`` (None unbatched); ``chunked``, :func:`chunked`."""
     n, d = xs.shape[-2:]
-    chunked = d > max_unchunked_d(xs.element_size())
+    is_chunked = chunked(d, xs.element_size())
     if g is None:
-        kernel = "fwd_dchunk" if chunked else "fwd"
+        kernel = "fwd_dchunk" if is_chunked else "fwd"
     else:
         kernel = ("bwd_rows", "bwd_cols")
     batch = next((t.shape[0] for t in (xs, xps, g) if t is not None and t.dim() == 3), None)
     return profiling.span(name, xs.device, kernel=kernel, n=n, m=xps.shape[-2], d=d,
-                          batch=batch, chunked=chunked)
+                          batch=batch, chunked=is_chunked)
 
 
 def gram_fwd(xs, xps, sig, out_dtype=None, diag_add=None):

@@ -29,7 +29,7 @@ import math
 
 import torch
 
-from gpscore_torch.ops import _build, gram_cuda
+from gpscore_torch.ops import _build
 from gpscore_torch.utils import profiling
 from gpscore_torch.utils.precision import matmul
 
@@ -82,23 +82,20 @@ def chol_small_tile_rows(k: int) -> int:
 
 def _chol_small_launch(name, arrays, m, k, full):
     """Launch the kernel ``name`` on ``arrays`` ([batch, ., m] tensors or
-    None, in the entry point's order), one launch a chunk of
-    :func:`gram_cuda.batch_chunks`."""
+    None, in the entry point's order) through :func:`_build.launch`."""
     first = arrays[0]
-    if first.dtype not in gram_cuda.DTYPES or any(
+    if first.dtype not in _build.DTYPES or any(
             a is not None and (a.dtype != first.dtype or a.device != first.device)
             for a in arrays):
         raise TypeError(f"{name} takes float32 or float64 CUDA tensors of one dtype")
     if not 1 <= m <= CHOL_SMALL_MAX_M:
         raise ValueError(f"{name} takes 1 <= m <= {CHOL_SMALL_MAX_M}, got m = {m}")
-    lib = _build.load_library()
-    launch = gram_cuda._entry(lib, name, first.dtype)
-    rows = chol_small_tile_rows(k)
+    fn = _build.entry(_build.load_library(), name, first.dtype)
+    ptrs = [None if a is None else _build.Batched(a, a.stride(0)) for a in arrays]
+    args = (*ptrs, m, k, int(full), chol_small_tile_rows(k))
     with torch.cuda.device(first.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for start, size in gram_cuda.batch_chunks(first.shape[0]):
-            ptrs = [None if a is None else gram_cuda._at(a, start, a.stride(0)) for a in arrays]
-            gram_cuda._raise_if_failed(name, launch(*ptrs, m, k, int(full), rows, size, stream))
+        _build.launch(fn, first.shape[0], lambda size: (*args, size),
+                      torch.cuda.current_stream().cuda_stream)
 
 
 def _chol_small_fwd_cuda(A, Bt, full):
@@ -191,7 +188,7 @@ class CholSolveSmall(torch.autograd.Function):
 def chol_small_path(A, B) -> str:
     """"fused" for a CUDA float32 or float64 A with m <= CHOL_SMALL_MAX_M and
     B of its dtype and leading dimensions, else "library"."""
-    fused = (A.device.type == "cuda" and A.dtype in gram_cuda.DTYPES and B.dtype == A.dtype
+    fused = (A.device.type == "cuda" and A.dtype in _build.DTYPES and B.dtype == A.dtype
              and A.shape[-1] <= CHOL_SMALL_MAX_M and A.shape[:-2] == B.shape[:-2])
     return "fused" if fused else "library"
 

@@ -109,8 +109,8 @@ def test_every_dchunk_tiling_matches_plain(dev, dtype, n, m, d):
                 out = torch.empty_like(ref[0])
                 row = None if cols else torch.empty_like(ref[1])
                 gram_cuda.reset_launches()
-                gram_cuda._launch_dchunk(lib, cols, [(0, plan)], (xs, xps, sig, g, out, row),
-                                         [0] * 6, n, m, d)
+                gram_cuda._launch_plan(lib, torch.cuda.current_stream().cuda_stream, [plan],
+                                       (xs, xps, sig, g, out, row), [0] * 6, n, m, d)
                 assert sum(gram_cuda.LAUNCHES.values()) == 1
                 outs.append((out,) if cols else (out, row))
             for a, b, w in zip(*outs, ref):
@@ -137,9 +137,9 @@ def _fwd_dchunk_call(plan, xs, xps, sig, out_dtype=None, diag_add=None):
     m = xps.shape[0]
     out = torch.empty((n, m), dtype=out_dtype or xs.dtype, device=xs.device)
     in_kernel = diag_add is not None and out.dtype not in gram_cuda.DTYPES
-    gram_cuda._launch_fwd_dchunk(_build.load_library(), [(0, 1, plan)], (xs, xps, sig, out),
-                                 diag_add.data_ptr() if in_kernel else None,
-                                 gram_cuda.OUT_TYPES.get(out.dtype, 0), [0] * 4, n, m, d)
+    gram_cuda._launch_plan(_build.load_library(), torch.cuda.current_stream().cuda_stream, [plan],
+                           (xs, xps, sig, diag_add.data_ptr() if in_kernel else None, out),
+                           [0] * 4, n, m, d, gram_cuda.OUT_TYPES.get(out.dtype, 0))
     if diag_add is not None and not in_kernel:
         out.diagonal().add_(diag_add)
     return out
@@ -869,7 +869,7 @@ def test_a_batch_past_the_grid_limit_launches_in_chunks(dev, B, shared):
     xps = torch.tensor(rng.uniform(-1, 1, (B, m, d)).astype(np.float32), device=dev)
     sig = torch.tensor(rng.uniform(0.5, 2.0, B).astype(np.float32), device=dev)
     g = torch.tensor(rng.standard_normal((B, n, m)).astype(np.float32), device=dev)
-    chunks = gram_cuda.batch_chunks(B)
+    chunks = _build.batch_chunks(B)
     calls = {"fwd": lambda *a: (gram_cuda.gram_fwd_cuda(*a[:3]),),
              "bwd_rows": gram_cuda.gram_bwd_rows_cuda,
              "bwd_cols": lambda *a: (gram_cuda.gram_bwd_cols_cuda(*a),)}

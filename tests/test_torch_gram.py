@@ -258,6 +258,96 @@ def test_build_key_covers_the_sources():
     assert [p.name for p in _build._sources()] == ["chol_small.cu", "gram.cu"]
 
 
+@pytest.mark.parametrize("batch,chunks", [
+    (0, [(0, 0)]),                    # no Grams: one empty chunk, which launches nothing
+    (1, [(0, 1)]),
+    (65535, [(0, 65535)]),            # the grid's z limit: still one launch
+    (65536, [(0, 65535), (65535, 1)]),
+    (200000, [(0, 65535), (65535, 65535), (131070, 65535), (196605, 3395)]),
+])
+def test_batch_chunks_cut_a_call_at_the_grids_z_limit(batch, chunks):
+    """A call of more than 65,535 Grams launches in consecutive chunks that
+    cover the batch once, in order; up to the limit it is one launch."""
+    assert _build.MAX_BATCH == 65535
+    got = _build.batch_chunks(batch)
+    assert got == chunks
+    assert sum(size for _, size in got) == batch
+    assert all(s == prev + size for (prev, size), (s, _) in zip(got, got[1:]))
+
+
+@pytest.mark.parametrize("case,batch,stride,chunks", [
+    ("unbatched", 1, 0, [(0, 1)]),
+    ("shared", 3, 2, [(0, 3)]),
+    ("past_max_batch", 65535 + 2, 2, [(0, 65535), (65535, 2)]),
+    ("error", 1, 0, [(0, 1)]),
+])
+def test_launch_calls_the_entry_once_a_chunk(case, batch, stride, chunks):
+    """_build.launch, the one loop that calls a C entry point, with a fake
+    entry that records its arguments: one call a chunk of batch_chunks, each
+    Batched array's pointer at its chunk's first entry (a shared one, stride
+    0, whole every time), the chunk's size where the arguments put it, the
+    stream last; a nonzero code raises with the entry's name."""
+    calls = []
+
+    def fake_entry(*args):
+        calls.append(args)
+        return 700 if case == "error" else 0
+
+    xs, sig = torch.zeros(batch, 2), torch.ones(())
+    args = lambda size: (_build.Batched(xs, stride), _build.Batched(sig, 0), None, 9, size)
+    if case == "error":
+        with pytest.raises(RuntimeError, match="fake_entry kernel launch failed: CUDA error 700"):
+            _build.launch(fake_entry, batch, args, 5)
+        assert len(calls) == 1
+        return
+    assert _build.launch(fake_entry, batch, args, 5) == len(chunks)
+    assert calls == [(xs.data_ptr() + 4 * stride * start, sig.data_ptr(), None, 9, size, 5)
+                     for start, size in chunks]
+
+
+@pytest.mark.parametrize("d,dtype", [(8, torch.float32), (90, torch.float32),
+                                     (8, torch.float64), (40, torch.float64)])
+def test_launch_plan_gives_each_plan_its_entrys_arguments(monkeypatch, d, dtype):
+    """gram_cuda._launch_plan on CPU tensors and a fake library: each plan
+    (the forward and both backward halves, unchunked at d = 8, d-chunked
+    past max_unchunked_d) calls the entry point it names, for the dtype, with
+    the arguments csrc declares (_build.SIGNATURES, each taken by its ctypes
+    type), xs's pointer where the entry reads it, and one launch under the
+    plan's LAUNCHES key."""
+    calls = []
+
+    class FakeLib:
+        def __getattr__(self, name):
+            def entry(*args):
+                calls.append((name, args))
+                return 0
+            entry.__name__ = name
+            return entry
+
+    monkeypatch.setattr(gram_cuda, "LAUNCHES", dict.fromkeys(gram_cuda.LAUNCHES, 0))
+    monkeypatch.setattr(gram_cuda, "_WORKSPACES", {})
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
+    n, m, elem = 20, 16, torch.tensor([], dtype=dtype).element_size()
+    xs, xps, g = (torch.zeros(shape, dtype=dtype) for shape in ((n, d), (m, d), (n, m)))
+    sig, out, row = (torch.ones(s, dtype=dtype) for s in ((), (n, m), (n,)))
+    launches = [(gram_cuda.fwd_plan, (xs, xps, sig, None, out), 4),
+                (gram_cuda.bwd_rows_plan, (xs, xps, sig, g, xs.clone(), row), 6),
+                (gram_cuda.bwd_cols_plan, (xs, xps, sig, g, xps.clone(), None), 6)]
+    for planner, arrays, k in launches:
+        plan = planner(n, m, d, 132, elem=elem)
+        gram_cuda._launch_plan(FakeLib(), 0, [plan], arrays, [0] * k, n, m, d)
+        name, args = calls[-1]
+        assert name == plan.entry + ("_f64" if dtype == torch.float64 else "")
+        assert len(args) == len(_build.SIGNATURES[name])
+        for argtype, a in zip(_build.SIGNATURES[name], args):
+            argtype.from_param(a)
+        first = 2 if plan.entry == "gram_bwd_dchunk" else 0
+        assert args[first] == xs.data_ptr() and args[-1] == 0
+    chunked = gram_cuda.chunked(d, elem)
+    assert gram_cuda.LAUNCHES == {"fwd": int(not chunked), "fwd_dchunk": int(chunked),
+                                  "bwd_rows": 1, "bwd_cols": 1}
+
+
 # ---- the batch axis ----------------------------------------------------------
 
 
